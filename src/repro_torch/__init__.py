@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the ``repro`` package (the JAX reference).
+
+The layout mirrors ``src/repro/`` module for module, so each counterpart is
+found under the same path. Parameter trees keep the JAX layouts (dense ``w``
+is ``(in, out)``) and the ``jax.flatten_util.ravel_pytree`` flat order, so a
+flat update vector means the same thing in both packages.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; without
+a card they raise instead of falling back (:func:`repro_torch.device.resolve`).
+The four codec kernels on the main path are hand-written CUDA for Hopper
+(``csrc/``), each beside its plain PyTorch version (``kernels/ref.py``).
+This package never imports ``jax`` or anything of ``repro``.
+"""

@@ -1,0 +1,41 @@
+"""FedAvg aggregation over decoded collaborator updates (port of the parts
+of ``repro.core.aggregate`` the synchronous path uses)."""
+from __future__ import annotations
+
+from typing import Any, List, Sequence
+
+import torch
+
+from repro_torch.core.pytree import tree_map
+
+Tree = Any
+
+
+def normalize_weights(weights: Sequence[float]) -> List[float]:
+    """Host-side normalization in Python floats, shared by every
+    aggregation path so they agree bit for bit on the weights."""
+    total = float(sum(weights))
+    return [float(w) / total for w in weights]
+
+
+def weighted_mean_stacked(stacked: Tree, weights: Sequence[float], *,
+                          normalized: bool = False) -> Tree:
+    """Weighted mean over the leading client axis of every leaf: one einsum
+    per leaf, weights normalized on the host unless they already are."""
+    if not normalized:
+        weights = normalize_weights(weights)
+    w = torch.tensor(weights, dtype=torch.float32)
+
+    def combine(leaf):
+        m = torch.einsum("c,c...->...", w.to(leaf.device), leaf.float())
+        return m.to(leaf.dtype)
+
+    return tree_map(combine, stacked)
+
+
+@torch.no_grad()
+def apply_update(global_params: Tree, mean_update: Tree,
+                 server_lr: float = 1.0) -> Tree:
+    return tree_map(
+        lambda p, u: (p.float() + server_lr * u.float()).to(p.dtype),
+        global_params, mean_update)

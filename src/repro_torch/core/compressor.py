@@ -1,0 +1,140 @@
+"""Weight-update compressors: the collaborator→aggregator codec API (port of
+``repro.core.compressor`` for Identity, Quantize, FCAE and ChunkedAE).
+
+Each compressor is a thin host-side adapter over ``core/codec.py``: a
+static ``spec(n)`` plus its AE params; the math is ``codec.encode`` /
+``codec.decode`` on the update flattened in JAX order (``core/pytree.py``).
+Payload dtypes are the reference's (int8 ``q``, float32 scales, uint8
+nibbles), and :func:`tree_bytes` prices them by dtype, so byte totals are
+identical in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.paper import AEConfig
+from repro_torch.core import autoencoder as ae
+from repro_torch.core import codec
+from repro_torch.core.pytree import leaves, ravel, tree_map
+
+Tree = Any
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Wire size of a payload tree: the sum of its leaves' bytes."""
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def codec_stats(flat: torch.Tensor, payload: Tree) -> Dict[str, float]:
+    """The Eq.-4 byte accounting for one encoded update, in the reference's
+    keys. Every ported spec is shape-static, so the measured-bytes channel
+    equals the compressed bytes."""
+    stats = {
+        "original_bytes": float(flat.numel() * flat.element_size()),
+        "compressed_bytes": float(tree_bytes(payload)),
+    }
+    stats["compression_ratio"] = (
+        stats["original_bytes"] / max(stats["compressed_bytes"], 1.0))
+    stats["measured_bytes"] = stats["compressed_bytes"]
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Error feedback (DGC/EF-SGD style): the residual is per-client state owned
+# by the scheduler's ClientState (DESIGN.md §6.3).
+# ---------------------------------------------------------------------------
+def ef_compensate(payload: Tree, residual: Optional[Tree]) -> Tree:
+    """Fold the previous round's reconstruction residual into this payload."""
+    if residual is None:
+        return payload
+    return tree_map(lambda u, res: u + res, payload, residual)
+
+
+def ef_residual(payload: Tree, decoded: Tree) -> Tree:
+    """What the codec lost this round: kept locally, re-sent next round."""
+    return tree_map(lambda u, d: u - d, payload, decoded)
+
+
+class Compressor:
+    """Base codec adapter over update trees: subclasses give :meth:`spec`
+    and optionally :meth:`codec_params`."""
+
+    def spec(self, n: int) -> codec.CodecSpec:
+        raise NotImplementedError
+
+    def codec_params(self) -> Optional[Any]:
+        """AE parameter tree for the AE codecs; None for pointwise ones."""
+        return None
+
+    def encode(self, update: Tree) -> Tree:
+        flat, _ = ravel(update)
+        spec = self.spec(flat.numel())
+        self._spec = spec                     # remembered for decode()
+        return codec.encode(spec, self.codec_params(), flat)
+
+    def decode(self, payload: Tree, unravel: Callable) -> Tree:
+        spec = getattr(self, "_spec", None)
+        assert spec is not None, (
+            "decode() before encode(): the payload carries no length "
+            "metadata, so the spec must come from this adapter's last "
+            "encode (or use codec.decode(spec, ...) directly)")
+        return unravel(codec.decode(spec, self.codec_params(), payload))
+
+    def roundtrip(self, update: Tree) -> Tuple[Tree, Dict[str, float]]:
+        flat, unravel = ravel(update)
+        payload = self.encode(update)
+        decoded = self.decode(payload, unravel)
+        return decoded, codec_stats(flat, payload)
+
+
+class IdentityCompressor(Compressor):
+    def spec(self, n: int) -> codec.IdentitySpec:
+        return codec.IdentitySpec(size=n)
+
+
+@dataclasses.dataclass
+class QuantizeCompressor(Compressor):
+    """Blockwise absmax quantization to int8 (or packed int4)."""
+
+    bits: int = 8
+    block: int = 256
+
+    def spec(self, n: int) -> codec.QuantizeSpec:
+        return codec.QuantizeSpec(size=n, bits=self.bits, block=self.block)
+
+
+@dataclasses.dataclass
+class FCAECompressor(Compressor):
+    """Paper-faithful full FC AE: latent = the entire update's encoding."""
+
+    params: Any
+    cfg: AEConfig
+
+    def spec(self, n: int) -> codec.FCAESpec:
+        return codec.FCAESpec(size=n, cfg=self.cfg)
+
+    def codec_params(self):
+        return self.params
+
+
+@dataclasses.dataclass
+class ChunkedAECompressor(Compressor):
+    """Shared-chunk AE. ``use_kernel=None`` (the default) takes the kernel
+    path wherever CUDA is available, with ``REPRO_USE_KERNEL=0|1`` as the
+    explicit override (``kernels.ops.use_kernel_default``)."""
+
+    params: Any
+    cfg: ae.ChunkedAEConfig
+    use_kernel: Optional[bool] = None
+
+    def spec(self, n: int) -> codec.ChunkedAESpec:
+        from repro_torch.kernels.ops import use_kernel_default
+        return codec.ChunkedAESpec(
+            size=n, cfg=self.cfg,
+            use_kernel=use_kernel_default(self.use_kernel))
+
+    def codec_params(self):
+        return self.params

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version, and the q8 slice run on CUDA against the same run on the CPU.
+
+Every test here carries the ``gpu`` marker and skips without a card. The
+file imports neither JAX nor the JAX package, so it also runs where only
+PyTorch is installed:
+
+    python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _lib, ref  # noqa: E402
+from repro_torch.kernels.fused_decode_agg import fused_decode_agg  # noqa: E402
+from repro_torch.kernels.fused_dense import fused_dense  # noqa: E402
+from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
+                                          quantize_blocks_2d)
+
+SHAPES = [(8, 16, 8), (100, 64, 32), (128, 128, 128), (257, 300, 65),
+          (1, 4096, 8)]
+BAND = dict(atol=2e-5, rtol=2e-4)    # tests/test_golden_trajectory.py
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_kernels_equal_plain(bits):
+    _card()
+    qmax = float(2 ** (bits - 1) - 1)
+    x = np.random.RandomState(bits).randn(300, 256).astype(np.float32) * 3
+    x[::3, 0] = qmax                      # scale 1 and .5 ties elsewhere
+    x[::3, 1:] = (np.arange(255) % (2 * int(qmax) - 1) - (qmax - 1)) + 0.5
+    xc = torch.from_numpy(x).cuda()
+    before = _lib.counts()
+    q, s = quantize_blocks_2d(xc, bits=bits, block=256)
+    q_r, s_r = ref.quantize_blocks_ref(xc, bits)
+    assert torch.equal(q, q_r) and torch.equal(s, s_r)
+    assert torch.equal(dequantize_blocks_2d(q, s, block=256),
+                       ref.dequantize_blocks_ref(q, s))
+    after = _lib.counts()
+    for k in ("quantize_blocks_2d", "dequantize_blocks_2d"):
+        assert after.get(k, 0) == before.get(k, 0) + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dense_kernel_matches_plain(M, K, N, dtype):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+         ).to(dtype)
+    b = torch.randn((N,), generator=g, device="cuda").to(dtype)
+    tol = (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=5e-2, rtol=1e-2))
+    for act in ("relu", "tanh", "sigmoid", "linear"):
+        got = fused_dense(x, w, b, act=act)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(),
+                                   ref.fused_dense_ref(x, w, b, act).float(),
+                                   **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,K,N", [(1, 8, 4, 64), (4, 17, 8, 64),
+                                     (8, 128, 32, 256), (3, 100, 64, 130),
+                                     (3, 4, 512, 4096)])
+def test_fused_decode_agg_kernel_matches_plain(C, M, K, N):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(C * 7 + M)
+    h = torch.randn((C, M, K), generator=g, device="cuda")
+    w = torch.rand((C,), generator=g, device="cuda") + 0.1
+    w = w / w.sum()
+    wl = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    bl = torch.randn((N,), generator=g, device="cuda")
+    torch.testing.assert_close(fused_decode_agg(h, w, wl, bl),
+                               ref.fused_decode_agg_ref(h, w, wl, bl),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_q8_slice_on_card_matches_cpu():
+    """The golden configuration on CUDA and on the CPU: the kernels ran,
+    bytes are exact, metrics are in the golden band."""
+    _card()
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import FederatedRun, FLConfig, QuantizeCompressor
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        train, ev = train_eval_split(mnist_like(0, 256), 64)
+        _lib.reset_launches()
+        run = FederatedRun(
+            MNIST_CLASSIFIER, uniform_partition(0, train, 3),
+            FLConfig(n_rounds=2, local_epochs=1, payload="update",
+                     error_feedback=True, seed=0),
+            compressors=[QuantizeCompressor(bits=8) for _ in range(3)],
+            eval_data=ev, device=dev)
+        run.run()
+        runs[dev] = (run.history, _lib.counts())
+    assert runs["cuda"][1]["quantize_blocks_2d"] == 6       # 3 clients x 2
+    assert runs["cuda"][1]["dequantize_blocks_2d"] == 8     # + 1 server x 2
+    assert runs["cpu"][1] == {}
+    for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+        assert a.bytes_up == b.bytes_up and a.bytes_down == b.bytes_down
+        for k in ("loss", "accuracy"):
+            np.testing.assert_allclose(b.global_metrics[k],
+                                       a.global_metrics[k], **BAND)
