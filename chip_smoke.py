@@ -11,16 +11,19 @@ Phases, each reported on its own lines:
    ``nvcc`` for ``sm_90a`` and prints ``ptxas``'s registers, shared memory
    and spills per kernel;
 3. kernels vs plain — every kernel against its plain PyTorch version on
-   the card, at the slice's own shapes and at the cohort scale of the
-   ``fl_decode_agg`` table (flat update 2^20, ``ChunkedAEConfig(256,
-   (32,), 8)``, cohort 256), with times, bounds and the library call;
+   the card, at every shape the slice gives it and at the cohort scale of
+   the ``fl_decode_agg`` table (flat update 2^20, ``ChunkedAEConfig(256,
+   (32,), 8)``, cohort 256), with times, bounds and the library call.
+   ``ms``, ``plain_ms`` and ``library_ms`` are device times (calls
+   captured in a CUDA graph and replayed); ``host_ms`` is the time per
+   call of the wrapper called back to back from Python;
 4. slice — the paper's pipeline through the port's entry points on
    ``cuda`` with the MNIST MLP at full width: (a) SyncFedAvg, 3 clients,
-   q8, update payload + error feedback, 2 rounds, repeated on the CPU and
-   compared; (b) ``run_prepass`` with ``MNIST_AE`` then an FC-AE run;
-   (c) a kernel-path ``ChunkedAECompressor`` run at the default
-   ``ChunkedAEConfig()``. Launch counters are zeroed just before each run
-   and read just after.
+   q8, update payload + error feedback, 2 rounds; (b) ``run_prepass``
+   with ``MNIST_AE`` then an FC-AE run; (c) a kernel-path
+   ``ChunkedAECompressor`` run at the default ``ChunkedAEConfig()``. Runs
+   (a) and (c) are repeated on the CPU and compared. Launch counters are
+   zeroed just before each run and read just after.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -52,9 +55,11 @@ def require(cond: bool, msg: str) -> None:
 
 
 # ----------------------------------------------------------------- timing
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events), after
-    a warm-up."""
+def host_ms(fn, iters: int) -> float:
+    """Time per call of ``fn`` called back to back from Python (CUDA
+    events around the loop, after a warm-up). At small shapes this is the
+    host's cost of a call — checks, allocation, the launch itself — not
+    the card's."""
     import torch
     for _ in range(3):
         fn()
@@ -67,6 +72,36 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int, reps: int = 3) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's cost
+    of each call is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -118,22 +153,28 @@ def check_quantize(nb: int, bits: int, seed: int, iters: int) -> dict:
     d = dequantize_blocks_2d(q, s, block=256)
     d_r = ref.dequantize_blocks_ref(q_r, s_r)
     require(torch.equal(d, d_r), "dequantize differs")
+    # the one PyTorch call with the same function: int8 · f32 promotes to f32
+    require(torch.equal(d, torch.mul(q, s[:, None])), "dequantize != torch.mul")
     n = nb * 256
     rows = []
-    for name, kern, plain, nbytes, flops in (
+    for name, kern, plain, lib, nbytes, flops in (
             ("quantize_blocks_2d",
              lambda: quantize_blocks_2d(x, bits=bits, block=256),
-             lambda: ref.quantize_blocks_ref(x, bits),
+             lambda: ref.quantize_blocks_ref(x, bits), None,
              4 * n + n + 4 * nb, 4 * n),
             ("dequantize_blocks_2d",
              lambda: dequantize_blocks_2d(q, s, block=256),
              lambda: ref.dequantize_blocks_ref(q, s),
+             lambda: torch.mul(q, s[:, None]),
              n + 4 * nb + 4 * n, n)):
         b_ms, b_by = bound(nbytes, flops, "float32")
         rows.append(dict(name=name, shape=[nb, 256], bits=bits,
-                         max_abs_err=0.0,
-                         ms=time_ms(kern, iters), plain_ms=time_ms(plain, iters),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         max_abs_err=0.0, ms=time_ms(kern, iters),
+                         host_ms=host_ms(kern, iters),
+                         plain_ms=time_ms(plain, iters),
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None if lib is None
+                         else time_ms(lib, iters)))
     return {r["name"]: r for r in rows}
 
 
@@ -163,9 +204,10 @@ def check_fused_dense(M: int, K: int, N: int, act: str, dtype, seed: int,
     lib_ms = None
     if act == "linear":
         lib_ms = time_ms(lambda: torch.addmm(b, x, w), iters)
+    kern = lambda: fused_dense(x, w, b, act=act)             # noqa: E731
     return dict(name="fused_dense", shape=[M, K, N], act=act, dtype=dname,
-                max_abs_err=err, ms=time_ms(lambda: fused_dense(
-                    x, w, b, act=act), iters),
+                max_abs_err=err, ms=time_ms(kern, iters),
+                host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.fused_dense_ref(x, w, b, act),
                                  iters),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -195,8 +237,9 @@ def check_decode_agg(C: int, M: int, K: int, N: int, seed: int,
     close(probe, torch.full((16, 8), 0.999 + 0.1, device="cuda"), 0.0, 1e-5)
     b_ms, b_by = bound(4 * (C * M * K + C + K * N + N + M * N),
                        2.0 * C * M * K + 2.0 * M * K * N + M * N, "float32")
+    kern = lambda: fused_decode_agg(h, w, wl, bl)            # noqa: E731
     return dict(name="fused_decode_agg", shape=[C, M, K, N], max_abs_err=err,
-                ms=time_ms(lambda: fused_decode_agg(h, w, wl, bl), iters),
+                ms=time_ms(kern, iters), host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.fused_decode_agg_ref(
                     h, w, wl, bl), iters),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -270,6 +313,30 @@ def check_records(hist, up: float, raw: float, down: float) -> None:
         require(math.isfinite(r.global_metrics["loss"]), "non-finite loss")
 
 
+def check_cuda_vs_cpu(tag: str, run_gpu, hist_gpu, run_cpu, hist_cpu) -> float:
+    """The same run on the card and on the CPU: bytes exact; loss,
+    accuracy and the final global parameters within the golden band.
+    Returns the largest parameter difference."""
+    from repro_torch.core.pytree import ravel
+    band = GOLDEN_BAND["atol"], GOLDEN_BAND["rtol"]
+    for g, c in zip(hist_gpu, hist_cpu, strict=True):
+        for k in ("bytes_up", "bytes_up_raw", "bytes_down",
+                  "compression_ratio"):
+            require(getattr(g, k) == getattr(c, k),
+                    f"{tag}: cuda/cpu {k} differ")
+        for k in ("loss", "accuracy"):
+            gv, cv = g.global_metrics[k], c.global_metrics[k]
+            require(abs(gv - cv) <= band[0] + band[1] * abs(cv),
+                    f"{tag}: cuda/cpu {k} differ beyond the golden band: "
+                    f"{gv} {cv}")
+    pg = ravel(run_gpu.global_params)[0].cpu()
+    pc = ravel(run_cpu.global_params)[0]
+    try:
+        return close(pg, pc, *band)
+    except AssertionError as e:
+        raise AssertionError(f"{tag}: cuda/cpu global params: {e}") from None
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -306,7 +373,11 @@ def main() -> int:
     slice_rows = {}
     slice_rows.update(check_quantize(63, 8, 0, 200))        # 15,910 / 256
     check_quantize(189, 4, 1, 20)                           # 4-bit ties
+    # every layer shape of run (c): client encode 4096→512→8, client EF
+    # decode and server decode 8→512→4096 (4 chunks a client, 3 clients)
     fd = [check_fused_dense(4, 4096, 512, "relu", torch.float32, 2, 50),
+          check_fused_dense(4, 512, 8, "relu", torch.float32, 11, 50),
+          check_fused_dense(4, 8, 512, "relu", torch.float32, 12, 50),
           check_fused_dense(4, 512, 4096, "linear", torch.float32, 3, 50),
           check_fused_dense(12, 8, 512, "relu", torch.float32, 4, 50),
           check_fused_dense(4096, 256, 32, "relu", torch.bfloat16, 5, 50)]
@@ -336,18 +407,9 @@ def main() -> int:
     for k in ("quantize_blocks_2d", "dequantize_blocks_2d"):
         require(counts_a.get(k, 0) > 0, f"run (a) never launched {k}")
         launches[k] = counts_a[k]
-    _, hist_cpu = run_golden("cpu")
-    for g, c in zip(hist_a, hist_cpu):
-        for k in ("bytes_up", "bytes_up_raw", "bytes_down",
-                  "compression_ratio"):
-            require(getattr(g, k) == getattr(c, k), f"cuda/cpu {k} differ")
-        for k in ("loss", "accuracy"):
-            gv, cv = g.global_metrics[k], c.global_metrics[k]
-            require(abs(gv - cv) <= GOLDEN_BAND["atol"]
-                    + GOLDEN_BAND["rtol"] * abs(cv),
-                    f"cuda/cpu {k} differ beyond the golden band: {gv} {cv}")
-    log("slice (a) cuda == cpu: bytes exact, loss/accuracy within "
-        "atol=2e-5 rtol=2e-4")
+    err = check_cuda_vs_cpu("run (a)", run_a, hist_a, *run_golden("cpu"))
+    log("slice (a) cuda == cpu: bytes exact, loss/accuracy/params within "
+        f"atol=2e-5 rtol=2e-4 (params max abs err {err!r})")
 
     _lib.reset_launches()
     t0 = time.perf_counter()
@@ -374,6 +436,9 @@ def main() -> int:
     for k in ("fused_dense", "fused_decode_agg"):
         require(counts_c.get(k, 0) > 0, f"run (c) never launched {k}")
         launches[k] = counts_c[k]
+    err = check_cuda_vs_cpu("run (c)", run_c, hist_c, *run_chunked("cpu"))
+    log("slice (c) cuda == cpu: bytes exact, loss/accuracy/params within "
+        f"atol=2e-5 rtol=2e-4 (params max abs err {err!r})")
 
     # ---------------------------------------------------------- 5. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -390,6 +455,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            host_ms=r["host_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=r["shape"]))
