@@ -7,23 +7,30 @@ Phases, each reported on its own lines:
 
 1. device — requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles the four kernels from ``src/repro_torch/csrc`` with
+2. build — compiles the five kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` and prints ``ptxas``'s registers, shared memory
    and spills per kernel;
 3. kernels vs plain — every kernel against its plain PyTorch version on
    the card, at every shape the slice gives it and at the cohort scale of
    the ``fl_decode_agg`` table (flat update 2^20, ``ChunkedAEConfig(256,
-   (32,), 8)``, cohort 256), with times, bounds and the library call.
-   ``ms``, ``plain_ms`` and ``library_ms`` are device times (calls
-   captured in a CUDA graph and replayed); ``host_ms`` is the time per
-   call of the wrapper called back to back from Python;
+   (32,), 8)``, cohort 256), with times, bounds and the library call. The
+   grouped decode→aggregate is also held bucket by bucket against the
+   per-bucket kernel (bit-equal) and timed beside it, at run (d)'s shapes,
+   a ragged round and the cohort point of the ``fl_partition`` table.
+   ``ms``, ``plain_ms``, ``library_ms`` and ``per_bucket_ms`` are device
+   times (calls captured in a CUDA graph and replayed); ``host_ms`` is the
+   time per call of the wrapper called back to back from Python;
 4. slice — the paper's pipeline through the port's entry points on
    ``cuda`` with the MNIST MLP at full width: (a) SyncFedAvg, 3 clients,
    q8, update payload + error feedback, 2 rounds; (b) ``run_prepass``
    with ``MNIST_AE`` then an FC-AE run; (c) a kernel-path
-   ``ChunkedAECompressor`` run at the default ``ChunkedAEConfig()``. Runs
-   (a) and (c) are repeated on the CPU and compared. Launch counters are
-   zeroed just before each run and read just after.
+   ``ChunkedAECompressor`` run at the default ``ChunkedAEConfig()``;
+   (d) a partitioned cohort (dense0 on two chunked-AE rungs, dense1 on
+   q8/q4) and (e) a flat mixed cohort (two chunked-AE rungs, q8, q4), both
+   with ``use_grouped_kernel=True``. Runs (a), (c), (d) and (e) are
+   repeated on the CPU and compared; (d) and (e) also against the same run
+   with the grouped round off. Launch counters are zeroed just before each
+   run and read just after.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -245,6 +252,65 @@ def check_decode_agg(C: int, M: int, K: int, N: int, seed: int,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
+                             iters: int) -> dict:
+    """The grouped ragged launch on buckets of ``(C_b, M_b)``: against its
+    plain version, and each bucket bit-equal to the per-bucket kernel
+    (``fused_decode_agg``) on that bucket alone, an empty bucket exact
+    zeros. ``ms`` times the launch of a plan built once (the plan's table
+    copy is the host's work, in ``host_ms`` with the whole wrapper);
+    ``per_bucket_ms`` is the per-bucket kernel launched once per live
+    bucket, the yardstick where no single PyTorch call computes this."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_decode_agg import (
+        fused_decode_agg, grouped_fused_decode_agg, grouped_launch,
+        grouped_plan)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = max(dec_idx) + 1
+    hs, ws = [], []
+    for C_b, M_b in shapes:
+        hs.append(torch.randn((C_b, M_b, K), generator=g, device="cuda"))
+        w = torch.rand((C_b,), generator=g, device="cuda") + 0.1
+        ws.append((w / w.sum() if C_b else w).contiguous())
+    w_stack = torch.randn((D, K, N), generator=g, device="cuda") * K ** -0.5
+    b_stack = torch.randn((D, N), generator=g, device="cuda")
+    decs = [(w_stack[d].contiguous(), b_stack[d].contiguous())
+            for d in range(D)]
+    args = (hs, ws, w_stack, b_stack, dec_idx)
+    got = grouped_fused_decode_agg(*args)
+    want = ref.grouped_fused_decode_agg_ref(*args)
+    live = [b for b, h in enumerate(hs) if h.shape[0] > 0]
+    torch.cuda.synchronize()
+    err = 0.0
+    for b, (h, gb, wb) in enumerate(zip(hs, got, want)):
+        require(tuple(gb.shape) == (h.shape[1], N), "grouped output shape")
+        if b not in live:
+            require(not bool(gb.any()), "empty bucket is not exact zeros")
+            continue
+        err = max(err, close(gb, wb, atol=2e-5, rtol=1e-4))
+        per = fused_decode_agg(h, ws[b], *decs[dec_idx[b]])
+        require(torch.equal(gb, per),
+                f"bucket {b}: grouped != per-bucket kernel (bit-equality)")
+    plan = grouped_plan(*args)
+    n_bytes = 4 * (sum(h.numel() for h in hs) + sum(w.numel() for w in ws)
+                   + D * (K * N + N) + sum(h.shape[1] for h in hs) * N)
+    flops = sum(2.0 * h.numel() + 2.0 * h.shape[1] * K * N + h.shape[1] * N
+                for h in hs if h.shape[0] > 0)
+    b_ms, b_by = bound(n_bytes, flops, "float32")
+    return dict(
+        name="grouped_fused_decode_agg", shape=[list(s) for s in shapes],
+        K=K, N=N, dec_idx=list(dec_idx), bm=plan.bm, cols=plan.cols,
+        tiles=plan.tiles, max_abs_err=err, bit_equal_per_bucket=True,
+        ms=time_ms(lambda: grouped_launch(plan), iters),
+        host_ms=host_ms(lambda: grouped_fused_decode_agg(*args), iters),
+        plain_ms=time_ms(lambda: ref.grouped_fused_decode_agg_ref(*args),
+                         iters),
+        per_bucket_ms=time_ms(lambda: [fused_decode_agg(
+            hs[b], ws[b], *decs[dec_idx[b]]) for b in live], iters),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 # ------------------------------------------------------------------ slice
 def run_golden(device: str):
     """Run (a): the golden configuration (tests/test_golden_trajectory.py)."""
@@ -305,6 +371,64 @@ def run_chunked(device: str):
     return run, run.run()
 
 
+def _rung_params(device: str):
+    """Two kernel-path chunked-AE rungs at full width: the default
+    ``ChunkedAEConfig()`` (4096/(512,)/8) and its latent-4 sibling, each
+    freshly initialised from a seed; one params object per rung."""
+    import torch
+    from repro_torch.core import ChunkedAEConfig, init_chunked_ae
+    cfgs = (ChunkedAEConfig(), ChunkedAEConfig(latent_chunk=4))
+    return cfgs, [init_chunked_ae(torch.Generator().manual_seed(2 + i), c,
+                                  device) for i, c in enumerate(cfgs)]
+
+
+def _four_client_run(device: str, comps, grouped: bool):
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import FederatedRun, FLConfig
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    # 128 examples a client: two local batches of 64
+    train, ev = train_eval_split(mnist_like(0, 576), 64)
+    run = FederatedRun(
+        MNIST_CLASSIFIER, uniform_partition(0, train, 4),
+        FLConfig(n_rounds=2, local_epochs=1, payload="update",
+                 error_feedback=True, use_grouped_kernel=grouped, seed=0),
+        compressors=comps, eval_data=ev, device=device)
+    return run, run.run()
+
+
+def run_partitioned(device: str, grouped: bool = True):
+    """Run (d): ``by_layer_partition`` of the MLP; dense0 (15,700 values)
+    on the chunked AE, clients 0-1 latent 8 and 2-3 latent 4 (one grouped
+    launch, two decoder slots a round); dense1 (210) q8 for even clients,
+    q4 for odd."""
+    import torch
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import (ChunkedAECompressor, PartitionedCompressor,
+                                  QuantizeCompressor, by_layer_partition)
+    from repro_torch.models.classifiers import init_classifier
+    pmap = by_layer_partition(init_classifier(torch.Generator(),
+                                              MNIST_CLASSIFIER, device))
+    cfgs, prms = _rung_params(device)
+    comps = [PartitionedCompressor(pmap, {
+        "dense0": ChunkedAECompressor(prms[i // 2], cfgs[i // 2],
+                                      use_kernel=True),
+        "dense1": QuantizeCompressor(bits=8 if i % 2 == 0 else 4)})
+        for i in range(4)]
+    return _four_client_run(device, comps, grouped)
+
+
+def run_flat_mixed(device: str, grouped: bool = True):
+    """Run (e): a flat mixed cohort — chunked AE latent 8, latent 4, q8,
+    q4 — through ``grouped_flat_server_aggregate``."""
+    from repro_torch.core import ChunkedAECompressor, QuantizeCompressor
+    cfgs, prms = _rung_params(device)
+    comps = [ChunkedAECompressor(prms[0], cfgs[0], use_kernel=True),
+             ChunkedAECompressor(prms[1], cfgs[1], use_kernel=True),
+             QuantizeCompressor(bits=8), QuantizeCompressor(bits=4)]
+    return _four_client_run(device, comps, grouped)
+
+
 def check_records(hist, up: float, raw: float, down: float) -> None:
     for r in hist:
         require(r.bytes_up == up, f"bytes_up {r.bytes_up} != {up}")
@@ -313,28 +437,29 @@ def check_records(hist, up: float, raw: float, down: float) -> None:
         require(math.isfinite(r.global_metrics["loss"]), "non-finite loss")
 
 
-def check_cuda_vs_cpu(tag: str, run_gpu, hist_gpu, run_cpu, hist_cpu) -> float:
-    """The same run on the card and on the CPU: bytes exact; loss,
-    accuracy and the final global parameters within the golden band.
+def check_cuda_vs_cpu(tag: str, run_gpu, hist_gpu, run_cpu, hist_cpu,
+                      atol: float = GOLDEN_BAND["atol"],
+                      rtol: float = GOLDEN_BAND["rtol"]) -> float:
+    """Two runs of one configuration (the card and the CPU, or grouped and
+    sequential): bytes exact; loss, accuracy and the final global
+    parameters within ``atol``/``rtol`` (the golden band by default).
     Returns the largest parameter difference."""
     from repro_torch.core.pytree import ravel
-    band = GOLDEN_BAND["atol"], GOLDEN_BAND["rtol"]
     for g, c in zip(hist_gpu, hist_cpu, strict=True):
         for k in ("bytes_up", "bytes_up_raw", "bytes_down",
                   "compression_ratio"):
-            require(getattr(g, k) == getattr(c, k),
-                    f"{tag}: cuda/cpu {k} differ")
+            require(getattr(g, k) == getattr(c, k), f"{tag}: {k} differ")
         for k in ("loss", "accuracy"):
             gv, cv = g.global_metrics[k], c.global_metrics[k]
-            require(abs(gv - cv) <= band[0] + band[1] * abs(cv),
-                    f"{tag}: cuda/cpu {k} differ beyond the golden band: "
+            require(abs(gv - cv) <= atol + rtol * abs(cv),
+                    f"{tag}: {k} differ beyond atol={atol} rtol={rtol}: "
                     f"{gv} {cv}")
     pg = ravel(run_gpu.global_params)[0].cpu()
-    pc = ravel(run_cpu.global_params)[0]
+    pc = ravel(run_cpu.global_params)[0].cpu()
     try:
-        return close(pg, pc, *band)
+        return close(pg, pc, atol, rtol)
     except AssertionError as e:
-        raise AssertionError(f"{tag}: cuda/cpu global params: {e}") from None
+        raise AssertionError(f"{tag}: global params: {e}") from None
 
 
 def main() -> int:
@@ -383,13 +508,23 @@ def main() -> int:
           check_fused_dense(4096, 256, 32, "relu", torch.bfloat16, 5, 50)]
     slice_rows["fused_dense"] = fd[0]
     slice_rows["fused_decode_agg"] = check_decode_agg(3, 4, 512, 4096, 6, 50)
+    # run (d)'s launch: 2 rungs of 2 clients, 4 chunks, 512 → 4096, 2 slots
+    slice_rows["grouped_fused_decode_agg"] = check_grouped_decode_agg(
+        [(2, 4), (2, 4)], 512, 4096, [0, 1], 13, 50)
+    # ragged: uneven C_b and M_b, C_b = 1, an empty bucket, a shared slot
+    grouped = [check_grouped_decode_agg(
+        [(3, 37), (0, 8), (1, 8), (6, 100)], 32, 256, [1, 0, 0, 1], 14, 50)]
     cohort = list(check_quantize(256 * 4096, 8, 7, 10).values())
     cohort.append(check_fused_dense(256 * 4096, 8, 32, "relu",
                                     torch.float32, 8, 10))
     cohort.append(check_fused_dense(256 * 4096, 32, 256, "linear",
                                     torch.float32, 9, 5))
     cohort.append(check_decode_agg(256, 4096, 32, 256, 10, 10))
-    for r in fd[1:] + cohort:
+    # fl_partition's REPRO_BENCH_FULL point: bulk 983,040 = 3,840 chunks of
+    # 256, hidden 32, cohort 64 as two rungs of 32 clients, two slots
+    cohort.append(check_grouped_decode_agg(
+        [(32, 3840), (32, 3840)], 32, 256, [0, 1], 15, 10))
+    for r in fd[1:] + grouped + cohort:
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -440,6 +575,35 @@ def main() -> int:
     log("slice (c) cuda == cpu: bytes exact, loss/accuracy/params within "
         f"atol=2e-5 rtol=2e-4 (params max abs err {err!r})")
 
+    raw4 = 4 * 15_910 * 4
+    for tag, runner, up in (("(d) partitioned", run_partitioned,
+                             2 * 128 + 2 * 64 + 2 * 260 + 2 * 132),
+                            ("(e) flat mixed", run_flat_mixed,
+                             128 + 64 + 16_380 + 8_316)):
+        _lib.reset_launches()
+        run_x, hist_x = runner("cuda")
+        torch.cuda.synchronize()
+        counts_x = _lib.counts()
+        log(f"slice {tag} grouped: launches {counts_x}; "
+            + "; ".join(f"r{r.round} loss {r.global_metrics['loss']!r} acc "
+                        f"{r.global_metrics['accuracy']!r}" for r in hist_x))
+        check_records(hist_x, up, raw4, raw4)
+        require(counts_x.get("grouped_fused_decode_agg", 0) > 0,
+                f"run {tag} never launched grouped_fused_decode_agg")
+        require("fused_decode_agg" not in counts_x,
+                f"run {tag} launched the per-bucket fused_decode_agg")
+        launches.setdefault("grouped_fused_decode_agg",
+                            counts_x["grouped_fused_decode_agg"])
+        err = check_cuda_vs_cpu(f"run {tag} cuda/cpu", run_x, hist_x,
+                                *runner("cpu"))
+        err_off = check_cuda_vs_cpu(f"run {tag} grouped/sequential", run_x,
+                                    hist_x, *runner("cuda", grouped=False),
+                                    atol=1e-5, rtol=1e-4)
+        log(f"slice {tag} cuda == cpu: bytes exact, loss/accuracy/params "
+            f"within atol=2e-5 rtol=2e-4 (params max abs err {err!r}); "
+            "== grouped off on the card within atol=1e-5 rtol=1e-4 "
+            f"(params max abs err {err_off!r})")
+
     # ---------------------------------------------------------- 5. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
@@ -448,7 +612,10 @@ def main() -> int:
            "fused_dense": ("src/repro_torch/csrc/fused_dense.cu",
                            "src/repro/kernels/fused_dense.py:39"),
            "fused_decode_agg": ("src/repro_torch/csrc/fused_decode_agg.cu",
-                                "src/repro/kernels/fused_decode_agg.py:53")}
+                                "src/repro/kernels/fused_decode_agg.py:53"),
+           "grouped_fused_decode_agg": (
+               "src/repro_torch/csrc/grouped_decode_agg.cu",
+               "src/repro/kernels/fused_decode_agg.py:120")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
@@ -458,7 +625,9 @@ def main() -> int:
                             host_ms=r["host_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], shape=r["shape"]))
+                            library_ms=r["library_ms"], shape=r["shape"],
+                            **({"per_bucket_ms": r["per_bucket_ms"]}
+                               if "per_bucket_ms" in r else {})))
     for line in smi:
         log(line)
     log(json.dumps({"kernels": kernels}))

@@ -23,12 +23,27 @@ from repro_torch.core.codec import (  # noqa: F401
     stack_payloads,
     wire_bytes,
 )
+from repro_torch.core import codec  # noqa: F401
+from repro_torch.core.partition import (  # noqa: F401
+    PartitionMap,
+    PartitionSpec,
+    by_layer_partition,
+    by_leaf_partition,
+    by_role_partition,
+    identity_partition,
+    make_partition_spec,
+    role_of_path,
+    wire_bytes_by_group,
+)
+from repro_torch.core import partition  # noqa: F401
 from repro_torch.core.compressor import (  # noqa: F401
     ChunkedAECompressor,
     Compressor,
     FCAECompressor,
     IdentityCompressor,
+    PartitionedCompressor,
     QuantizeCompressor,
+    partitioned,
     tree_bytes,
 )
 from repro_torch.core.federated import (  # noqa: F401

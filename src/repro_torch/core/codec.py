@@ -1,6 +1,6 @@
 """Codec protocol: static specs + pure encode/decode functions (port of
-``repro.core.codec`` for the bare specs; chains, composed, top-k, k-means,
-entropy and partitions are not ported yet).
+``repro.core.codec`` for the bare specs and per-layer partitions; chains,
+composed, top-k, k-means and entropy are not ported yet).
 
 A codec is a pair of functions driven by a frozen, hashable **spec** that
 carries everything static (original length, bit widths, chunking, AE
@@ -20,7 +20,7 @@ decode→aggregate kernel, so per-client decoded tensors never exist
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -70,7 +70,50 @@ class ChunkedAESpec:
         return -(-self.size // self.cfg.chunk_size)
 
 
-CodecSpec = Union[IdentitySpec, QuantizeSpec, FCAESpec, ChunkedAESpec]
+# ``partition.PartitionSpec`` (one frozen sub-spec per named leaf group,
+# DESIGN.md §10) is also a member of this union: every entry point below
+# dispatches it to the per-group functions in core/partition.py (imported
+# lazily — partition.py imports this module at top level).
+CodecSpec = Union[IdentitySpec, QuantizeSpec, FCAESpec, ChunkedAESpec,
+                  "PartitionSpec"]
+
+
+def _partition_mod():
+    from repro_torch.core import partition
+    return partition
+
+
+def is_partitioned(spec) -> bool:
+    """True for a ``partition.PartitionSpec``: the scheduler routes those
+    through the partitioned server path."""
+    return isinstance(spec, _partition_mod().PartitionSpec)
+
+
+def kernel_terminal_ae(spec: CodecSpec) -> Optional[ChunkedAESpec]:
+    """The kernel-path chunked-AE stage when ``spec`` can take the fused
+    decode→aggregate launch: a bare ``ChunkedAESpec(use_kernel=True)``.
+    None otherwise. (The reference also accepts chains whose AE expansion
+    is the last decode transform; those wait for the chain stages.)"""
+    if isinstance(spec, ChunkedAESpec) and spec.use_kernel:
+        return spec
+    return None
+
+
+def kernel_chain_latents(spec: CodecSpec, params: Optional[Params],
+                         stacked: Payload) -> Tuple[torch.Tensor, Params]:
+    """``(z, ae_params)`` feeding the fused kernel for a
+    :func:`kernel_terminal_ae` spec: the stacked latents ``(C, n_chunks,
+    latent)``. (A chain's pointwise suffix would be inverted here first;
+    chains are not ported yet.)"""
+    return stacked["z"], params
+
+
+def ae_stage_params(spec: CodecSpec, params: Optional[Params]
+                    ) -> Optional[Params]:
+    """The AE stage's params inside ``spec`` — the object whose identity
+    keys decoder slots in the grouped launch. For the bare specs that is
+    ``params`` itself (a chain's would be its AE stage's entry)."""
+    return params
 
 
 # =====================================================================
@@ -218,7 +261,11 @@ def stage_ops(spec):
 def wire_bytes(spec: CodecSpec, params: Optional[Params] = None) -> int:
     """Static uplink cost of one encoded payload for ``spec``, in bytes,
     from the payload's shapes and dtypes alone (nothing runs). Equal to
-    ``tree_bytes`` of a real encode (tested for every ported spec)."""
+    ``tree_bytes`` of a real encode (tested for every ported spec); a
+    partitioned spec sums its groups."""
+    if is_partitioned(spec):
+        return sum(_partition_mod().wire_bytes_by_group(spec,
+                                                        params).values())
     if isinstance(spec, (FCAESpec, ChunkedAESpec)) and params is None:
         raise ValueError(
             f"wire_bytes({type(spec).__name__}(size={spec.size})): this "
@@ -240,13 +287,18 @@ def wire_bytes(spec: CodecSpec, params: Optional[Params] = None) -> int:
 def encode(spec: CodecSpec, params: Optional[Params],
            flat: torch.Tensor) -> Payload:
     """Collaborator-side encoder. ``params`` is the AE parameter tree for
-    the AE specs, ``None`` otherwise."""
+    the AE specs, ``{group: params_or_None}`` for a partitioned spec,
+    ``None`` otherwise."""
+    if is_partitioned(spec):
+        return _partition_mod().encode_tree(spec, params, flat)
     return stage_ops(spec).fwd(spec, params, flat)
 
 
 def decode(spec: CodecSpec, params: Optional[Params],
            payload: Payload) -> torch.Tensor:
     """Aggregator-side decoder → flat ``(spec.size,)`` vector."""
+    if is_partitioned(spec):
+        return _partition_mod().decode_tree(spec, params, payload)
     return stage_ops(spec).inv(spec, params, payload)
 
 
@@ -262,6 +314,9 @@ def decode_batched(spec: CodecSpec, params: Optional[Params],
     With ``params_batched`` each client has its own AE params (a leading
     client axis on every leaf) and clients decode one by one; otherwise the
     client axis folds into each kernel's batch dimension."""
+    if is_partitioned(spec):
+        return _partition_mod().decode_tree_batched(
+            spec, params, stacked, params_batched=params_batched)
     if params_batched:
         from repro_torch.core.pytree import tree_map
         C = next(iter(stacked.values())).shape[0]
@@ -302,16 +357,28 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
     ``weights`` must already be normalized (Σ=1; see
     ``aggregate.normalize_weights``). ``base`` (the flat global params
     under the weights-payload protocol) is subtracted after the reduction
-    (Σw=1). Two routes:
+    (Σw=1). Three routes:
 
+    * partitioned homogeneous cohort: one fused reduction per group, each
+      by the routes below, scattered back (mixed partitioned cohorts go
+      through ``partition.server_decode_aggregate`` instead);
     * kernel-path chunked AE (``ChunkedAESpec(use_kernel=True)``, shared
       params): hidden decoder layers on the folded cohort, then the fused
       decode→aggregate kernel folds ``weights`` into the final decoder
       product (DESIGN.md §7.1);
     * everything else: batched decode + einsum over the client axis."""
     w = weights.float()
-    if (not params_batched and isinstance(spec, ChunkedAESpec)
-            and spec.use_kernel):
+    if is_partitioned(spec):
+        part = _partition_mod()
+        means = {}
+        for name, slices, cspec in spec.groups:
+            p = None if params is None else params.get(name)
+            base_g = None if base is None else part.gather(slices, base)
+            means[name] = decode_and_aggregate(
+                cspec, p, stacked[name], w, base_g,
+                params_batched=params_batched and p is not None)
+        return part.scatter_groups(spec.structure, means, spec.size)
+    if not params_batched and kernel_terminal_ae(spec) is not None:
         mean = _fused_chunked_decode_agg(spec, params, stacked["z"], w)
         return mean if base is None else mean - base
     rows = decode_batched(spec, params, stacked,

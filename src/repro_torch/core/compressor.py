@@ -1,5 +1,6 @@
 """Weight-update compressors: the collaborator→aggregator codec API (port of
-``repro.core.compressor`` for Identity, Quantize, FCAE and ChunkedAE).
+``repro.core.compressor`` for Identity, Quantize, FCAE, ChunkedAE and
+Partitioned).
 
 Each compressor is a thin host-side adapter over ``core/codec.py``: a
 static ``spec(n)`` plus its AE params; the math is ``codec.encode`` /
@@ -69,6 +70,18 @@ class Compressor:
         """AE parameter tree for the AE codecs; None for pointwise ones."""
         return None
 
+    def ae_compressor(self) -> Optional["Compressor"]:
+        """The AE-backed compressor inside this adapter: ``self`` for the
+        AE codecs, None for the pointwise ones and for
+        :class:`PartitionedCompressor` (which may hold several)."""
+        return None
+
+    def set_codec_params(self, restored: Any) -> None:
+        """Restore codec params into this adapter (the inverse of
+        :meth:`codec_params`)."""
+        if restored is not None:
+            self.ae_compressor().params = restored
+
     def encode(self, update: Tree) -> Tree:
         flat, _ = ravel(update)
         spec = self.spec(flat.numel())
@@ -119,12 +132,15 @@ class FCAECompressor(Compressor):
     def codec_params(self):
         return self.params
 
+    def ae_compressor(self):
+        return self
+
 
 @dataclasses.dataclass
 class ChunkedAECompressor(Compressor):
     """Shared-chunk AE. ``use_kernel=None`` (the default) takes the kernel
-    path wherever CUDA is available, with ``REPRO_USE_KERNEL=0|1`` as the
-    explicit override (``kernels.ops.use_kernel_default``)."""
+    path wherever CUDA is available; ``use_kernel`` is the one switch
+    (``kernels.ops.use_kernel_default``)."""
 
     params: Any
     cfg: ae.ChunkedAEConfig
@@ -138,3 +154,57 @@ class ChunkedAECompressor(Compressor):
 
     def codec_params(self):
         return self.params
+
+    def ae_compressor(self):
+        return self
+
+
+@dataclasses.dataclass
+class PartitionedCompressor(Compressor):
+    """Per-layer codec partitions (DESIGN.md §10): one sub-compressor per
+    named leaf group of a frozen ``partition.PartitionMap``. ``spec(n)``
+    assembles the ``partition.PartitionSpec`` from the current
+    sub-compressors, and ``codec_params()`` is the per-group
+    ``{name: params_or_None}`` dict the partition codec functions take."""
+
+    pmap: Any                               # partition.PartitionMap
+    compressors: Dict[str, Compressor]
+
+    def __post_init__(self):
+        if set(self.compressors) != set(self.pmap.names):
+            raise ValueError(
+                f"sub-compressor keys {sorted(self.compressors)} != "
+                f"partition groups {sorted(self.pmap.names)}")
+
+    def spec(self, n: int):
+        from repro_torch.core import partition
+        if n != self.pmap.size:
+            raise ValueError(f"update has {n} params but the partition map "
+                             f"covers {self.pmap.size}")
+        subs = {name: comp.spec(self.pmap.group_size(name))
+                for name, comp in self.compressors.items()}
+        # sub-compressors change only when one is swapped, so the
+        # assembled (and tiling-checked) spec is cached on its sub-specs
+        key = tuple(sorted(subs.items(), key=lambda kv: kv[0]))
+        cached = getattr(self, "_spec_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        spec = partition.make_partition_spec(self.pmap, subs)
+        self._spec_cache = (key, spec)
+        return spec
+
+    def codec_params(self):
+        return {name: comp.codec_params()
+                for name, comp in self.compressors.items()}
+
+    def set_codec_params(self, restored) -> None:
+        if restored is None:
+            return
+        for name, p in restored.items():
+            if p is not None:
+                self.compressors[name].set_codec_params(p)
+
+
+def partitioned(comp: Compressor) -> Optional[PartitionedCompressor]:
+    """``comp`` as a :class:`PartitionedCompressor`, or None."""
+    return comp if isinstance(comp, PartitionedCompressor) else None

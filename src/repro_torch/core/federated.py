@@ -38,6 +38,11 @@ class FLConfig:
     # what crosses the wire: "weights" (paper §5.2, the collaborators'
     # converged weights) or "update" (deltas, the quantizers' target)
     payload: str = "weights"
+    # server aggregation of a mixed-spec or partitioned cohort: None or
+    # False takes the per-bucket sequential path; True makes one round
+    # whose kernel-path chunked-AE buckets share a single grouped ragged
+    # launch (kernels.ops.use_grouped_default, DESIGN.md §11.2)
+    use_grouped_kernel: Optional[bool] = None
     seed: int = 0
 
 

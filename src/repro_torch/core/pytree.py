@@ -66,6 +66,27 @@ def leaves(tree: Tree) -> List[torch.Tensor]:
     return flatten(tree)[0]
 
 
+def leaf_paths(tree: Tree) -> List[Tuple[str, int, int]]:
+    """``(path, offset, size)`` per leaf in :func:`ravel` order, the path
+    ``/``-joined from dict keys and list indices (``"dense0/b"``) — the
+    counterpart of the reference's ``tree_flatten_with_path`` segments
+    that partition maps are built from."""
+    out: List[Tuple[str, int, int]] = []
+
+    def walk(node: Tree, prefix: Tuple[str, ...]) -> None:
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], prefix + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, item in enumerate(node):
+                walk(item, prefix + (str(i),))
+        elif node is not None:
+            pos = out[-1][1] + out[-1][2] if out else 0
+            out.append(("/".join(prefix), pos, int(node.numel())))
+    walk(tree, ())
+    return out
+
+
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     lv, td = flatten(tree)
     others = [flatten(t)[0] for t in rest]

@@ -6,8 +6,12 @@ Clients ship *encoded payloads*. The server stacks the round's cohort
 along a client axis and runs one ``codec.decode_and_aggregate`` call per
 spec group (:func:`_server_aggregate`, DESIGN.md §7) — batched decode and
 an einsum generically, the fused decode→aggregate kernel for the
-kernel-path chunked AE. The only per-client decode left is the
-collaborator-side one that error feedback needs, in :func:`_encode_local`.
+kernel-path chunked AE. Partitioned cohorts go through
+``partition.server_decode_aggregate``, and with
+``FLConfig.use_grouped_kernel`` mixed cohorts take the grouped round,
+whose chunked-AE buckets share one grouped ragged launch. The only
+per-client decode left is the collaborator-side one that error feedback
+needs, in :func:`_encode_local`.
 """
 from __future__ import annotations
 
@@ -106,18 +110,35 @@ def _fused_group(spec: codec.CodecSpec, encoded: Sequence[EncodedUpdate],
 def _server_aggregate(run, encoded: Sequence[EncodedUpdate],
                       weights: Sequence[float]) -> Tree:
     """The aggregator's round step: fused decode→aggregate over the stacked
-    cohort, then the server-lr update. A cohort mixing specs is grouped by
-    spec; each group's weights are renormalized to Σ=1 and its mean scaled
-    back by the group's weight mass (DESIGN.md §9.2)."""
+    cohort, then the server-lr update. In the reference's order:
+
+    * a partitioned cohort (homogeneous or not) goes through
+      ``partition.server_decode_aggregate``, grouped or sequential;
+    * a homogeneous cohort takes one fused call;
+    * a mixed cohort with the grouped flag takes
+      ``partition.grouped_flat_server_aggregate``;
+    * otherwise it is grouped by spec, each group's weights renormalized
+      to Σ=1 and its mean scaled back by the group's weight mass
+      (DESIGN.md §9.2)."""
+    from repro_torch.kernels.ops import use_grouped_default
     cfg = run.cfg
     g_flat, unravel = ravel(run.global_params)
     dev = g_flat.device
     base = g_flat if cfg.payload == "weights" else None
     norm_list = normalize_weights(weights)
+    grouped = use_grouped_default(cfg.use_grouped_kernel)
     spec0 = encoded[0].spec
-    if all(e.spec == spec0 for e in encoded):
+    if codec.is_partitioned(spec0):
+        from repro_torch.core import partition
+        mean_flat = partition.server_decode_aggregate(
+            encoded, norm_list, base, use_grouped_kernel=grouped)
+    elif all(e.spec == spec0 for e in encoded):
         norm_w = torch.tensor(norm_list, dtype=torch.float32, device=dev)
         mean_flat = _fused_group(spec0, encoded, norm_w, base)
+    elif grouped:
+        from repro_torch.core import partition
+        mean_flat = partition.grouped_flat_server_aggregate(
+            encoded, norm_list, base)
     else:
         groups: Dict[codec.CodecSpec, List[int]] = {}
         for i, e in enumerate(encoded):

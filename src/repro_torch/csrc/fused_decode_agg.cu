@@ -15,7 +15,8 @@
 //   hbar[bm, K] = sum_c w_c * h_c[rows]
 // into shared memory (bm*K floats; bm = 8..64 rows, up to 227 KB), then
 // expands hbar @ W_last + b for its output columns, one warp per bm/8 rows
-// and one lane per column, W read coalesced through L1.
+// and one lane per column, W read coalesced through L1. That body is
+// decode_agg_tile (decode_agg_tile.cuh), shared with the grouped kernel.
 //
 // Bound on the card: bytes. At the cohort scale of the fl_decode_agg table
 // (C = 256, M = 4096 chunks, K = 32, N = 256) the kernel must read h once
@@ -29,6 +30,8 @@
 // work.
 #include <cuda_runtime.h>
 
+#include "decode_agg_tile.cuh"
+
 namespace {
 
 template <int RM>   // rows per warp; bm = 8 * RM
@@ -38,51 +41,13 @@ fused_decode_agg_kernel(const float* __restrict__ h,
                         const float* __restrict__ W,
                         const float* __restrict__ b, float* __restrict__ out,
                         int C, int M, int K, int N, int cols_per_split) {
-  extern __shared__ float hbar[];                // (bm, K)
   constexpr int bm = 8 * RM;
   const long long m0 = (long long)blockIdx.x * bm;
   const int rows = (int)((M - m0) < bm ? (M - m0) : bm);
-  const long long MK = (long long)M * K;
-  const float* hb = h + m0 * K;                  // this band in client 0
-  const int band = rows * K;
-
-  // 1) weighted client reduce, clients in ascending order
-  for (int i = threadIdx.x; i < bm * K; i += blockDim.x) {
-    float a = 0.f;
-    if (i < band) {
-#pragma unroll 8
-      for (int c = 0; c < C; ++c)
-        a = fmaf(__ldg(wts + c), __ldg(hb + (long long)c * MK + i), a);
-    }
-    hbar[i] = a;
-  }
-  __syncthreads();
-
-  // 2) expand: out[rows, cols] = hbar @ W[:, cols] + b[cols]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int n_begin = blockIdx.y * cols_per_split;
   const int n_end = min(N, n_begin + cols_per_split);
-  const float* hw = hbar + warp * RM * K;
-  for (int nb0 = n_begin; nb0 < n_end; nb0 += 32) {
-    const int n = nb0 + lane;
-    const bool ok = n < n_end;
-    float acc[RM];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float wv = ok ? __ldg(W + (long long)k * N + n) : 0.f;
-#pragma unroll
-      for (int r = 0; r < RM; ++r) acc[r] = fmaf(hw[r * K + k], wv, acc[r]);
-    }
-    if (ok) {
-      const float bv = b[n];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const long long gm = m0 + warp * RM + r;
-        if (gm < M) out[gm * N + n] = acc[r] + bv;
-      }
-    }
-  }
+  decode_agg_tile<RM>(h + m0 * K, (long long)M * K, wts, C, rows, K, W, b,
+                      N, n_begin, n_end, out + m0 * N);
 }
 
 template <int RM>
@@ -91,12 +56,7 @@ int launch(const float* h, const float* wts, const float* W, const float* b,
            cudaStream_t stream) {
   constexpr int bm = 8 * RM;
   const size_t smem = (size_t)bm * K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_decode_agg_kernel<RM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = allow_smem(fused_decode_agg_kernel<RM>, smem)) return e;
   dim3 grid((unsigned)((M + bm - 1) / bm),
             (unsigned)((N + cols_per_split - 1) / cols_per_split));
   fused_decode_agg_kernel<RM><<<grid, 256, smem, stream>>>(

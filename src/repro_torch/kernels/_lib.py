@@ -28,7 +28,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("quantize.cu", "fused_dense.cu", "fused_decode_agg.cu")
+SOURCES = ("quantize.cu", "fused_dense.cu", "fused_decode_agg.cu",
+           "grouped_decode_agg.cu")
+HEADERS = ("decode_agg_tile.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -48,6 +50,8 @@ _SIGNATURES = {
     # h, w, W, b, out, C, M, K, N, bm, cols_per_split, stream
     "repro_fused_decode_agg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
+    # table, W_stack, b_stack, T, K, N, bm, cols_per_split, stream
+    "repro_grouped_decode_agg": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -75,7 +79,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(FLAGS).encode())

@@ -2,12 +2,12 @@
 
 ``bits=4`` payloads are packed two nibbles per byte here, with torch ops
 (a reshape and an or — not worth a kernel). :func:`use_kernel_default`
-picks the chunked-AE kernel path: on wherever CUDA is available, with
-``REPRO_USE_KERNEL=0|1`` as the explicit override.
+picks the chunked-AE kernel path (on wherever CUDA is available) and
+:func:`use_grouped_default` the grouped server round (off); each has one
+switch, the explicit field its caller passes, and reads no environment.
 """
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import torch
@@ -19,16 +19,24 @@ from repro_torch.kernels.quantize import (dequantize_blocks_2d,
 
 
 def use_kernel_default(override: Optional[bool] = None) -> bool:
-    """Kernel-vs-plain dispatch for the AE codec path. Priority: explicit
-    ``override`` > ``REPRO_USE_KERNEL`` (``"0"``/``"1"``) > whether CUDA
-    is available. The kernel path on CPU tensors runs the plain versions,
-    so the choice never changes what a CPU run computes."""
+    """Kernel-vs-plain dispatch for the AE codec path: the explicit
+    ``override`` (``ChunkedAECompressor.use_kernel``) when given, else
+    whether CUDA is available. The kernel path on CPU tensors runs the
+    plain versions, so the choice never changes what a CPU run computes."""
     if override is not None:
         return bool(override)
-    env = os.environ.get("REPRO_USE_KERNEL")
-    if env is not None and env != "":
-        return env not in ("0", "false", "False")
     return torch.cuda.is_available()
+
+
+def use_grouped_default(override: Optional[bool] = None) -> bool:
+    """The grouped one-launch server round (``partition._grouped_round``):
+    the explicit ``override`` (``FLConfig.use_grouped_kernel`` or a direct
+    ``server_decode_aggregate`` argument) when given, else off — the
+    per-bucket sequential path is the differential oracle the grouped
+    launch is held against, so it stays the default."""
+    if override is not None:
+        return bool(override)
+    return False
 
 
 # ---------------------------------------------------------------- quantize

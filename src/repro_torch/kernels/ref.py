@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four ported kernels.
+"""Plain PyTorch versions of the five ported kernels.
 
 Each is the same function as its CUDA kernel, written with ordinary torch
 ops. The wrappers take them for CPU tensors (the CPU tests run the port on
@@ -49,3 +49,22 @@ def fused_decode_agg_ref(h: torch.Tensor, weights: torch.Tensor,
     does: no per-client ``(M, N)`` tensor here either."""
     hbar = torch.einsum("c,cmk->mk", weights.float(), h.float())
     return hbar @ w_last.float() + b_last.float()
+
+
+def grouped_fused_decode_agg_ref(hs, weights, w_stack: torch.Tensor,
+                                 b_stack: torch.Tensor, dec_idx):
+    """The grouped ragged launch as one materialize-then-reduce pass per
+    bucket, in bucket order: every client's ``(M_b, N)`` decode is built,
+    then weighted and summed. Empty buckets (zero clients) return exact
+    zeros, as the kernel does."""
+    N = w_stack.shape[2]
+    out = []
+    for h, w, d in zip(hs, weights, dec_idx):
+        if h.shape[0] == 0:
+            out.append(torch.zeros((h.shape[1], N), dtype=torch.float32,
+                                   device=w_stack.device))
+            continue
+        per_client = h.float() @ w_stack[d].float()
+        out.append(torch.einsum("c,cmn->mn", w.float(), per_client)
+                   + b_stack[d].float())
+    return out

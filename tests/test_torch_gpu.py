@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the q8 slice run on CUDA against the same run on the CPU.
+version, the grouped decode→aggregate bucket by bucket against the
+per-bucket kernel, and the q8 and partitioned grouped runs on CUDA against
+the same runs on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -13,7 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _lib, ref  # noqa: E402
-from repro_torch.kernels.fused_decode_agg import fused_decode_agg  # noqa: E402
+from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
+    fused_decode_agg, grouped_fused_decode_agg)
 from repro_torch.kernels.fused_dense import fused_dense  # noqa: E402
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
@@ -116,3 +119,111 @@ def test_q8_slice_on_card_matches_cpu():
         for k in ("loss", "accuracy"):
             np.testing.assert_allclose(b.global_metrics[k],
                                        a.global_metrics[k], **BAND)
+
+
+def _ragged(seed, shapes, K, N, D):
+    """Buckets of ``(C_b, M_b)`` on the card, weights Σ=1 per bucket."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hs, ws = [], []
+    for C_b, M_b in shapes:
+        hs.append(torch.randn((C_b, M_b, K), generator=g, device="cuda"))
+        w = torch.rand((C_b,), generator=g, device="cuda") + 0.1
+        ws.append(w / w.sum() if C_b else w)
+    w_stack = torch.randn((D, K, N), generator=g, device="cuda") * K ** -0.5
+    b_stack = torch.randn((D, N), generator=g, device="cuda")
+    return hs, ws, w_stack, b_stack
+
+
+GROUPED_CASES = [
+    # run (d): two rungs of 2 clients, 4 chunks, two slots
+    ([(2, 4), (2, 4)], 512, 4096, [0, 1]),
+    # ragged M and C, C_b = 1, an empty bucket between live ones, a shared
+    # slot
+    ([(3, 20), (0, 8), (1, 8), (5, 33)], 32, 256, [1, 0, 0, 1]),
+    ([(7, 100), (2, 3)], 64, 130, [0, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,K,N,dec_idx", GROUPED_CASES)
+def test_grouped_kernel_matches_plain_and_per_bucket(shapes, K, N, dec_idx):
+    _card()
+    hs, ws, w_stack, b_stack = _ragged(len(shapes) * K, shapes, K, N,
+                                       max(dec_idx) + 1)
+    before = _lib.counts().get("grouped_fused_decode_agg", 0)
+    got = grouped_fused_decode_agg(hs, ws, w_stack, b_stack, dec_idx)
+    torch.cuda.synchronize()
+    assert _lib.counts()["grouped_fused_decode_agg"] == before + 1
+    want = ref.grouped_fused_decode_agg_ref(hs, ws, w_stack, b_stack,
+                                            dec_idx)
+    for h, w, d, g, r in zip(hs, ws, dec_idx, got, want):
+        assert tuple(g.shape) == (h.shape[1], N)
+        if h.shape[0] == 0:
+            assert not g.any()                     # exact zeros
+            continue
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=1e-4)
+        # the shared body: bit-equal to kernel 4 on this bucket alone
+        assert torch.equal(g, fused_decode_agg(h, w, w_stack[d].contiguous(),
+                                               b_stack[d].contiguous()))
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_all_empty_launches_nothing():
+    _card()
+    before = _lib.counts().get("grouped_fused_decode_agg", 0)
+    out = grouped_fused_decode_agg(
+        [torch.zeros((0, 16, 8), device="cuda")],
+        [torch.zeros(0, device="cuda")], torch.ones((1, 8, 32), device="cuda"),
+        torch.ones((1, 32), device="cuda"), [0])
+    assert tuple(out[0].shape) == (16, 32) and not out[0].any()
+    assert _lib.counts().get("grouped_fused_decode_agg", 0) == before
+
+
+@pytest.mark.gpu
+def test_partitioned_grouped_run_on_card_matches_cpu():
+    """Run (d) of chip_smoke.py: a partitioned cohort at full width, two
+    chunked-AE rungs in one grouped launch a round, on CUDA and on the
+    CPU."""
+    _card()
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import (ChunkedAECompressor, ChunkedAEConfig,
+                                  FederatedRun, FLConfig,
+                                  PartitionedCompressor, QuantizeCompressor,
+                                  by_layer_partition, init_chunked_ae)
+    from repro_torch.core.pytree import ravel
+    from repro_torch.core.task import ClassifierTask
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    cfgs = (ChunkedAEConfig(), ChunkedAEConfig(latent_chunk=4))
+    task = ClassifierTask(MNIST_CLASSIFIER)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pmap = by_layer_partition(task.init_params(torch.Generator(), dev))
+        prms = [init_chunked_ae(torch.Generator().manual_seed(2 + i), c, dev)
+                for i, c in enumerate(cfgs)]
+        comps = [PartitionedCompressor(pmap, {
+            "dense0": ChunkedAECompressor(prms[i // 2], cfgs[i // 2],
+                                          use_kernel=True),
+            "dense1": QuantizeCompressor(bits=8 if i % 2 == 0 else 4)})
+            for i in range(4)]
+        train, ev = train_eval_split(mnist_like(0, 576), 64)
+        _lib.reset_launches()
+        run = FederatedRun(
+            MNIST_CLASSIFIER, uniform_partition(0, train, 4),
+            FLConfig(n_rounds=2, local_epochs=1, payload="update",
+                     error_feedback=True, use_grouped_kernel=True, seed=0),
+            compressors=comps, eval_data=ev, device=dev)
+        run.run()
+        runs[dev] = (run, _lib.counts())
+    counts = runs["cuda"][1]
+    assert counts["grouped_fused_decode_agg"] == 2            # one a round
+    assert "fused_decode_agg" not in counts
+    assert runs["cpu"][1] == {}
+    for a, b in zip(runs["cpu"][0].history, runs["cuda"][0].history):
+        assert a.bytes_up == b.bytes_up == 1168
+        for k in ("loss", "accuracy"):
+            np.testing.assert_allclose(b.global_metrics[k],
+                                       a.global_metrics[k], **BAND)
+    np.testing.assert_allclose(
+        ravel(runs["cuda"][0].global_params)[0].cpu().numpy(),
+        ravel(runs["cpu"][0].global_params)[0].numpy(), **BAND)

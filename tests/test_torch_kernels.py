@@ -228,14 +228,17 @@ def test_chunked_ae_kernel_path_matches_pallas(chunk, hidden, latent):
 
 # --------------------------------------------------------- dispatch rules
 def test_use_kernel_default(monkeypatch):
+    """The explicit field is the one switch: no environment variable moves
+    the dispatch (the reference's ``REPRO_USE_KERNEL`` is not read)."""
     monkeypatch.delenv("REPRO_USE_KERNEL", raising=False)
     assert ops.use_kernel_default(True) is True
     assert ops.use_kernel_default(False) is False
     assert ops.use_kernel_default() is torch.cuda.is_available()
-    monkeypatch.setenv("REPRO_USE_KERNEL", "0")
-    assert ops.use_kernel_default() is False
-    monkeypatch.setenv("REPRO_USE_KERNEL", "1")
-    assert ops.use_kernel_default() is True
+    for value in ("0", "1"):
+        monkeypatch.setenv("REPRO_USE_KERNEL", value)
+        assert ops.use_kernel_default() is torch.cuda.is_available()
+        assert ops.use_kernel_default(True) is True
+        assert ops.use_kernel_default(False) is False
 
 
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
