@@ -7,7 +7,7 @@ Phases, each reported on its own lines:
 
 1. device — requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles the five kernels from ``src/repro_torch/csrc`` with
+2. build — compiles the six kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` and prints ``ptxas``'s registers, shared memory
    and spills per kernel;
 3. kernels vs plain — every kernel against its plain PyTorch version on
@@ -17,6 +17,9 @@ Phases, each reported on its own lines:
    grouped decode→aggregate is also held bucket by bucket against the
    per-bucket kernel (bit-equal) and timed beside it, at run (d)'s shapes,
    a ragged round and the cohort point of the ``fl_partition`` table.
+   Flash attention (kernel 6) runs at run (f)'s shape (bf16, causal,
+   beside ``scaled_dot_product_attention`` as the library call), at a
+   window and a full, kv-padded shape, and in float32 at head dim 64.
    ``ms``, ``plain_ms``, ``library_ms`` and ``per_bucket_ms`` are device
    times (calls captured in a CUDA graph and replayed); ``host_ms`` is the
    time per call of the wrapper called back to back from Python;
@@ -30,7 +33,21 @@ Phases, each reported on its own lines:
    with ``use_grouped_kernel=True``. Runs (a), (c), (d) and (e) are
    repeated on the CPU and compared; (d) and (e) also against the same run
    with the grouped round off. Launch counters are zeroed just before each
-   run and read just after.
+   run and read just after;
+5. LM serving — the dense GQA model zoo through ``prefill`` and
+   ``decode_step``: (f) deepseek-coder-33b at full width (d_model 7168, 56
+   query heads over 8 KV heads, d_ff 19,200, vocab 32,256), 16 of its 62
+   layers, its own dtypes (float32 parameters, bf16 compute), weights drawn
+   on the card from a seed; 4 prompts of 1,024 tokens from
+   ``synthetic_lm_batch``, then 16 greedy decode steps; flash attention
+   must launch once a layer in prefill and never in decode; one more
+   prefill then holds each layer's kernel-6 call against the plain version
+   at the model's own inputs. (g) the same architecture at 2 layers in
+   float32 compute, on the card and on the CPU from the same weights (1
+   prompt of 128 tokens, 4 decode steps, the CPU fed the card's tokens):
+   logits and cache within ``atol=1e-4, rtol=1e-3``; and a prefill in
+   bf16 compute on both, within twice the CPU's own bf16-vs-float32
+   error.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -50,6 +67,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
 GOLDEN_BAND = dict(atol=2e-5, rtol=2e-4)   # tests/test_golden_trajectory.py
+# kernel 6 against its plain version: float32 at the reference's
+# Pallas-vs-oracle tolerance (tests/test_kernels.py); bfloat16 at two ulps
+# of the output (2 * 2**-7 relative, 1e-3 near zero), since both sum in
+# float32 and round once, so they differ by at most one ulp
+FLASH_F32_TOL = dict(atol=3e-5, rtol=1e-3)
+FLASH_BF16_TOL = dict(atol=1e-3, rtol=1.6e-2)
 
 
 def log(msg: str) -> None:
@@ -311,6 +334,62 @@ def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def attention_pairs(Sq: int, Skv: int, mode: str, window) -> int:
+    """(query, key) pairs the mask lets through, for one (batch, head)."""
+    total = 0
+    for i in range(Sq):
+        hi = Skv if mode == "full" else min(i + 1, Skv)
+        lo = max(0, i - window + 1) if mode == "window" else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
+                mode: str, window, dtype, seed: int, iters: int) -> dict:
+    """Kernel 6 against its plain version. ``bound_ms``: q, k, v and the
+    output moved once, against 4·D operations for each (query, key) pair
+    the mask lets through at the input type's peak; ``library_ms``:
+    ``scaled_dot_product_attention`` on the (B, H, S, D) views, in causal
+    mode with ``Sq == Skv`` only (its causal mask is the same there)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
+    got = flash_attention(q, k, v, mode=mode, window=window)
+    want = ref.flash_attention_ref(q, k, v, mode=mode, window=window)
+    torch.cuda.synchronize()
+    require(got.dtype == dtype and got.shape == q.shape, "flash output")
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    err = close(got, want, **tol)
+    es = q.element_size()
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    pairs = B * H * attention_pairs(Sq, Skv, mode, window)
+    b_ms, b_by = bound(es * (2 * B * Sq * H * D + 2 * B * Skv * KV * D),
+                       4.0 * D * pairs, dname)
+    lib_ms = lib_err = None
+    if mode == "causal" and Sq == Skv:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).float() - want.float()).abs()
+                        .max())
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+    kern = lambda: flash_attention(q, k, v, mode=mode,       # noqa: E731
+                                   window=window)
+    return dict(name="flash_attention", shape=[B, Sq, Skv, H, KV, D],
+                mode=mode, window=window, dtype=dname, max_abs_err=err,
+                ms=time_ms(kern, iters), host_ms=host_ms(kern, iters),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, mode=mode, window=window), iters),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_max_abs_err=lib_err, gflop=4.0 * D * pairs / 1e9)
+
+
 # ------------------------------------------------------------------ slice
 def run_golden(device: str):
     """Run (a): the golden configuration (tests/test_golden_trajectory.py)."""
@@ -429,6 +508,176 @@ def run_flat_mixed(device: str, grouped: bool = True):
     return _four_client_run(device, comps, grouped)
 
 
+def deepseek(n_layers: int, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-coder-33b"),
+                               n_layers=n_layers, **changes)
+
+
+def in_model_flash_errs(run) -> list:
+    """Call ``run()`` with every kernel-6 call that the model makes held
+    against the plain version on the same inputs: the model's own q, k and
+    v after the rope, the cast to the compute type and ``.contiguous()``.
+    Returns each call's max abs err; raises outside the tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    kernel = attention.flash_kernel
+    errs = []
+
+    def checked(q, k, v, *, mode, window):
+        out = kernel(q, k, v, mode=mode, window=window)
+        want = ref.flash_attention_ref(q, k, v, mode=mode, window=window)
+        tol = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+        errs.append(close(out, want, **tol))
+        return out
+
+    attention.flash_kernel = checked
+    try:
+        run()
+    finally:
+        attention.flash_kernel = kernel
+    return errs
+
+
+def run_lm_serving() -> dict:
+    """Run (f): deepseek-coder-33b at full width, 16 layers, serving 4
+    prompts of 1,024 tokens then 16 greedy decode steps on the card."""
+    import torch
+    from repro_torch import models
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.kernels import _lib
+    B, S, steps = 4, 1024, 16
+    cfg = deepseek(16)
+    t0 = time.perf_counter()
+    params = models.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = models.param_count(params)
+    require(n_params == 8_947_735_552, f"run (f) holds {n_params} parameters")
+    batch = {k: t.cuda() for k, t in
+             synthetic_lm_batch(0, cfg.vocab_size, B, S).items()}
+    models.prefill(params, cfg, batch, S + steps)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = models.prefill(params, cfg, batch, S + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts_prefill = _lib.counts()
+    require(counts_prefill == {"flash_attention": cfg.n_layers},
+            f"run (f) prefill launches {counts_prefill}")
+    require(tuple(logits.shape) == (B, cfg.padded_vocab), "logits shape")
+    require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    seen = cache["layers"]["k"].abs().amax(dim=(-1, -2)) > 0  # (L, B, C)
+    require(cache["index"] == S and bool(seen[:, :, :S].all())
+            and not bool(seen[:, :, S:].any()), "prefill cache not filled")
+    _lib.reset_launches()
+    step_s = []
+    tokens = []
+    for _ in range(steps):
+        token = logits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        tokens.append(token)
+        t0 = time.perf_counter()
+        logits, cache = models.decode_step(params, cfg, token, cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(logits).all()), "non-finite decode")
+    counts_decode = _lib.counts()
+    require(counts_decode == {}, f"run (f) decode launches {counts_decode}")
+    seen = cache["layers"]["k"].abs().amax(dim=(-1, -2)) > 0
+    require(cache["index"] == S + steps and bool(seen.all()),
+            "decode did not fill the cache")
+    peak = torch.cuda.max_memory_allocated()
+    # after the counts and the peak were read: one more prefill, each
+    # layer's kernel-6 call held against the plain version at the model's
+    # own inputs
+    attn_errs = in_model_flash_errs(
+        lambda: models.prefill(params, cfg, batch, S + steps))
+    require(len(attn_errs) == cfg.n_layers, "in-model kernel-6 checks")
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+                batch=B, prompt=S, decode_steps=steps, init_s=init_s,
+                prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+                decode_step_s=step_s,
+                decode_step_median_s=sorted(step_s)[steps // 2],
+                peak_memory_bytes=peak,
+                launches_prefill=counts_prefill,
+                launches_decode=counts_decode,
+                attention_in_model_max_abs_err=attn_errs,
+                first_tokens=torch.cat(tokens, 1)[:, :4].tolist())
+
+
+def bf16_close(card, cpu, cpu_f32, tag: str) -> dict:
+    """The card's bfloat16 result against the CPU's, relative to bfloat16
+    rounding: both round at every cast to the compute type, so the card may
+    differ from the CPU by at most twice the CPU's own bfloat16 error (its
+    distance from the same model in float32 compute)."""
+    import torch
+    err = float((card.cpu().float() - cpu.float()).abs().max())
+    own = float((cpu.float() - cpu_f32.float()).abs().max())
+    require(bool(torch.isfinite(card).all()) and err <= 2 * own,
+            f"run (g) bfloat16 {tag}: card vs CPU max abs err {err} > 2 x "
+            f"the CPU's bfloat16-vs-float32 error {own}")
+    return dict(max_abs_err=err, cpu_bf16_vs_f32=own)
+
+
+def run_lm_card_vs_cpu() -> dict:
+    """Run (g): 2 layers in float32 compute, the card against the CPU from
+    the same weights; the CPU decode is fed the card's greedy tokens. Then
+    a prefill in the config's own bfloat16 compute on both, held against
+    the CPU by ``bf16_close``."""
+    import torch
+    from repro_torch import models
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.kernels import _lib
+    cfg = deepseek(2, compute_dtype="float32")
+    tol = dict(atol=1e-4, rtol=1e-3)
+    gparams = models.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    cparams = tree_map(lambda t: t.cpu(), gparams)
+    n_params = models.param_count(gparams)
+    require(n_params == 1_523_092_480, f"run (g) holds {n_params}")
+    batch = synthetic_lm_batch(1, cfg.vocab_size, 1, 128)
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    _lib.reset_launches()
+    glogits, gcache = models.prefill(gparams, cfg, gbatch, 132)
+    torch.cuda.synchronize()
+    counts = _lib.counts()
+    require(counts == {"flash_attention": cfg.n_layers},
+            f"run (g) prefill launches {counts}")
+    clogits, ccache = models.prefill(cparams, cfg, batch, 132)
+    errs = [close(glogits.cpu(), clogits, **tol)]
+    bcfg = deepseek(2)                        # bfloat16 compute
+    _lib.reset_launches()
+    blogits, bcache = models.prefill(gparams, bcfg, gbatch, 132)
+    torch.cuda.synchronize()
+    require(_lib.counts() == {"flash_attention": bcfg.n_layers},
+            f"run (g) bfloat16 prefill launches {_lib.counts()}")
+    clogits16, ccache16 = models.prefill(cparams, bcfg, batch, 132)
+    bf16 = {"logits": bf16_close(blogits, clogits16, clogits, "logits")}
+    for k in ("k", "v"):
+        bf16[f"cache_{k}"] = bf16_close(bcache["layers"][k],
+                                        ccache16["layers"][k],
+                                        ccache["layers"][k], f"cache {k}")
+    del blogits, bcache, clogits16, ccache16
+    for _ in range(4):
+        token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+        clogits, ccache = models.decode_step(cparams, cfg, token.cpu(),
+                                             ccache)
+        errs.append(close(glogits.cpu(), clogits, **tol))
+    require(gcache["index"] == ccache["index"] == 132, "cache index")
+    cache_err = max(close(gcache["layers"][k].cpu(), ccache["layers"][k],
+                          **tol) for k in ("k", "v"))
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+                logits_max_abs_err=errs, cache_max_abs_err=cache_err,
+                bf16_prefill=bf16)
+
+
 def check_records(hist, up: float, raw: float, down: float) -> None:
     for r in hist:
         require(r.bytes_up == up, f"bytes_up {r.bytes_up} != {up}")
@@ -524,7 +773,19 @@ def main() -> int:
     # 256, hidden 32, cohort 64 as two rungs of 32 clients, two slots
     cohort.append(check_grouped_decode_agg(
         [(32, 3840), (32, 3840)], 32, 256, [0, 1], 15, 10))
-    for r in fd[1:] + grouped + cohort:
+    # kernel 6: run (f)'s attention (deepseek-coder-33b, 4 x 1,024 tokens,
+    # 56 query heads over 8 KV heads, head dim 128, bf16, causal); a window;
+    # full attention with kv lengths off the 64-row tile; float32 at D = 64
+    slice_rows["flash_attention"] = check_flash(
+        4, 1024, 1024, 56, 8, 128, "causal", None, torch.bfloat16, 16, 10)
+    flash = [check_flash(2, 1000, 1000, 56, 8, 128, "window", 256,
+                         torch.bfloat16, 17, 10),
+             check_flash(2, 333, 517, 56, 8, 128, "full", None,
+                         torch.bfloat16, 18, 10),
+             check_flash(2, 512, 512, 32, 32, 64, "causal", None,
+                         torch.float32, 19, 10)]
+    for r in (fd[1:] + grouped + cohort + [slice_rows["flash_attention"]]
+              + flash):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -604,7 +865,24 @@ def main() -> int:
             "== grouped off on the card within atol=1e-5 rtol=1e-4 "
             f"(params max abs err {err_off!r})")
 
-    # ---------------------------------------------------------- 5. report
+    # ----------------------------------------------------- 5. LM serving
+    lm = run_lm_serving()
+    launches["flash_attention"] = lm["launches_prefill"]["flash_attention"]
+    log("lm (f) " + json.dumps(lm))
+    log(f"lm (f) deepseek-coder-33b x16 layers: prefill 4 x 1024 tokens in "
+        f"{lm['prefill_s']:.4f} s, decode step median "
+        f"{lm['decode_step_median_s']:.4f} s, peak "
+        f"{lm['peak_memory_bytes'] / 2**30:.2f} GiB; flash_attention "
+        f"{lm['launches_prefill']} in prefill, none in decode")
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_g = run_lm_card_vs_cpu()
+    log("lm (g) cuda == cpu within atol=1e-4 rtol=1e-3 (float32 compute), "
+        "bfloat16 prefill within 2 x the CPU's bfloat16 error: "
+        + json.dumps(lm_g))
+
+    # ---------------------------------------------------------- 6. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -615,7 +893,9 @@ def main() -> int:
                                 "src/repro/kernels/fused_decode_agg.py:53"),
            "grouped_fused_decode_agg": (
                "src/repro_torch/csrc/grouped_decode_agg.cu",
-               "src/repro/kernels/fused_decode_agg.py:120")}
+               "src/repro/kernels/fused_decode_agg.py:120"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:29")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = slice_rows[name]

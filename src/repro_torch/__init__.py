@@ -7,8 +7,8 @@ flat update vector means the same thing in both packages.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a card they raise instead of falling back (:func:`repro_torch.device.resolve`).
-The five codec kernels of the ported paths are hand-written CUDA for
-Hopper (``csrc/``), each beside its plain PyTorch version
-(``kernels/ref.py``).
+The five codec kernels of the ported paths and the flash-attention kernel
+of the LM's prefill are hand-written CUDA for Hopper (``csrc/``), each
+beside its plain PyTorch version (``kernels/ref.py``).
 This package never imports ``jax`` or anything of ``repro``.
 """

@@ -108,3 +108,14 @@ def _take(data: Data, sel: np.ndarray) -> Data:
     for k, v in data.items():
         out[k] = v[torch.as_tensor(sel, dtype=torch.int64, device=v.device)]
     return out
+
+
+# ----------------------------------------------------------------- LM stream
+def synthetic_lm_batch(seed: int, vocab_size: int, batch: int,
+                       seq_len: int) -> Data:
+    """Zipf-distributed token stream with next-token labels, drawn exactly
+    as the reference draws it (int64 here, the reference's int32 values)."""
+    rng = np.random.RandomState(seed)
+    ranks = rng.zipf(1.3, size=(batch, seq_len + 1))
+    tokens = torch.from_numpy((ranks % vocab_size).astype(np.int64))
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

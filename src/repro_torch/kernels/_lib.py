@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("quantize.cu", "fused_dense.cu", "fused_decode_agg.cu",
-           "grouped_decode_agg.cu")
+           "grouped_decode_agg.cu", "flash_attention.cu")
 HEADERS = ("decode_agg_tile.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +52,9 @@ _SIGNATURES = {
                                _P],
     # table, W_stack, b_stack, T, K, N, bm, cols_per_split, stream
     "repro_grouped_decode_agg": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, B, Sq, Skv, H, KV, D, mode, window, scale, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,10 @@
+"""The model zoo: the paper's classifiers (``classifiers.py``) and the LM
+(``model.py``, dense GQA family), with the names ``repro.models`` exports."""
+from repro_torch.models.model import (  # noqa: F401
+    decode_step,
+    init_cache,
+    init_params,
+    param_count,
+    prefill,
+    train_loss,
+)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the grouped decode→aggregate bucket by bucket against the
-per-bucket kernel, and the q8 and partitioned grouped runs on CUDA against
-the same runs on the CPU.
+per-bucket kernel, the q8 and partitioned grouped runs on CUDA against
+the same runs on the CPU, and the reduced deepseek-coder-33b prefill and
+decode on CUDA (flash attention on kernel 6) against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -17,6 +18,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _lib, ref  # noqa: E402
 from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
     fused_decode_agg, grouped_fused_decode_agg)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention)
 from repro_torch.kernels.fused_dense import fused_dense  # noqa: E402
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
@@ -227,3 +230,94 @@ def test_partitioned_grouped_run_on_card_matches_cpu():
     np.testing.assert_allclose(
         ravel(runs["cuda"][0].global_params)[0].cpu().numpy(),
         ravel(runs["cpu"][0].global_params)[0].numpy(), **BAND)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,window", [("causal", None), ("window", 50),
+                                         ("full", None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_kernel_matches_plain(mode, window, dtype, G, D):
+    """Kernel 6 against its plain version: ragged lengths (not multiples of
+    the 64-row tiles), a q shorter than kv, GQA groups up to 7. Tolerance:
+    float32 that of the reference's Pallas test; bfloat16 two ulps of the
+    output (2 * 2**-7 relative, 1e-3 near zero): both sum in float32 and
+    round once, so they differ by at most one ulp."""
+    _card()
+    tol = (dict(atol=3e-5, rtol=1e-3) if dtype == torch.float32
+           else dict(atol=1e-3, rtol=1.6e-2))
+    for B, Sq, Skv, KV in ((2, 77, 77, 2), (1, 200, 200, 1),
+                           (2, 130, 203, 2)):
+        g = torch.Generator(device="cuda").manual_seed(Sq * G + D)
+        q = torch.randn((B, Sq, KV * G, D), generator=g, device="cuda")
+        k = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+        v = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = _lib.counts().get("flash_attention", 0)
+        got = flash_attention(q, k, v, mode=mode, window=window)
+        torch.cuda.synchronize()
+        assert _lib.counts()["flash_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(
+            got.float(),
+            ref.flash_attention_ref(q, k, v, mode=mode,
+                                    window=window).float(), **tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_what_it_cannot_compute():
+    _card()
+    q = torch.zeros((1, 16, 4, 48), device="cuda")        # D = 48
+    k = torch.zeros((1, 16, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, k)
+    q = torch.zeros((1, 16, 4, 64), device="cuda", dtype=torch.float16)
+    k = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, k)
+    q = torch.zeros((1, 4, 16, 64), device="cuda").transpose(1, 2)
+    k = torch.zeros((1, 16, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k, k)
+    from repro_torch.models.attention import flash_attention as model_flash
+    q = torch.zeros((1, 16, 4, 64), device="cuda")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        model_flash(q, k, k, softcap=30.0)
+
+
+@pytest.mark.gpu
+def test_reduced_lm_on_card_matches_cpu():
+    """deepseek-coder-33b reduced (2 layers, 14 heads over 2 KV heads,
+    float32): prefill and 4 greedy decode steps on the card against the CPU
+    from the same weights, the CPU fed the card's tokens. Prefill launches
+    kernel 6 once a layer; decode launches nothing."""
+    _card()
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    cfg = dataclasses.replace(get_config("deepseek_coder_33b").reduced(),
+                              n_heads=14, n_kv_heads=2)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), params)
+    batch = synthetic_lm_batch(0, cfg.vocab_size, 2, 100)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    _lib.reset_launches()
+    glogits, gcache = models.prefill(gparams, cfg, gbatch, 104)
+    torch.cuda.synchronize()
+    assert _lib.counts() == {"flash_attention": cfg.n_layers}
+    logits, cache = models.prefill(params, cfg, batch, 104)
+    torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+    for step in range(4):
+        token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+        logits, cache = models.decode_step(params, cfg, token.cpu(), cache)
+        torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+    torch.cuda.synchronize()
+    assert _lib.counts() == {"flash_attention": cfg.n_layers}
+    assert gcache["index"] == cache["index"] == 104
+    for key in ("k", "v"):
+        torch.testing.assert_close(gcache["layers"][key].cpu(),
+                                   cache["layers"][key], **BAND)
