@@ -7,8 +7,9 @@ Phases, each reported on its own lines:
 
 1. device — requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles the six kernels from ``src/repro_torch/csrc`` with
-   ``nvcc`` for ``sm_90a`` and prints ``ptxas``'s registers, shared memory
+2. build — compiles the kernels of the six TPU kernels from
+   ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a`` (one process a
+   source, in parallel) and prints ``ptxas``'s registers, shared memory
    and spills per kernel;
 3. kernels vs plain — every kernel against its plain PyTorch version on
    the card, at every shape the slice gives it and at the cohort scale of
@@ -20,9 +21,14 @@ Phases, each reported on its own lines:
    Flash attention (kernel 6) runs at run (f)'s shape (bf16, causal,
    beside ``scaled_dot_product_attention`` as the library call), at a
    window and a full, kv-padded shape, and in float32 at head dim 64.
-   ``ms``, ``plain_ms``, ``library_ms`` and ``per_bucket_ms`` are device
-   times (calls captured in a CUDA graph and replayed); ``host_ms`` is the
-   time per call of the wrapper called back to back from Python;
+   Kernels 3 and 6 have two routes each, named in every row as
+   ``kernel_route``: ``fused_dense`` at M <= 16 ``splitk``, else
+   ``tiled``; flash attention in bf16 ``wgmma``, in float32 ``fma``.
+   ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)`` at every
+   shape, which leaves out a relu, tanh or sigmoid (``library_call`` says
+   so). ``ms``, ``plain_ms``, ``library_ms`` and ``per_bucket_ms`` are
+   device times (calls captured in a CUDA graph and replayed); ``host_ms``
+   is the time per call of the wrapper called back to back from Python;
 4. slice — the paper's pipeline through the port's entry points on
    ``cuda`` with the MNIST MLP at full width: (a) SyncFedAvg, 3 clients,
    q8, update payload + error feedback, 2 rounds; (b) ``run_prepass``
@@ -212,7 +218,7 @@ def check_fused_dense(M: int, K: int, N: int, act: str, dtype, seed: int,
                       iters: int) -> dict:
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_dense import fused_dense
+    from repro_torch.kernels.fused_dense import fused_dense, kernel_route
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
     w = (torch.randn((K, N), generator=g, device="cuda")
@@ -231,12 +237,14 @@ def check_fused_dense(M: int, K: int, N: int, act: str, dtype, seed: int,
     dname = "float32" if dtype == torch.float32 else "bfloat16"
     b_ms, b_by = bound(es * (M * K + K * N + N + M * N), 2.0 * M * K * N,
                        dname)
-    lib_ms = None
-    if act == "linear":
-        lib_ms = time_ms(lambda: torch.addmm(b, x, w), iters)
+    # the library call computes x @ w + b; the activation is left out
+    lib_ms = time_ms(lambda: torch.addmm(b, x, w), iters)
     kern = lambda: fused_dense(x, w, b, act=act)             # noqa: E731
     return dict(name="fused_dense", shape=[M, K, N], act=act, dtype=dname,
-                max_abs_err=err, ms=time_ms(kern, iters),
+                kernel_route=kernel_route(M), max_abs_err=err,
+                library_call="torch.addmm" + (
+                    "" if act == "linear" else f" (without the {act})"),
+                ms=time_ms(kern, iters),
                 host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.fused_dense_ref(x, w, b, act),
                                  iters),
@@ -354,7 +362,8 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     kernel_route)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
@@ -382,7 +391,8 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
     kern = lambda: flash_attention(q, k, v, mode=mode,       # noqa: E731
                                    window=window)
     return dict(name="flash_attention", shape=[B, Sq, Skv, H, KV, D],
-                mode=mode, window=window, dtype=dname, max_abs_err=err,
+                mode=mode, window=window, dtype=dname,
+                kernel_route=kernel_route(dtype), max_abs_err=err,
                 ms=time_ms(kern, iters), host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(
                     q, k, v, mode=mode, window=window), iters),
@@ -906,8 +916,9 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=r["shape"],
-                            **({"per_bucket_ms": r["per_bucket_ms"]}
-                               if "per_bucket_ms" in r else {})))
+                            **{k: r[k] for k in ("kernel_route",
+                                                 "library_call",
+                                                 "per_bucket_ms") if k in r}))
     for line in smi:
         log(line)
     log(json.dumps({"kernels": kernels}))

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "repro_errors.h"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
@@ -83,5 +85,9 @@ extern "C" int repro_dequantize_blocks(const int8_t* q, const float* s,
 }
 
 extern "C" const char* repro_error_string(int code) {
+  if (code == kNoEncoder)
+    return "libcuda has no cuTensorMapEncodeTiled (TMA descriptors)";
+  if (code == kEncodeFailed)
+    return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("quantize.cu", "fused_dense.cu", "fused_decode_agg.cu",
            "grouped_decode_agg.cu", "flash_attention.cu")
-HEADERS = ("decode_agg_tile.cuh",)
+HEADERS = ("decode_agg_tile.cuh", "repro_errors.h")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -47,6 +47,9 @@ _SIGNATURES = {
     "repro_dequantize_blocks": [_P, _P, _P, _LL, _I, _P],
     # x, w, b, y, M, K, N, act, dtype, stream
     "repro_fused_dense": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # x, w, b, y, ws, M, K, N, act, dtype, rows, tpr, stream
+    "repro_fused_dense_splitk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
     # h, w, W, b, out, C, M, K, N, bm, cols_per_split, stream
     "repro_fused_decode_agg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],

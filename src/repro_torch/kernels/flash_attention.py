@@ -5,7 +5,9 @@
 q: (B, Sq, H, D), k and v: (B, Skv, KV, D) with ``H % KV == 0``; modes
 ``causal``, ``window`` and ``full``; scale ``D ** -0.5``; the output has
 q's shape and dtype. A CPU tensor takes the plain version
-(``ref.flash_attention_ref``); a CUDA tensor launches the kernel or raises.
+(``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises.
+The dtype picks the kernel: bfloat16 the wgmma kernel fed by TMA (its
+tensor maps need 16-byte aligned q, k and v), float32 the FMA kernel.
 """
 from __future__ import annotations
 
@@ -18,6 +20,12 @@ from repro_torch.kernels import _lib, ref
 MODES = {"causal": 0, "window": 1, "full": 2}
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """``"wgmma"`` or ``"fma"``: the kernel a CUDA call in ``dtype``
+    launches."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,6 +75,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _lib.check_cuda("flash_attention: v", v, q.dtype)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v on different devices")
+    if kernel_route(q.dtype) == "wgmma" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k and v must start "
+                         "on 16-byte boundaries (TMA)")
     o = torch.empty_like(q)
     if B and Sq and H:
         _lib.launch("flash_attention", "repro_flash_attention", q, k, v, o,

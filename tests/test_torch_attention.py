@@ -188,3 +188,53 @@ def test_kernel_wrapper_refuses_calls_outside_reference(shapes, mode, window,
         check_shapes(q, k, v, mode, window)
     with pytest.raises(ValueError, match=match):
         flash_kernel(q, k, v, mode=mode, window=window)
+
+
+def _bf16_route_model(q, k, v, *, split: bool, tile: int = 64):
+    """Kernel 6's bfloat16 route as torch arithmetic on the CPU, causal,
+    G = 1: bfloat16 q, k, v; float32 scores scaled by D^-0.5; an online
+    softmax over ``tile``-key tiles in float32 with ``l`` summed from the
+    float32 P; P V from ``bf16(P)`` alone, or (``split``) from
+    ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)`` accumulated in
+    float32; ``acc / max(l, 1e-30)`` cast to bfloat16."""
+    B, S, H, D = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) * D ** -0.5
+        cols = k0 + torch.arange(s.shape[-1])[None, :]
+        s = torch.where(cols <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        pv = p_hi @ vf[:, :, k0:k0 + tile]
+        if split:
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            pv = pv + p_lo @ vf[:, :, k0:k0 + tile]
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def test_bf16_route_p_split_within_two_ulps():
+    """The design argument of kernel 6's bfloat16 route: with P split into
+    two bfloat16 halves the route stays within two bfloat16 ulps
+    (``BF16_TOL``, the card's check) of the plain version, which keeps P
+    in float32, at S = 1024, 8 heads, D = 128, causal; a single bfloat16 P
+    lands further from it."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(14, 1, 1024, 1024, 8, 8, 128))
+    want = ref.flash_attention_ref(q, k, v, mode="causal").float()
+    limit = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()
+    worst = {}
+    for split in (True, False):
+        got = _bf16_route_model(q, k, v, split=split).float()
+        worst[split] = float(((got - want).abs() / limit).max())
+    assert worst[True] <= 1.0, worst
+    assert worst[False] > 1.0, worst

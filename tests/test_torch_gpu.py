@@ -20,7 +20,8 @@ from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
     fused_decode_agg, grouped_fused_decode_agg)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention)
-from repro_torch.kernels.fused_dense import fused_dense  # noqa: E402
+from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
+                                             kernel_route)
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -74,6 +75,39 @@ def test_fused_dense_kernel_matches_plain(M, K, N, dtype):
         torch.testing.assert_close(got.float(),
                                    ref.fused_dense_ref(x, w, b, act).float(),
                                    **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 512), (4, 512, 8),
+                                   (4, 512, 4096), (12, 8, 512),
+                                   (16, 4095, 65), (1, 300, 7),
+                                   (16, 4096, 64), (17, 4096, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dense_splitk_route_matches_plain(M, K, N, dtype):
+    """The split-K route (M <= 16) at the client's encode and decode shapes,
+    with a ragged N (scalar loads) and the M = 16 / 17 boundary, where the
+    tiled route takes over: every activation against the plain version at
+    the tiled route's tolerances, one launch a call, and the same bits
+    from run to run (partials summed in slab order, no atomics)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+         ).to(dtype)
+    b = torch.randn((N,), generator=g, device="cuda").to(dtype)
+    tol = (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=5e-2, rtol=1e-2))
+    assert kernel_route(M) == ("splitk" if M <= 16 else "tiled")
+    for act in ("relu", "tanh", "sigmoid", "linear"):
+        before = _lib.counts().get("fused_dense", 0)
+        got = fused_dense(x, w, b, act=act)
+        torch.cuda.synchronize()
+        assert _lib.counts()["fused_dense"] == before + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(),
+                                   ref.fused_dense_ref(x, w, b, act).float(),
+                                   **tol)
+        assert torch.equal(got, fused_dense(x, w, b, act=act))
 
 
 @pytest.mark.gpu
@@ -266,6 +300,42 @@ def test_flash_attention_kernel_matches_plain(mode, window, dtype, G, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,mode,window", [
+    (2, 77, 77, 4, 2, 16, "causal", None),
+    (1, 300, 300, 7, 1, 16, "window", 40),
+    (2, 130, 203, 4, 4, 16, "full", None),
+    (2, 77, 77, 4, 2, 32, "causal", None),
+    (1, 300, 300, 7, 1, 32, "window", 40),
+    (2, 130, 203, 4, 4, 32, "full", None),
+    (1, 1024, 1024, 56, 8, 128, "causal", None),   # run (f), one prompt
+    (1, 459, 459, 8, 2, 128, "causal", None),      # four q tiles, ragged
+    (2, 387, 387, 8, 8, 64, "window", 100),
+    (1, 259, 517, 4, 1, 128, "full", None),
+])
+def test_flash_attention_bf16_wgmma_matches_plain(B, Sq, Skv, H, KV, D, mode,
+                                                  window):
+    """Kernel 6's bfloat16 route (wgmma fed by TMA) at head dims 16 and 32
+    (32- and 64-byte swizzles), at a run (f)-like shape, and with Sq over
+    several 128-row q tiles with ragged tails (rows past Sq not stored,
+    kv rows past Skv zero-filled and masked): against the plain version
+    within two bf16 ulps, one launch a call."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(Sq * H + D)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16) for shape in ((B, Sq, H, D), (B, Skv, KV, D),
+                                      (B, Skv, KV, D)))
+    before = _lib.counts().get("flash_attention", 0)
+    got = flash_attention(q, k, v, mode=mode, window=window)
+    torch.cuda.synchronize()
+    assert _lib.counts()["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, mode=mode,
+                                             window=window).float(),
+        atol=1e-3, rtol=1.6e-2)
+
+
+@pytest.mark.gpu
 def test_flash_attention_kernel_refuses_what_it_cannot_compute():
     _card()
     q = torch.zeros((1, 16, 4, 48), device="cuda")        # D = 48
@@ -279,6 +349,11 @@ def test_flash_attention_kernel_refuses_what_it_cannot_compute():
     q = torch.zeros((1, 4, 16, 64), device="cuda").transpose(1, 2)
     k = torch.zeros((1, 16, 2, 64), device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k, k)
+    q = torch.zeros(1 + 16 * 4 * 64, device="cuda",
+                    dtype=torch.bfloat16)[1:].view(1, 16, 4, 64)
+    k = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, k, k)
     from repro_torch.models.attention import flash_attention as model_flash
     q = torch.zeros((1, 16, 4, 64), device="cuda")

@@ -28,7 +28,10 @@ from repro_torch.core.pytree import from_jax_params  # noqa: E402
 from repro_torch.kernels import _lib, ops  # noqa: E402
 from repro_torch.kernels.fused_decode_agg import (fused_decode_agg,  # noqa: E402
                                                   plan)
-from repro_torch.kernels.fused_dense import fused_dense  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel_route as flash_route)
+from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
+                                             kernel_route, splitk_plan)
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -86,6 +89,65 @@ def test_fused_dense_plain_matches_pallas_interpret():
                           torch.from_numpy(b), act=act)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=1e-5, rtol=1e-4)
+
+
+# the split-K route's shapes on the main path and at its edges
+SPLITK_SHAPES = [(4, 4096, 512), (4, 512, 8), (4, 512, 4096), (4, 8, 512),
+                 (12, 8, 512), (16, 4095, 65), (1, 300, 7), (3, 0, 5)]
+
+
+def test_kernel_routes():
+    """Each wrapper's CUDA route comes from shape and dtype alone."""
+    assert [kernel_route(m) for m in (1, 4, 16, 17, 4096)] == [
+        "splitk", "splitk", "splitk", "tiled", "tiled"]
+    assert flash_route(torch.bfloat16) == "wgmma"
+    assert flash_route(torch.float32) == "fma"
+
+
+@pytest.mark.parametrize("M,K,N", SPLITK_SHAPES)
+@pytest.mark.parametrize("elem", [4, 2])
+def test_fused_dense_splitk_plan(M, K, N, elem):
+    """The split-K launch plan: column tiles of a power of two of 16-byte
+    vectors, at least 4 (64 bytes of a row) unless N is narrower, narrowed
+    from 32 only where K fits one slab and while the tiles give fewer than
+    2 x 132 blocks; slabs of
+    whole block steps (8 warps of 32 / tpr rows), at most 512 rows,
+    covering K exactly once; where the column tiles give fewer than 132
+    blocks and K is long enough for 2 x 132 blocks of 16 KB of w, about 2
+    blocks an SM."""
+    rows, tpr, splits = splitk_plan(K, N, elem, 132)
+    vec = 16 // elem
+    ncv = -(-N // vec)
+    widest = min(32, 1 << (ncv - 1).bit_length())
+    assert tpr in (1, 2, 4, 8, 16, 32) and min(4, widest) <= tpr <= widest
+    assert tpr == widest or (K <= 512 and -(-ncv // (2 * tpr)) < 2 * 132)
+    step = 8 * (32 // tpr)
+    assert rows % step == 0 and step <= rows <= 512
+    assert (splits - 1) * rows < max(K, 1) <= splits * rows
+    tiles = -(-ncv // tpr)
+    floor_rows = -(-16384 // (tpr * vec * elem))
+    if tiles < 132 and K >= 2 * 132 * floor_rows // tiles:
+        assert 132 <= splits * tiles <= 2 * 132 + tiles
+
+
+@pytest.mark.parametrize("M,K,N", SPLITK_SHAPES[:3])
+def test_fused_dense_splitk_order_keeps_tolerance(M, K, N):
+    """The split-K route's float32 arithmetic on the CPU: one float32
+    partial product per slab of the plan, summed in slab order, then bias
+    and activation, stays within the card check's float32 tolerance of the
+    plain version."""
+    rng = np.random.RandomState(M + K + N)
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32))
+    w = torch.from_numpy((rng.randn(K, N) * K ** -0.5).astype(np.float32))
+    b = torch.from_numpy(rng.randn(N).astype(np.float32))
+    rows, _, splits = splitk_plan(K, N, 4, 132)
+    acc = torch.zeros((M, N))
+    for s in range(splits):
+        acc = acc + x[:, s * rows:(s + 1) * rows] @ w[s * rows:(s + 1) * rows]
+    for act, fn in (("relu", torch.relu), ("linear", lambda t: t)):
+        np.testing.assert_allclose(
+            fn(acc + b).numpy(), fused_dense(x, w, b, act=act).numpy(),
+            atol=1e-5, rtol=1e-4)
 
 
 # --------------------------------------------------------------- quantize
