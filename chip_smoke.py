@@ -21,14 +21,18 @@ Phases, each reported on its own lines:
    Flash attention (kernel 6) runs at run (f)'s shape (bf16, causal,
    beside ``scaled_dot_product_attention`` as the library call), at a
    window and a full, kv-padded shape, and in float32 at head dim 64.
-   Kernels 3 and 6 have two routes each, named in every row as
+   Kernels 3 to 6 have two routes each, named in every row as
    ``kernel_route``: ``fused_dense`` at M <= 16 ``splitk``, else
-   ``tiled``; flash attention in bf16 ``wgmma``, in float32 ``fma``.
-   ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)`` at every
-   shape, which leaves out a relu, tanh or sigmoid (``library_call`` says
-   so). ``ms``, ``plain_ms``, ``library_ms`` and ``per_bucket_ms`` are
-   device times (calls captured in a CUDA graph and replayed); ``host_ms``
-   is the time per call of the wrapper called back to back from Python;
+   ``tiled``; the decode→aggregate kernels per bucket ``few_rows`` at
+   M_b <= 16 and K <= 512, else ``bands`` (a mixed round at K 512, N 4096
+   runs both in one launch); flash attention in bf16 ``wgmma``, in float32
+   ``fma``. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
+   at every shape, which leaves out a relu, tanh or sigmoid; kernel 4's is
+   ``torch.einsum("c,cmk,kn->mn", w, h, W)``, without the bias
+   (``library_call`` says so). ``ms``, ``plain_ms``, ``library_ms`` and
+   ``per_bucket_ms`` are device times (calls captured in a CUDA graph and
+   replayed); ``host_ms`` is the time per call of the wrapper called back
+   to back from Python;
 4. slice — the paper's pipeline through the port's entry points on
    ``cuda`` with the MNIST MLP at full width: (a) SyncFedAvg, 3 clients,
    q8, update payload + error feedback, 2 rounds; (b) ``run_prepass``
@@ -255,7 +259,8 @@ def check_decode_agg(C: int, M: int, K: int, N: int, seed: int,
                      iters: int) -> dict:
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_decode_agg import fused_decode_agg
+    from repro_torch.kernels.fused_decode_agg import (fused_decode_agg,
+                                                      kernel_route)
     g = torch.Generator(device="cuda").manual_seed(seed)
     h = torch.randn((C, M, K), generator=g, device="cuda")
     w = torch.rand((C,), generator=g, device="cuda") + 0.1
@@ -276,11 +281,16 @@ def check_decode_agg(C: int, M: int, K: int, N: int, seed: int,
     b_ms, b_by = bound(4 * (C * M * K + C + K * N + N + M * N),
                        2.0 * C * M * K + 2.0 * M * K * N + M * N, "float32")
     kern = lambda: fused_decode_agg(h, w, wl, bl)            # noqa: E731
-    return dict(name="fused_decode_agg", shape=[C, M, K, N], max_abs_err=err,
+    # the one PyTorch call with the same sum; the bias is left out
+    lib_ms = time_ms(lambda: torch.einsum("c,cmk,kn->mn", w, h, wl), iters)
+    return dict(name="fused_decode_agg", shape=[C, M, K, N],
+                kernel_route=kernel_route(M, K), max_abs_err=err,
                 ms=time_ms(kern, iters), host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.fused_decode_agg_ref(
                     h, w, wl, bl), iters),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_call='torch.einsum("c,cmk,kn->mn") (without the '
+                             'bias)')
 
 
 def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
@@ -288,10 +298,11 @@ def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
     """The grouped ragged launch on buckets of ``(C_b, M_b)``: against its
     plain version, and each bucket bit-equal to the per-bucket kernel
     (``fused_decode_agg``) on that bucket alone, an empty bucket exact
-    zeros. ``ms`` times the launch of a plan built once (the plan's table
-    copy is the host's work, in ``host_ms`` with the whole wrapper);
-    ``per_bucket_ms`` is the per-bucket kernel launched once per live
-    bucket, the yardstick where no single PyTorch call computes this."""
+    zeros; ``kernel_route`` lists each bucket's route. ``ms`` times the
+    launch of a plan built once (the plan's table copy is the host's work,
+    in ``host_ms`` with the whole wrapper); ``per_bucket_ms`` is the
+    per-bucket kernel launched once per live bucket, the yardstick where no
+    single PyTorch call computes this."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_decode_agg import (
@@ -323,7 +334,7 @@ def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
         per = fused_decode_agg(h, ws[b], *decs[dec_idx[b]])
         require(torch.equal(gb, per),
                 f"bucket {b}: grouped != per-bucket kernel (bit-equality)")
-    plan = grouped_plan(*args)
+    plan = grouped_plan(hs, ws, decs, dec_idx)
     n_bytes = 4 * (sum(h.numel() for h in hs) + sum(w.numel() for w in ws)
                    + D * (K * N + N) + sum(h.shape[1] for h in hs) * N)
     flops = sum(2.0 * h.numel() + 2.0 * h.shape[1] * K * N + h.shape[1] * N
@@ -331,8 +342,9 @@ def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
     b_ms, b_by = bound(n_bytes, flops, "float32")
     return dict(
         name="grouped_fused_decode_agg", shape=[list(s) for s in shapes],
-        K=K, N=N, dec_idx=list(dec_idx), bm=plan.bm, cols=plan.cols,
-        tiles=plan.tiles, max_abs_err=err, bit_equal_per_bucket=True,
+        K=K, N=N, dec_idx=list(dec_idx), kernel_route=plan.routes,
+        bm=plan.bm, cols=plan.cols, tpr=plan.tpr, tiles=plan.tiles,
+        max_abs_err=err, bit_equal_per_bucket=True,
         ms=time_ms(lambda: grouped_launch(plan), iters),
         host_ms=host_ms(lambda: grouped_fused_decode_agg(*args), iters),
         plain_ms=time_ms(lambda: ref.grouped_fused_decode_agg_ref(*args),
@@ -770,9 +782,13 @@ def main() -> int:
     # run (d)'s launch: 2 rungs of 2 clients, 4 chunks, 512 → 4096, 2 slots
     slice_rows["grouped_fused_decode_agg"] = check_grouped_decode_agg(
         [(2, 4), (2, 4)], 512, 4096, [0, 1], 13, 50)
-    # ragged: uneven C_b and M_b, C_b = 1, an empty bucket, a shared slot
+    # ragged: uneven C_b and M_b, C_b = 1, an empty bucket, a shared slot;
+    # mixed routes at run (d)'s widths: few_rows (3, 4) and (1, 16) beside
+    # bands (2, 100) in one launch
     grouped = [check_grouped_decode_agg(
-        [(3, 37), (0, 8), (1, 8), (6, 100)], 32, 256, [1, 0, 0, 1], 14, 50)]
+        [(3, 37), (0, 8), (1, 8), (6, 100)], 32, 256, [1, 0, 0, 1], 14, 50),
+        check_grouped_decode_agg([(3, 4), (0, 8), (2, 100), (1, 16)], 512,
+                                 4096, [0, 1, 0, 1], 20, 50)]
     cohort = list(check_quantize(256 * 4096, 8, 7, 10).values())
     cohort.append(check_fused_dense(256 * 4096, 8, 32, "relu",
                                     torch.float32, 8, 10))

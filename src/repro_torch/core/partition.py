@@ -312,7 +312,8 @@ def server_decode_aggregate(encoded: Sequence, norm_weights: List[float],
     ``use_grouped_kernel`` (resolved by ``ops.use_grouped_default``: off
     unless asked for) routes the round through :func:`_grouped_round`,
     where every kernel-path chunked-AE bucket joins one grouped ragged
-    launch (``kernels.fused_decode_agg.grouped_fused_decode_agg``)."""
+    launch (``kernels.fused_decode_agg``'s
+    ``grouped_fused_decode_agg_decoders``)."""
     spec0: PartitionSpec = encoded[0].spec
     structure = spec0.structure
     for e in encoded:
@@ -435,8 +436,10 @@ def _grouped_round(plan, size: int, payloads, params, wlists, sgs,
     kernel-path chunked-AE buckets compute their latent-side hidden
     activations and then share one grouped ragged launch per
     ``(hidden_width, chunk_size)`` signature, and are added after it, in
-    job order. Decoder stacks are deduped by slot."""
-    from repro_torch.kernels.fused_decode_agg import grouped_fused_decode_agg
+    job order. Decoders are deduped by slot and passed where they are
+    held (the launch's tile table carries their addresses), not stacked."""
+    from repro_torch.kernels.fused_decode_agg import (
+        grouped_fused_decode_agg_decoders)
 
     group_means: Dict[str, torch.Tensor] = {}
 
@@ -472,11 +475,10 @@ def _grouped_round(plan, size: int, payloads, params, wlists, sgs,
         by_slot = {}
         for j in js:
             by_slot.setdefault(j["slot"], j)
-        w_stack = torch.stack([by_slot[s]["dec"]["w"] for s in slots])
-        b_stack = torch.stack([by_slot[s]["dec"]["b"] for s in slots])
-        outs = grouped_fused_decode_agg(
-            [j["h"] for j in js], [j["w"] for j in js], w_stack, b_stack,
-            [remap[j["slot"]] for j in js])
+        outs = grouped_fused_decode_agg_decoders(
+            [j["h"] for j in js], [j["w"] for j in js],
+            [(by_slot[s]["dec"]["w"], by_slot[s]["dec"]["b"])
+             for s in slots], [remap[j["slot"]] for j in js])
         for j, chunks in zip(js, outs):
             # Σw=1 per bucket ⇒ the weighted sum of normalized chunks
             # denorms like a single reconstruction (as in

@@ -53,8 +53,11 @@ _SIGNATURES = {
     # h, w, W, b, out, C, M, K, N, bm, cols_per_split, stream
     "repro_fused_decode_agg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
-    # table, W_stack, b_stack, T, K, N, bm, cols_per_split, stream
-    "repro_grouped_decode_agg": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # h, w, W, b, out, C, M, K, N, tpr, stream
+    "repro_fused_decode_agg_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P],
+    # table, T, K, N, bm, cols_per_split, tpr, mt, stream
+    "repro_grouped_decode_agg": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, Sq, Skv, H, KV, D, mode, window, scale, dtype, stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _P],

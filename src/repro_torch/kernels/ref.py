@@ -55,20 +55,31 @@ def fused_decode_agg_ref(h: torch.Tensor, weights: torch.Tensor,
 
 def grouped_fused_decode_agg_ref(hs, weights, w_stack: torch.Tensor,
                                  b_stack: torch.Tensor, dec_idx):
+    """The grouped ragged launch on a ``(D, K, N)`` decoder stack: see
+    :func:`grouped_decode_agg_decoders_ref`."""
+    return grouped_decode_agg_decoders_ref(
+        hs, weights, [(w_stack[d], b_stack[d])
+                      for d in range(w_stack.shape[0])],
+        dec_idx, w_stack.shape[2])
+
+
+def grouped_decode_agg_decoders_ref(hs, weights, decoders, dec_idx,
+                                    N: int):
     """The grouped ragged launch as one materialize-then-reduce pass per
     bucket, in bucket order: every client's ``(M_b, N)`` decode is built,
-    then weighted and summed. Empty buckets (zero clients) return exact
-    zeros, as the kernel does."""
-    N = w_stack.shape[2]
+    then weighted and summed; ``decoders[dec_idx[b]]`` is bucket ``b``'s
+    ``(W, bias)``. Empty buckets (zero clients) return exact zeros, as the
+    kernel does."""
     out = []
     for h, w, d in zip(hs, weights, dec_idx):
         if h.shape[0] == 0:
             out.append(torch.zeros((h.shape[1], N), dtype=torch.float32,
-                                   device=w_stack.device))
+                                   device=h.device))
             continue
-        per_client = h.float() @ w_stack[d].float()
+        W, b = decoders[d]
+        per_client = h.float() @ W.float()
         out.append(torch.einsum("c,cmn->mn", w.float(), per_client)
-                   + b_stack[d].float())
+                   + b.float())
     return out
 
 

@@ -17,7 +17,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _lib, ref  # noqa: E402
 from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
-    fused_decode_agg, grouped_fused_decode_agg)
+    fused_decode_agg, grouped_fused_decode_agg,
+    grouped_fused_decode_agg_decoders, grouped_plan)
+from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
+    kernel_route as decode_agg_route)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
@@ -125,6 +128,81 @@ def test_fused_decode_agg_kernel_matches_plain(C, M, K, N):
     torch.testing.assert_close(fused_decode_agg(h, w, wl, bl),
                                ref.fused_decode_agg_ref(h, w, wl, bl),
                                atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,K,N", [
+    (3, 4, 512, 4096),            # run (c): few_rows
+    (1, 16, 512, 4096),           # few_rows at its row limit
+    (2, 17, 512, 4096),           # bands just past it
+    (2, 100, 512, 4096),          # bands at K 512: column strips
+    (3, 4, 513, 4096),            # bands: K past one slab
+    (5, 3, 64, 130),              # few_rows, ragged N (scalar loads)
+    (40, 12, 32, 256),            # few_rows, more clients than a batch
+    (256, 4096, 32, 256)])        # cohort scale: bands, client groups
+def test_fused_decode_agg_routes_match_plain(C, M, K, N):
+    """Each route of kernel 4 against its plain version: one launch a
+    call, the route from (M, K), the same bits from run to run (fixed
+    order, no atomics)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(C + M + K + N)
+    h = torch.randn((C, M, K), generator=g, device="cuda")
+    w = torch.rand((C,), generator=g, device="cuda") + 0.1
+    w = w / w.sum()
+    wl = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    bl = torch.randn((N,), generator=g, device="cuda")
+    assert decode_agg_route(M, K) == (
+        "few_rows" if M <= 16 and K <= 512 else "bands")
+    before = _lib.counts().get("fused_decode_agg", 0)
+    got = fused_decode_agg(h, w, wl, bl)
+    torch.cuda.synchronize()
+    assert _lib.counts()["fused_decode_agg"] == before + 1
+    torch.testing.assert_close(got, ref.fused_decode_agg_ref(h, w, wl, bl),
+                               atol=2e-5, rtol=1e-4)
+    assert torch.equal(got, fused_decode_agg(h, w, wl, bl))
+
+
+MIXED_ROUNDS = [
+    # chip_smoke.py's mixed round: few_rows (3, 4) and (1, 16), an empty
+    # bucket, bands (2, 100), two decoders
+    ([(3, 4), (0, 8), (2, 100), (1, 16)], 512, 4096, [0, 1, 0, 1]),
+    # ragged N, many clients in a few_rows bucket, a shared decoder
+    ([(5, 3), (2, 40), (0, 4), (33, 16)], 32, 130, [1, 0, 0, 1]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,K,N,dec_idx", MIXED_ROUNDS)
+def test_grouped_decode_agg_mixed_routes_bit_equal(shapes, K, N, dec_idx):
+    """A round that mixes routes is one grouped launch; each bucket is
+    within the tolerance of the plain version and bit-equal to kernel 4 on
+    that bucket alone; decoders passed as separate tensors (the grouped
+    round's own) give the same bits as the stacked form."""
+    _card()
+    hs, ws, w_stack, b_stack = _ragged(len(shapes) + K, shapes, K, N,
+                                       max(dec_idx) + 1)
+    p = grouped_plan(hs, ws, [(w_stack[d], b_stack[d])
+                              for d in range(w_stack.shape[0])], dec_idx)
+    assert p.routes == ["" if C == 0 else decode_agg_route(M, K)
+                        for C, M in shapes]
+    assert {"few_rows", "bands"} <= set(p.routes)
+    before = _lib.counts().get("grouped_fused_decode_agg", 0)
+    got = grouped_fused_decode_agg(hs, ws, w_stack, b_stack, dec_idx)
+    torch.cuda.synchronize()
+    assert _lib.counts()["grouped_fused_decode_agg"] == before + 1
+    decs = [(w_stack[d].clone(), b_stack[d].clone())
+            for d in range(w_stack.shape[0])]
+    apart = grouped_fused_decode_agg_decoders(hs, ws, decs, dec_idx)
+    want = ref.grouped_fused_decode_agg_ref(hs, ws, w_stack, b_stack,
+                                            dec_idx)
+    for h, w, d, g, a, r in zip(hs, ws, dec_idx, got, apart, want):
+        assert tuple(g.shape) == (h.shape[1], N)
+        assert torch.equal(g, a)
+        if h.shape[0] == 0:
+            assert not g.any()
+            continue
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=1e-4)
+        assert torch.equal(g, fused_decode_agg(h, w, *decs[d]))
 
 
 @pytest.mark.gpu

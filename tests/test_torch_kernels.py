@@ -26,8 +26,10 @@ from repro.kernels.quantize import (dequantize_blocks_2d as j_deq,  # noqa: E402
 from repro_torch.core.autoencoder import ChunkedAEConfig  # noqa: E402
 from repro_torch.core.pytree import from_jax_params  # noqa: E402
 from repro_torch.kernels import _lib, ops  # noqa: E402
-from repro_torch.kernels.fused_decode_agg import (fused_decode_agg,  # noqa: E402
-                                                  plan)
+from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
+    fused_decode_agg, few_rows_blocks, few_rows_plan, plan)
+from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
+    kernel_route as decode_agg_route)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel_route as flash_route)
 from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
@@ -251,17 +253,125 @@ def test_fused_decode_agg_weighting_not_uniform():
 
 @pytest.mark.parametrize("M,N,K,bm,cols", [
     (4096, 256, 32, 8, 256),      # cohort scale: row bands fill the card
-    (4, 4096, 512, 8, 32),        # slice: columns split, reduce repeats
-    (100_000, 64, 16, 64, 64),    # tall: widest band, one split
+    (4, 4096, 512, 8, 256),       # few rows on bands: 256-column strips
+    (100_000, 64, 16, 64, 256),   # tall: widest band, one strip
     (64, 64, 8192, 0, 0),         # K too wide for shared memory
 ])
 def test_fused_decode_agg_launch_plan(M, N, K, bm, cols):
+    """The bands route's plan: the tallest band (64..8 rows) whose bands
+    give two blocks an SM, else 8 rows and a column split in whole
+    256-column strips (a thread a column)."""
     if bm == 0:
         with pytest.raises(ValueError):
             plan(M, N, K, 132)
         return
     assert plan(M, N, K, 132) == (bm, cols)
-    assert bm * K * 4 <= 227 * 1024 and cols % 32 == 0
+    assert bm * K * 4 + 4096 <= 227 * 1024 and cols % 256 == 0
+
+
+# every bucket shape the slice and the cohort points give kernels 4 and 5:
+# run (c) (C 3, M 4), runs (d) and (e) (4 chunks a rung), the mixed round
+# of chip_smoke.py, the ragged round, cohort scale and fl_partition's point
+ROUTE_CASES = [(4, 512, "few_rows"), (16, 512, "few_rows"),
+               (17, 512, "bands"), (100, 512, "bands"), (8, 32, "few_rows"),
+               (37, 32, "bands"), (4096, 32, "bands"), (3840, 32, "bands"),
+               (4, 513, "bands"), (1, 4, "few_rows")]
+
+
+@pytest.mark.parametrize("M,K,route", ROUTE_CASES)
+def test_decode_agg_kernel_route(M, K, route):
+    """The route comes from the bucket's own (M, K) alone: few_rows at
+    M <= 16 with K <= 512 (hbar fits one slab of shared memory), bands
+    otherwise."""
+    assert decode_agg_route(M, K) == route
+
+
+@pytest.mark.parametrize("N,buckets,tpr,blocks", [
+    (4096, 1, 8, 128),            # run (c): one bucket, 64 KB of W a block
+    (4096, 2, 8, 256),            # runs (d), (e): two rungs in one launch
+    (256, 1, 1, 64),              # ragged round's few-row bucket: narrowest
+    (130, 1, 1, 33),              # ragged N: the last vector is partial
+])
+def test_decode_agg_few_rows_plan(N, buckets, tpr, blocks):
+    """few_rows column tiles: halved from 32 vectors while one bucket's
+    tiles give fewer than half a block an SM (each block repeats the hbar
+    reduce, so about one block an SM a bucket: the slice shapes launch
+    between 132 / 2 and 132 blocks a bucket, a round of two rungs up to 2
+    x 132, one wave of the 4 blocks an SM the kernel holds); the plan sees
+    (N, SMs) only, so a bucket's tiles (and order of additions) are the
+    same alone and grouped."""
+    assert few_rows_plan(N, 132) == tpr
+    assert buckets * few_rows_blocks(N, tpr) == blocks
+    if N == 4096:
+        assert 132 // 2 <= blocks // buckets < 132
+        assert blocks <= 4 * 132
+
+
+def _group_sum(parts):
+    """Sum of ``parts`` (list of float32 arrays) left to right."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = (out + p).astype(np.float32)
+    return out
+
+
+def _few_rows_model(h, w, W, b, tpr):
+    """The few_rows body's float32 order: hbar by one chain over the
+    clients in order; thread p of the G = 256 / tpr along K sums rows p,
+    p + G, ... in order; each warp's 32 / tpr threads in a pairwise (xor)
+    tree, the 8 warps in order, then the bias."""
+    C, M, K = h.shape
+    N = W.shape[1]
+    hbar = _group_sum([np.zeros((M, K), np.float32)]
+                      + [np.float32(w[c]) * h[c] for c in range(C)])
+    G, rw = 256 // tpr, 32 // tpr
+    parts = np.zeros((G, M, N), np.float32)
+    for j in range(0, K, G):
+        ks = np.arange(j, min(K, j + G))
+        parts[:ks.size] += hbar[:, ks].T[:, :, None] * W[ks][:, None, :]
+    warps = parts.reshape(8, rw, M, N)
+    while warps.shape[1] > 1:
+        warps = warps[:, 0::2] + warps[:, 1::2]
+    return _group_sum([warps[q, 0] for q in range(8)]) + b
+
+
+def _bands_model(h, w, W, b):
+    """The bands body's float32 order: Q = 128 / K client groups (clients
+    c = q, q + Q, ...), each one chain in order, added in group order;
+    then one k-ascending chain an output, then the bias."""
+    C, M, K = h.shape
+    Q = 1
+    while Q < 8 and 2 * Q * K <= 128:
+        Q *= 2
+    groups = [_group_sum([np.zeros((M, K), np.float32)]
+                         + [np.float32(w[c]) * h[c]
+                            for c in range(q, C, Q)]) for q in range(Q)]
+    hbar = _group_sum(groups)
+    out = np.zeros((M, W.shape[1]), np.float32)
+    for k in range(K):
+        out += hbar[:, k:k + 1] * W[k:k + 1]
+    return out + b
+
+
+@pytest.mark.parametrize("C,M,K,N", [(3, 4, 512, 4096), (1, 16, 512, 4096),
+                                     (2, 100, 512, 256), (64, 40, 32, 256)])
+def test_decode_agg_route_order_keeps_tolerance(C, M, K, N):
+    """Each route's order of float32 additions, modelled on the CPU, stays
+    within the card check's tolerance (atol=2e-5, rtol=1e-4) of the JAX
+    Pallas kernel in interpret mode."""
+    rng = np.random.RandomState(C + M + K)
+    h = rng.randn(C, M, K).astype(np.float32)
+    w = rng.dirichlet(np.ones(C)).astype(np.float32)
+    wl = (rng.randn(K, N) * K ** -0.5).astype(np.float32)
+    bl = rng.randn(N).astype(np.float32)
+    want = np.asarray(j_fda(jnp.asarray(h), jnp.asarray(w),
+                            jnp.asarray(wl), jnp.asarray(bl), bm=32, bc=16,
+                            interpret=True))
+    if decode_agg_route(M, K) == "few_rows":
+        got = _few_rows_model(h, w, wl, bl, few_rows_plan(N, 132))
+    else:
+        got = _bands_model(h, w, wl, bl)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
 # -------------------------------------------------------- chunked AE ops

@@ -47,7 +47,8 @@ from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import fused_decode_agg as tfda  # noqa: E402
 from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
-    _plan_bands, grouped_fused_decode_agg, tile_table)
+    _plan_bands, few_rows_plan, grouped_fused_decode_agg, kernel_route,
+    tile_table)
 from test_torch_slice import (BAND, _JaxInitTask, _compare,  # noqa: E402
                               _golden_data, _np)
 
@@ -114,6 +115,21 @@ def test_grouped_plain_single_client_and_shared_slot():
     assert tuple(got[2].shape) == (8, N) and not got[2].any()
 
 
+def test_grouped_decoders_list_equals_stack():
+    """The grouped round's form, decoders as separate ``(W, bias)``
+    tensors, gives the stacked form's result (CPU, plain version)."""
+    hs, ws, w_stack, b_stack, dec_idx = _buckets(5, 9, 3)
+    th = [torch.from_numpy(h) for h in hs]
+    tw = [torch.from_numpy(w) for w in ws]
+    ws_t, bs_t = torch.from_numpy(w_stack), torch.from_numpy(b_stack)
+    stacked = grouped_fused_decode_agg(th, tw, ws_t, bs_t, dec_idx)
+    apart = tfda.grouped_fused_decode_agg_decoders(
+        th, tw, [(ws_t[d].clone(), bs_t[d].clone()) for d in range(3)],
+        dec_idx)
+    for a, b in zip(stacked, apart):
+        assert torch.equal(a, b)
+
+
 def test_grouped_plain_all_empty_returns_zeros():
     out = grouped_fused_decode_agg(
         [torch.zeros((0, 16, 4))], [torch.zeros(0)], torch.ones((1, 4, 8)),
@@ -139,34 +155,81 @@ def test_grouped_wrapper_checks_and_never_falls_back():
             torch.empty((1, 8), device=meta), [0])
 
 
+def _table_rows(table):
+    """The table's rows as (h, w, out, W, b, stride, C, rows, route,
+    column) with the two packed words unpacked."""
+    return [tuple(r[:6]) + (r[6] & 0xffffffff, r[6] >> 32, r[7] & 0xff,
+                            r[7] >> 8) for r in table.tolist()]
+
+
 @pytest.mark.parametrize("shapes,bm,tiles,offsets", [
-    # run (d): two buckets of 2 clients, 4 chunks each
-    ([(2, 4), (2, 4)], 8, [(0, 0, 4, 0), (1, 0, 4, 4)], [0, 4]),
-    # ragged edge, an empty bucket between live ones, C_b = 1
+    # run (d): two few_rows buckets of 2 clients, 4 chunks each
+    ([(2, 4), (2, 4)], 8,
+     [(0, 0, 4, 0, 1, 0), (1, 0, 4, 4, 1, 0)], [0, 4]),
+    # mixed routes: a bands bucket (20 rows, bands of 8), an empty bucket
+    # between live ones, a few_rows bucket with C_b = 1
     ([(3, 20), (0, 8), (1, 8)], 8,
-     [(0, 0, 8, 0), (0, 8, 8, 8), (0, 16, 4, 16), (2, 0, 8, 20)],
+     [(0, 0, 8, 0, 0, 0), (0, 8, 8, 8, 0, 0), (0, 16, 4, 16, 0, 0),
+      (2, 0, 8, 20, 1, 0)],
      [0, -1, 20]),
     ([(0, 5)], 8, [], [-1]),
 ])
 def test_grouped_tile_table(shapes, bm, tiles, offsets):
     """``tiles`` as (bucket, first row in it, rows, first packed output
-    row); with h at 1e6·(b+1), weights at 1e9·(b+1) and the output at 0
-    the table's addresses read back as those rows (K=4, N=2)."""
+    row, route, column tile); with h at 1e6·(b+1), weights at 1e9·(b+1),
+    W at 1e12·(b+1), the bias at 1e12·(b+1)+1e9 and the output at 0 the
+    table's addresses read back as those rows (K=4, N=2: one column tile
+    a bucket)."""
     K, N = 4, 2
-    dec = [7 * b for b in range(len(shapes))]
+    n = len(shapes)
     table, got_offsets = tile_table(
-        shapes, dec, bm, K, N, [10 ** 6 * (b + 1) for b in range(len(shapes))],
-        [10 ** 9 * (b + 1) for b in range(len(shapes))], 0)
+        shapes, K, N, [10 ** 6 * (b + 1) for b in range(n)],
+        [10 ** 9 * (b + 1) for b in range(n)],
+        [(10 ** 12 * (b + 1), 10 ** 12 * (b + 1) + 10 ** 9)
+         for b in range(n)], 0, bm, 256, 1)
     assert got_offsets == offsets
     assert table.shape == (len(tiles), 8) and table.dtype == np.int64
-    for row, (b, m0, n, o) in zip(table.tolist(), tiles):
+    for row, (b, m0, rows, o, route, col) in zip(_table_rows(table), tiles):
         C_b, M_b = shapes[b]
-        assert row == [10 ** 6 * (b + 1) + m0 * K * 4, M_b * K,
-                       10 ** 9 * (b + 1), o * N * 4, C_b, n, 7 * b, 0]
+        assert route == (kernel_route(M_b, K) == "few_rows")
+        assert row == (10 ** 6 * (b + 1) + m0 * K * 4, 10 ** 9 * (b + 1),
+                       o * N * 4, 10 ** 12 * (b + 1),
+                       10 ** 12 * (b + 1) + 10 ** 9, M_b * K, C_b, rows,
+                       route, col)
+
+
+def test_grouped_tile_table_mixed_route_round():
+    """chip_smoke.py's mixed round at K 512, N 4096 — buckets (3, 4),
+    (0, 8), (2, 100), (1, 16), two decoders — as one launch: each few_rows
+    bucket one block a column tile (tpr from the per-bucket plan), the
+    bands bucket bands of 8 rows by 256-column strips, each tile with its
+    bucket's decoder addresses, the empty bucket none."""
+    shapes, K, N, dec = [(3, 4), (0, 8), (2, 100), (1, 16)], 512, 4096, \
+        [0, 1, 0, 1]
+    bm, cols = _plan_bands([100], N, K, 132)
+    tpr = few_rows_plan(N, 132)
+    assert (bm, cols, tpr) == (8, 256, 8)
+    decs = [(7 << 40, (7 << 40) + 4096), (9 << 40, (9 << 40) + 4096)]
+    table, offsets = tile_table(
+        shapes, K, N, [(b + 1) << 32 for b in range(4)],
+        [(b + 1) << 36 for b in range(4)], [decs[d] for d in dec], 0, bm,
+        cols, tpr)
+    assert offsets == [0, -1, 4, 104]
+    rows = _table_rows(table)
+    per = {b: [r for r in rows if r[1] == (b + 1) << 36] for b in range(4)}
+    assert [len(per[b]) for b in range(4)] == [128, 0, 13 * 16, 128]
+    assert len(rows) == 464 >= 2 * 132
+    for b in (0, 2, 3):
+        for r in per[b]:
+            assert (r[3], r[4]) == decs[dec[b]]
+            assert r[8] == (b != 2) and r[6] == shapes[b][0]
+    assert sorted(r[9] for r in per[0]) == list(range(128))
+    assert {r[7] for r in per[2]} == {8, 4}          # 12 bands of 8, one of 4
+    assert sorted({r[9] for r in per[2]}) == list(range(16))
 
 
 @pytest.mark.parametrize("ms,K,N,want", [
-    ([4, 4], 512, 4096, (8, 32)),            # run (d): split the columns
+    ([4, 4], 512, 4096, (8, 256)),           # few rows: 256-column strips
     ([3840, 3840], 32, 256, (16, 256)),      # fl_partition cohort point
     ([4, 4], 64 * 1024, 32, None),           # K too wide for a block
 ])
@@ -177,7 +240,7 @@ def test_grouped_band_plan(ms, K, N, want):
         return
     bm, cols = _plan_bands(ms, N, K, 132)
     assert (bm, cols) == want
-    assert bm * K * 4 <= 227 * 1024 and cols % 32 == 0
+    assert bm * K * 4 + 4096 <= 227 * 1024 and cols % 256 == 0
 
 
 # ------------------------------------------------------- partition maps
@@ -490,7 +553,7 @@ def _count_server_kernels(monkeypatch):
     """Count the port's grouped and per-bucket decode→aggregate calls (CPU
     tensors launch nothing, so the launch counters stay at zero)."""
     calls = {"grouped": 0, "per_bucket": 0}
-    for key, name in (("grouped", "grouped_fused_decode_agg"),
+    for key, name in (("grouped", "grouped_fused_decode_agg_decoders"),
                       ("per_bucket", "fused_decode_agg")):
         fn = getattr(tfda, name)
 

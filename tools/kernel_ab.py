@@ -1,26 +1,38 @@
-"""Device times of kernels 3 and 6 (``fused_dense``, ``flash_attention``)
-for A/B comparisons on one card, and probes of their CUDA routes.
+"""Device times of kernels 3 to 6 (``fused_dense``, ``fused_decode_agg``,
+``grouped_fused_decode_agg``, ``flash_attention``) for A/B comparisons on
+one card, probes of their CUDA routes, and copies of a checkout with one
+edit each.
 
     python3 tools/kernel_ab.py time ROOT [ROOT ...]   # one JSON line a ROOT
-    python3 tools/kernel_ab.py sweep                  # split-K plans, profiler
+    python3 tools/kernel_ab.py sweep                  # plans, profiler
     python3 tools/kernel_ab.py probe                  # structured inputs
+    python3 tools/kernel_ab.py copy NAME SRC DEST     # SRC with edit NAME
+    python3 tools/kernel_ab.py slabs ROOT             # a "slabs" copy
 
 ``time`` imports ``repro_torch`` from each checkout ROOT in its own process
 (a parent unpacked with ``git archive``, this checkout, a copy with one
 edit) and times the main-path shapes and the library calls beside them, so
 comparisons are made within one run on one card: list the roots in turns,
 e.g. ``parent . . parent``. ``sweep`` launches the split-K kernel with
-slab rows and column-tile widths other than ``splitk_plan``'s and splits a
-call's device time by kernel with ``torch.profiler``. ``probe`` holds the
-bf16 flash route against its plain version on inputs that isolate Q K^T
-(identity V) and P V (q = 0, uniform P) at each head dim. Times are device
-times from ``chip_smoke.time_ms`` (calls captured in a CUDA graph).
-Needs a CUDA card.
+slab rows and column-tile widths other than ``splitk_plan``'s, and the
+decode→aggregate few_rows route with every column-tile width, alone and
+grouped, and splits a call's device time by kernel with
+``torch.profiler``. ``probe`` holds the bf16 flash route against its plain
+version on inputs that isolate Q K^T (identity V) and P V (q = 0, uniform
+P) at each head dim. ``copy`` writes SRC's ``src/`` to DEST with one of
+:data:`VARIANTS` applied (each edit must match SRC exactly once); ``slabs``
+times, in a copy made with ``copy slabs``, the few_rows route against a
+K-slab form of it (each block reduces hbar for its slab only; a second
+kernel adds the slabs in order). Times are device times from
+``chip_smoke.time_ms`` (calls captured in a CUDA graph). Needs a CUDA card
+(``copy`` does not).
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +45,16 @@ FD_SHAPES = ((4, 4096, 512, "relu", "float32"), (4, 512, 8, "relu", "float32"),
              (4096, 256, 32, "relu", "bfloat16"),
              (256 * 4096, 8, 32, "relu", "float32"),
              (256 * 4096, 32, 256, "linear", "float32"))
+# kernel 4 (C, M, K, N): run (c), cohort scale; kernel 5 (buckets, K, N,
+# decoder slots): run (d), the ragged round, fl_partition's point, the
+# mixed-route round (chip_smoke.py's shapes)
+DA_SHAPES = ((3, 4, 512, 4096), (256, 4096, 32, 256))
+GROUPED_SHAPES = (([(2, 4), (2, 4)], 512, 4096, [0, 1]),
+                  ([(3, 37), (0, 8), (1, 8), (6, 100)], 32, 256,
+                   [1, 0, 0, 1]),
+                  ([(32, 3840), (32, 3840)], 32, 256, [0, 1]),
+                  ([(3, 4), (0, 8), (2, 100), (1, 16)], 512, 4096,
+                   [0, 1, 0, 1]))
 FLASH_SHAPES = ((4, 1024, 1024, 56, 8, 128, "causal", None, "bfloat16"),
                 (2, 1000, 1000, 56, 8, 128, "window", 256, "bfloat16"),
                 (2, 333, 517, 56, 8, 128, "full", None, "bfloat16"),
@@ -54,6 +76,28 @@ def _setup(root: Path):
     return torch
 
 
+def _decode_agg_inputs(torch, g, shapes, K, N, D):
+    """Buckets of (C_b, M_b) with weights summing to 1, and D decoders."""
+    hs, ws = [], []
+    for C_b, M_b in shapes:
+        hs.append(torch.randn((C_b, M_b, K), generator=g, device="cuda"))
+        w = torch.rand((C_b,), generator=g, device="cuda") + 0.1
+        ws.append(w / w.sum() if C_b else w)
+    w_stack = torch.randn((D, K, N), generator=g, device="cuda") * K ** -0.5
+    b_stack = torch.randn((D, N), generator=g, device="cuda")
+    return hs, ws, w_stack, b_stack
+
+
+def _grouped_plan(fda, hs, ws, w_stack, b_stack, dec_idx):
+    """The root's own grouped plan: a (D, K, N) stack before the tile
+    table carried decoder addresses, (W, bias) pairs since."""
+    if "w_stack" in inspect.signature(fda.grouped_plan).parameters:
+        return fda.grouped_plan(hs, ws, w_stack, b_stack, dec_idx)
+    return fda.grouped_plan(hs, ws, [(w_stack[d], b_stack[d])
+                                     for d in range(w_stack.shape[0])],
+                            dec_idx)
+
+
 def time_root(root: Path) -> dict:
     torch = _setup(root)
     import torch.nn.functional as F
@@ -71,6 +115,23 @@ def time_root(root: Path) -> dict:
             lambda: fused_dense(x, w, b, act=act), iters)
         out[f"addmm {M},{K},{N} {dt}"] = time_ms(
             lambda: torch.addmm(b, x, w), iters)
+    from repro_torch.kernels import fused_decode_agg as fda
+    for C, M, K, N in DA_SHAPES:
+        (h,), (w,), w_stack, b_stack = _decode_agg_inputs(
+            torch, g, [(C, M)], K, N, 1)
+        wl, bl = w_stack[0], b_stack[0]
+        iters = 10 if M > 100 else 50
+        out[f"fda {C},{M},{K},{N}"] = time_ms(
+            lambda: fda.fused_decode_agg(h, w, wl, bl), iters)
+        out[f"einsum {C},{M},{K},{N}"] = time_ms(
+            lambda: torch.einsum("c,cmk,kn->mn", w, h, wl), iters)
+    for shapes, K, N, dec_idx in GROUPED_SHAPES:
+        hs, ws, w_stack, b_stack = _decode_agg_inputs(
+            torch, g, shapes, K, N, max(dec_idx) + 1)
+        p = _grouped_plan(fda, hs, ws, w_stack, b_stack, dec_idx)
+        big = max(C * M for C, M in shapes) > 10_000
+        out[f"grouped {shapes} {K},{N}"] = time_ms(
+            lambda: fda.grouped_launch(p), 10 if big else 50)
     for B, Sq, Skv, H, KV, D, mode, win, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
@@ -119,6 +180,7 @@ def sweep() -> list:
             rows_out.append(run(M, 8, 512, 32, tpr))
     for rows, tpr in ((512, 4), (256, 4), (512, 8), (56, 32)):
         rows_out.append(run(4, 512, 4096, rows, tpr))
+    rows_out += _sweep_few_rows(torch, g, time_ms, _lib, ref)
     for M, K, N, act in ((4, 4096, 512, "relu"), (4, 512, 4096, "linear"),
                          (12, 8, 512, "relu")):
         x, w, b = (torch.randn(s, generator=g, device="cuda")
@@ -139,6 +201,399 @@ def sweep() -> list:
                 rows_out.append(dict(shape=[M, K, N], kernel=e.key[:80],
                                      calls=e.count, device_us=us))
     return rows_out
+
+
+def _sweep_few_rows(torch, g, time_ms, _lib, ref) -> list:
+    """The few_rows route at every column-tile width (tpr = 1..16): kernel
+    4 at run (c)'s shape, kernel 5 at run (d)'s round and at the mixed
+    round (its few_rows tiles rebuilt with each tpr)."""
+    import dataclasses
+    from repro_torch.kernels import fused_decode_agg as fda
+    res = []
+    (h,), (w,), w_stack, b_stack = _decode_agg_inputs(torch, g, [(3, 4)],
+                                                      512, 4096, 1)
+    wl, bl = w_stack[0], b_stack[0]
+    want = ref.fused_decode_agg_ref(h, w, wl, bl)
+    y = torch.empty_like(want)
+    for tpr in (1, 2, 4, 8, 16):
+        def call():
+            _lib.launch("fused_decode_agg", "repro_fused_decode_agg_rows", h,
+                        w, wl, bl, y, 3, 4, 512, 4096, tpr)
+        call()
+        torch.cuda.synchronize()
+        res.append(dict(kernel="fused_decode_agg", shape=[3, 4, 512, 4096],
+                        tpr=tpr, blocks=fda.few_rows_blocks(4096, tpr),
+                        ms=time_ms(call, 50),
+                        max_abs_err=float((y - want).abs().max())))
+    for shapes, K, N, dec_idx in (GROUPED_SHAPES[0], GROUPED_SHAPES[3]):
+        hs, ws, w_stack, b_stack = _decode_agg_inputs(
+            torch, g, shapes, K, N, max(dec_idx) + 1)
+        decs = [(w_stack[d], b_stack[d]) for d in range(w_stack.shape[0])]
+        p = fda.grouped_plan(hs, ws, decs, dec_idx)
+        want = ref.grouped_fused_decode_agg_ref(hs, ws, w_stack, b_stack,
+                                                dec_idx)
+        for tpr in (1, 2, 4, 8, 16):
+            table, _ = fda.tile_table(
+                [tuple(t.shape[:2]) for t in hs], K, N,
+                [t.data_ptr() for t in hs], [t.data_ptr() for t in ws],
+                [(decs[d][0].data_ptr(), decs[d][1].data_ptr())
+                 for d in dec_idx], p.out.data_ptr(), p.bm, p.cols, tpr)
+            q = dataclasses.replace(p, tpr=tpr,
+                                    table=torch.from_numpy(table).cuda())
+            got = fda.grouped_launch(q)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b, t in
+                      zip(got, want, hs) if t.shape[0])
+            res.append(dict(kernel="grouped_fused_decode_agg",
+                            shape=[shapes, K, N], tpr=tpr, tiles=q.tiles,
+                            ms=time_ms(lambda: fda.grouped_launch(q), 50),
+                            max_abs_err=err))
+    return res
+
+
+def slabs(root: Path) -> list:
+    """Run (c)'s kernel 4, (3, 4, 512, 4096), in a ``copy slabs`` of a
+    checkout: the few_rows route as shipped (each block reduces hbar for
+    all K) against the K-slab form at 2, 4 and 8 slabs (the same 512
+    blocks: column tiles widened as K is cut), both against the plain
+    version."""
+    torch = _setup(root)
+    import ctypes
+    from chip_smoke import time_ms
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels import fused_decode_agg as fda
+    lib = _lib.load()
+    fn = lib.repro_fused_decode_agg_slabs
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(0)
+    C, M, K, N = 3, 4, 512, 4096
+    (h,), (w,), w_stack, b_stack = _decode_agg_inputs(torch, g, [(C, M)],
+                                                      K, N, 1)
+    wl, bl = w_stack[0], b_stack[0]
+    want = ref.fused_decode_agg_ref(h, w, wl, bl)
+    res = [dict(form="one slab (shipped)", tpr=fda.few_rows_plan(N, 132),
+                ms=time_ms(lambda: fda.fused_decode_agg(h, w, wl, bl), 50),
+                max_abs_err=float((fda.fused_decode_agg(h, w, wl, bl)
+                                   - want).abs().max()))]
+    for S, tpr in ((2, 4), (4, 8), (8, 16)):
+        ws = torch.empty((S, M, N), device="cuda")
+        y = torch.empty((M, N), device="cuda")
+
+        def call():
+            rc = fn(h.data_ptr(), w.data_ptr(), wl.data_ptr(), bl.data_ptr(),
+                    ws.data_ptr(), y.data_ptr(), C, M, K, N, tpr, K // S,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"slabs: {rc}")
+        call()
+        torch.cuda.synchronize()
+        res.append(dict(form=f"{S} slabs", tpr=tpr, ms=time_ms(call, 50),
+                        max_abs_err=float((y - want).abs().max())))
+    return res
+
+
+# ------------------------------------------------------------- variants
+HEADER = "src/repro_torch/csrc/decode_agg_tile.cuh"
+FDA_CU = "src/repro_torch/csrc/fused_decode_agg.cu"
+GDA_CU = "src/repro_torch/csrc/grouped_decode_agg.cu"
+# (ii) of the few_rows design question: K slabs, each block reducing hbar
+# for its slab only, float32 partials added in slab order by a second
+# kernel. Written for run (c)'s shape: M <= 4, N % 4 == 0, 16-byte
+# aligned W.
+_SLABS_KERNELS = r"""
+__global__ void __launch_bounds__(kThreads)
+slab_partial_kernel(const float* __restrict__ h,
+                    const float* __restrict__ wts,
+                    const float* __restrict__ W, float* __restrict__ ws,
+                    int C, int M, int K, int N, int tpr, int R) {
+  constexpr int MT = 4;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, wid = tid / 32, lane = tid % 32;
+  const int tx = lane % tpr, sub = lane / tpr, rw = 32 / tpr;
+  const int cols = 4 * tpr, n0 = blockIdx.x * cols, n = n0 + 4 * tx;
+  const int step = kWarps * rw, k0 = blockIdx.y * R;
+  const int nr = min(K, k0 + R) - k0;
+  int r0 = wid * rw + sub;
+  float4 raw[kUnroll];
+  auto load_rows = [&](int r) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (n < N && r + u * step < nr)
+        raw[u] = __ldg(reinterpret_cast<const float4*>(
+            W + (long long)(k0 + r + u * step) * N + n));
+  };
+  load_rows(r0);
+  for (int e = tid; e < MT * nr; e += kThreads) {
+    const int m = e / nr, k = e % nr;
+    float a = 0.f;
+    if (m < M)
+      for (int c = 0; c < C; ++c)
+        a = fmaf(__ldg(wts + c),
+                 __ldg(h + ((long long)c * M + m) * K + k0 + k), a);
+    sm[k * MT + m] = a;
+  }
+  __syncthreads();
+  float acc[MT][4] = {};
+  if (n < N)
+    while (r0 < nr) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (r0 + u * step >= nr) break;
+        const float v[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+        const float* xr = sm + (r0 + u * step) * MT;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xr[m], v[j], acc[m][j]);
+      }
+      r0 += kUnroll * step;
+      load_rows(r0);
+    }
+  for (int off = tpr; off < 32; off *= 2)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], off);
+  __syncthreads();
+  if (sub == 0)
+    for (int m = 0; m < M; ++m)
+      *reinterpret_cast<float4*>(sm + (wid * M + m) * cols + 4 * tx) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  const int t = tid % cols;
+  if (n0 + t < N)
+    for (int m = tid / cols; m < M; m += kThreads / cols) {
+      float sum = sm[m * cols + t];
+      for (int q = 1; q < kWarps; ++q) sum += sm[(q * M + m) * cols + t];
+      ws[((long long)blockIdx.y * M + m) * N + n0 + t] = sum;
+    }
+}
+
+__global__ void slab_finish_kernel(const float* __restrict__ ws,
+                                   const float* __restrict__ b,
+                                   float* __restrict__ out, int M, int N,
+                                   int S) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long MN = (long long)M * N;
+  if (i >= MN) return;
+  float s = ws[i];
+  for (int q = 1; q < S; ++q) s += ws[q * MN + i];
+  out[i] = s + b[i % N];
+}
+
+}  // namespace
+
+extern "C" int repro_fused_decode_agg_slabs(
+    const float* h, const float* wts, const float* W, const float* b,
+    float* ws, float* out, int C, int M, int K, int N, int tpr, int R,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int S = (K + R - 1) / R, tiles = ((N + 3) / 4 + tpr - 1) / tpr;
+  const int red = kWarps * 4 * 4 * tpr, xs = R * 4;
+  const size_t smem = (size_t)(red > xs ? red : xs) * sizeof(float);
+  if (int e = allow_smem(slab_partial_kernel, smem)) return e;
+  slab_partial_kernel<<<dim3(tiles, S), kThreads, smem, s>>>(
+      h, wts, W, ws, C, M, K, N, tpr, R);
+  slab_finish_kernel<<<(unsigned)((M * N + 255) / 256), 256, 0, s>>>(
+      ws, b, out, M, N, S);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+"""
+# the few_rows body before W went through shared memory: 4 rows of W a
+# batch in registers a thread, loaded before the hbar reduce (runs 2-3)
+_ROWS_W_IN_REGISTERS = r"""template <int MT>
+__device__ __forceinline__ void decode_agg_rows(
+    const float* __restrict__ hb, long long client_stride,
+    const float* __restrict__ wts, int C, int M, int K,
+    const float* __restrict__ W, const float* __restrict__ b, int N,
+    int tpr, int tile, float* __restrict__ out, float* sm) {
+  const int tid = threadIdx.x, wid = tid / 32, lane = tid % 32;
+  const int tx = lane % tpr, sub = lane / tpr, rw = 32 / tpr;
+  const int cols = 4 * tpr, n0 = tile * cols, n = n0 + 4 * tx;
+  const int step = kWarps * rw;                  // G: threads along K
+  const bool wvec = N % 4 == 0 && aligned16(W);
+
+  // 1) this thread's first rows of W go out before anything waits
+  int r0 = wid * rw + sub;
+  float4 raw[kRowsBatch];
+  auto load_rows = [&](int r) {
+#pragma unroll
+    for (int u = 0; u < kRowsBatch; ++u)
+      if (n < N && r + u * step < K)
+        raw[u] = ld4(W + (long long)(r + u * step) * N + n, N - n, wvec);
+  };
+  load_rows(r0);
+  const int t = tid % cols;                      // column in the block sum
+  const float bias = n0 + t < N ? __ldg(b + n0 + t) : 0.f;
+
+  // 2) hbar[k][m] = sum_c w_c * h_c[m][k], clients ascending, one fmaf
+  //    chain an element from 0
+  const int band = M * K;
+  const bool hvec = client_stride % 4 == 0 && aligned16(hb);
+  for (int e = 4 * tid; e < band; e += 4 * kThreads) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < C; c0 += kRowsBatch) {
+      float4 v[kRowsBatch];
+      float wv[kRowsBatch];
+#pragma unroll
+      for (int u = 0; u < kRowsBatch; ++u)
+        if (c0 + u < C) {
+          wv[u] = __ldg(wts + c0 + u);
+          v[u] = ld4(hb + (long long)(c0 + u) * client_stride + e, band - e,
+                     hvec);
+        }
+#pragma unroll
+      for (int u = 0; u < kRowsBatch; ++u)
+        if (c0 + u < C) {
+          a.x = fmaf(wv[u], v[u].x, a.x);
+          a.y = fmaf(wv[u], v[u].y, a.y);
+          a.z = fmaf(wv[u], v[u].z, a.z);
+          a.w = fmaf(wv[u], v[u].w, a.w);
+        }
+    }
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (e + j < band) sm[((e + j) % K) * MT + (e + j) / K] = av[j];
+  }
+  for (int e = tid; e < (MT - M) * K; e += kThreads)
+    sm[(e % K) * MT + M + e / K] = 0.f;
+  __syncthreads();
+
+  // 3) M x 4 partial sums over rows r0, r0 + G, ...
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  if (n < N) {
+    while (r0 < K) {
+#pragma unroll
+      for (int u = 0; u < kRowsBatch; ++u) {
+        if (r0 + u * step >= K) break;
+        const float v[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+        const float* xr = sm + (r0 + u * step) * MT;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xm = xr[m];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xm, v[j], acc[m][j]);
+        }
+      }
+      r0 += kRowsBatch * step;
+      load_rows(r0);
+    }
+  }
+  // 4) lanes of one column vector: a fixed xor tree
+  for (int off = tpr; off < 32; off *= 2)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], off);
+  // 5) the 8 warps' sums in warp order, then the bias
+  __syncthreads();                               // hbar is read
+  if (sub == 0)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m >= M) break;
+      *reinterpret_cast<float4*>(sm + (wid * M + m) * cols + 4 * tx) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    }
+  __syncthreads();
+  if (n0 + t < N)
+    for (int m = tid / cols; m < M; m += kThreads / cols) {
+      float sum = sm[m * cols + t];
+#pragma unroll
+      for (int q = 1; q < kWarps; ++q) sum += sm[(q * M + m) * cols + t];
+      out[(long long)m * N + n0 + t] = sum + bias;
+    }
+}
+
+"""
+_RETURN_AFTER_REDUCE = (
+    "  if (threadIdx.x < rows && n_begin < n_end)\n"
+    "    out[(long long)threadIdx.x * N + n_begin] = hbar[threadIdx.x];\n"
+    "  return;\n")
+VARIANTS = {
+    # the bands body split into its two phases: the client reduce alone
+    # (one value a row written, the expand skipped), the expand alone (no
+    # client read); "parent_*" on the body before the bands redesign
+    "reduce_only": [(
+        HEADER,
+        "  // 2) expand: a thread a column, 8 rows at a time, k ascending\n",
+        _RETURN_AFTER_REDUCE
+        + "  // 2) expand: a thread a column, 8 rows at a time, k ascending\n"
+    )],
+    "expand_only": [(
+        HEADER,
+        "    if (e < band)\n      for (int c0 = q;",
+        "    if (e < band && C < 0)\n      for (int c0 = q;")],
+    "parent_reduce_only": [(
+        HEADER,
+        "  // 2) expand: out[rows, cols] = hbar @ W[:, cols] + b[cols]\n",
+        _RETURN_AFTER_REDUCE
+        + "  // 2) expand: out[rows, cols] = hbar @ W[:, cols] + b[cols]\n")],
+    "parent_expand_only": [(
+        HEADER, "      for (int c = 0; c < C; ++c)\n",
+        "      for (int c = 0; c < C && C < 0; ++c)\n")],
+    # the few_rows kernels without the blocks-an-SM request of the
+    # compiler
+    "no_launch_bounds": [
+        (FDA_CU, "__launch_bounds__(kThreads, rows_min_blocks<MT>())\n"
+                 "fused_decode_agg_rows_kernel",
+         "__launch_bounds__(kThreads)\nfused_decode_agg_rows_kernel"),
+        (GDA_CU, "__launch_bounds__(kThreads, rows_min_blocks<MT>())\n"
+                 "grouped_decode_agg_kernel",
+         "__launch_bounds__(kThreads)\ngrouped_decode_agg_kernel")],
+    "w_in_registers": [
+        (HEADER, ("// 16 bytes from global to shared memory",
+                  "// ------------------------------------------------------"
+                  "------- bands"), _ROWS_W_IN_REGISTERS),
+        (HEADER, "return K * 4 * tpr + (red > xs ? red : xs);",
+         "return red > xs ? red : xs;")],
+    # the bands route: 4 blocks an SM asked of the per-bucket kernel; the
+    # expand's k loop unrolled 16 deep
+    "band_min_blocks_4": [(FDA_CU, "__launch_bounds__(kThreads)\n"
+                                   "fused_decode_agg_band_kernel",
+                           "__launch_bounds__(kThreads, 4)\n"
+                           "fused_decode_agg_band_kernel")],
+    "expand_unroll_16": [(HEADER, "#pragma unroll 8\n      for (int k = 0;",
+                          "#pragma unroll 16\n      for (int k = 0;")],
+    "slabs": [(FDA_CU, "}  // namespace\n",
+               "// (variant) K slabs" + _SLABS_KERNELS
+               + "}  // namespace\n")],
+}
+
+
+def copy(name: str, src: Path, dest: Path) -> None:
+    """``src``'s ``src/`` and ``chip_smoke.py`` into ``dest`` with variant
+    ``name`` applied."""
+    if dest.exists():
+        shutil.rmtree(dest)
+    shutil.copytree(src / "src", dest / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(src / "chip_smoke.py", dest / "chip_smoke.py")
+    for path, old, new in VARIANTS[name]:
+        f = dest / path
+        text = f.read_text()
+        if isinstance(old, tuple):           # the region [start, end)
+            start, end = old
+            if text.count(start) != 1 or text.count(end) != 1:
+                raise SystemExit(f"kernel_ab copy {name}: {path} does not "
+                                 f"hold the region's ends once each")
+            i, j = text.index(start), text.index(end)
+            old = text[i:j]
+        if text.count(old) != 1:
+            raise SystemExit(f"kernel_ab copy {name}: {path} holds the edit's "
+                             f"text {text.count(old)} times, not once")
+        f.write_text(text.replace(old, new))
 
 
 def probe() -> list:
@@ -181,6 +636,13 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[1] in ("sweep", "probe"):
         for r in (sweep() if argv[1] == "sweep" else probe()):
             print(json.dumps(r), flush=True)
+        return 0
+    if len(argv) == 3 and argv[1] == "slabs":
+        for r in slabs(Path(argv[2]).resolve()):
+            print(json.dumps(r), flush=True)
+        return 0
+    if len(argv) == 5 and argv[1] == "copy" and argv[2] in VARIANTS:
+        copy(argv[2], Path(argv[3]).resolve(), Path(argv[4]).resolve())
         return 0
     print(__doc__, file=sys.stderr)
     return 2
