@@ -21,9 +21,11 @@ Phases, each reported on its own lines:
    Flash attention (kernel 6) runs at run (f)'s shape (bf16, causal,
    beside ``scaled_dot_product_attention`` as the library call), at a
    window and a full, kv-padded shape, and in float32 at head dim 64.
-   Kernels 3 to 6 have two routes each, named in every row as
-   ``kernel_route``: ``fused_dense`` at M <= 16 ``splitk``, else
-   ``tiled``; the decode→aggregate kernels per bucket ``few_rows`` at
+   The chunked AE's four layers at 4096 chunks a client and run (h)'s
+   server hidden layer run in float32. Kernels 3 to 6 have routes, named
+   in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
+   32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
+   (float32); the decode→aggregate kernels per bucket ``few_rows`` at
    M_b <= 16 and K <= 512, else ``bands`` (a mixed round at K 512, N 4096
    runs both in one launch); flash attention in bf16 ``wgmma``, in float32
    ``fma``. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
@@ -57,7 +59,16 @@ Phases, each reported on its own lines:
    prompt of 128 tokens, 4 decode steps, the CPU fed the card's tokens):
    logits and cache within ``atol=1e-4, rtol=1e-3``; and a prefill in
    bf16 compute on both, within twice the CPU's own bf16-vs-float32
-   error.
+   error;
+6. cohort round — (h) one chunked-AE server round at the full point of
+   the ``fl_decode_agg`` table (a 2^20-value update, ``ChunkedAEConfig(256,
+   (32,), 8)``, 64 clients): each client's ``codec.encode`` (two
+   ``fused_dense`` launches), then ``stack_payloads`` and
+   ``decode_and_aggregate`` (one ``fused_dense`` over the cohort, one
+   kernel-4 launch); latents and the mean update held against the same
+   calls on the CPU in the golden band, the launch counts checked, the
+   round's wall time on a line of its own. The kernels record carries
+   these counts as ``launches_run_h``.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -245,7 +256,7 @@ def check_fused_dense(M: int, K: int, N: int, act: str, dtype, seed: int,
     lib_ms = time_ms(lambda: torch.addmm(b, x, w), iters)
     kern = lambda: fused_dense(x, w, b, act=act)             # noqa: E731
     return dict(name="fused_dense", shape=[M, K, N], act=act, dtype=dname,
-                kernel_route=kernel_route(M), max_abs_err=err,
+                kernel_route=kernel_route(M, K, N, dtype), max_abs_err=err,
                 library_call="torch.addmm" + (
                     "" if act == "linear" else f" (without the {act})"),
                 ms=time_ms(kern, iters),
@@ -700,6 +711,45 @@ def run_lm_card_vs_cpu() -> dict:
                 bf16_prefill=bf16)
 
 
+def run_cohort_round(device: str, model: int = 1 << 20, cohort: int = 64):
+    """Run (h): one chunked-AE server round at ``fl_decode_agg``'s full
+    point (``benchmarks/tables.py:405-419``): a ``model``-value update,
+    ``ChunkedAEConfig(256, (32,), 8)`` with parameters from a seed, and
+    ``cohort`` clients, update i the base update x (1 + 0.01 i), weights
+    i + 1 normalised. Each client runs ``codec.encode`` (the kernel path:
+    its two encoder layers through ``fused_dense``); the server runs
+    ``codec.stack_payloads`` and ``codec.decode_and_aggregate``
+    (``chunked_hidden`` at (cohort x 4096, 8) @ (8, 32), then one kernel-4
+    launch). Parameters and the base update are drawn on the CPU and moved,
+    so the card and the CPU start from the same values. Returns (mean
+    update, stacked latents, seconds on the host clock around the round,
+    ended by a synchronize)."""
+    import torch
+    from repro_torch.core import (ChunkedAEConfig, codec, init_chunked_ae,
+                                  normalize_weights)
+    from repro_torch.core.pytree import tree_map
+    cfg = ChunkedAEConfig(chunk_size=256, hidden=(32,), latent_chunk=8)
+    params = tree_map(lambda t: t.to(device),
+                      init_chunked_ae(torch.Generator().manual_seed(0), cfg,
+                                      "cpu"))
+    flat = torch.randn((model,), generator=torch.Generator().manual_seed(1)
+                       ).to(device)
+    spec = codec.ChunkedAESpec(size=model, cfg=cfg, use_kernel=True)
+    weights = torch.tensor(normalize_weights([float(i + 1)
+                                              for i in range(cohort)]),
+                           dtype=torch.float32, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = [codec.encode(spec, params, flat * (1 + 0.01 * i))
+                for i in range(cohort)]
+    stacked = codec.stack_payloads(payloads)
+    mean = codec.decode_and_aggregate(spec, params, stacked, weights)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return mean, stacked["z"], time.perf_counter() - t0
+
+
 def check_records(hist, up: float, raw: float, down: float) -> None:
     for r in hist:
         require(r.bytes_up == up, f"bytes_up {r.bytes_up} != {up}")
@@ -795,6 +845,16 @@ def main() -> int:
     cohort.append(check_fused_dense(256 * 4096, 32, 256, "linear",
                                     torch.float32, 9, 5))
     cohort.append(check_decode_agg(256, 4096, 32, 256, 10, 10))
+    # the chunked AE at the cohort scale, a client's four layers (4096
+    # chunks of 256): encode 256 -> 32 -> 8, EF decode 8 -> 32 -> 256; and
+    # run (h)'s server hidden layer over its cohort of 64
+    client = [check_fused_dense(4096, 256, 32, "relu", torch.float32, 21, 50),
+              check_fused_dense(4096, 32, 8, "relu", torch.float32, 22, 50),
+              check_fused_dense(4096, 8, 32, "relu", torch.float32, 23, 50),
+              check_fused_dense(4096, 32, 256, "linear", torch.float32, 24,
+                                50),
+              check_fused_dense(64 * 4096, 8, 32, "relu", torch.float32, 25,
+                                20)]
     # fl_partition's REPRO_BENCH_FULL point: bulk 983,040 = 3,840 chunks of
     # 256, hidden 32, cohort 64 as two rungs of 32 clients, two slots
     cohort.append(check_grouped_decode_agg(
@@ -810,8 +870,8 @@ def main() -> int:
                          torch.bfloat16, 18, 10),
              check_flash(2, 512, 512, 32, 32, 64, "causal", None,
                          torch.float32, 19, 10)]
-    for r in (fd[1:] + grouped + cohort + [slice_rows["flash_attention"]]
-              + flash):
+    for r in (fd[1:] + grouped + cohort + client
+              + [slice_rows["flash_attention"]] + flash):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -848,16 +908,22 @@ def main() -> int:
     require(hist_b[-1].compression_ratio > 300, "FC-AE ratio <= 300")
     require(run_b.total_bytes()["effective_ratio"] > 300, "effective ratio")
 
+    from repro_torch.kernels import fused_dense as fd_mod
     _lib.reset_launches()
+    fd_mod.ROUTE_LAUNCHES.clear()
     run_c, hist_c = run_chunked("cuda")
     torch.cuda.synchronize()
     counts_c = _lib.counts()
+    routes_c = dict(fd_mod.ROUTE_LAUNCHES)
     log(f"slice (c) chunked AE 4096/(512,)/8 kernel path: launches "
-        f"{counts_c}; loss {hist_c[-1].global_metrics['loss']!r}")
+        f"{counts_c}, fused_dense by route {routes_c}; loss "
+        f"{hist_c[-1].global_metrics['loss']!r}")
     check_records(hist_c, 3 * 4 * 8 * 4, 3 * 15_910 * 4, 3 * 15_910 * 4)
     for k in ("fused_dense", "fused_decode_agg"):
         require(counts_c.get(k, 0) > 0, f"run (c) never launched {k}")
         launches[k] = counts_c[k]
+    require(sum(routes_c.values()) == counts_c["fused_dense"],
+            "run (c): route counts do not add up")
     err = check_cuda_vs_cpu("run (c)", run_c, hist_c, *run_chunked("cpu"))
     log("slice (c) cuda == cpu: bytes exact, loss/accuracy/params within "
         f"atol=2e-5 rtol=2e-4 (params max abs err {err!r})")
@@ -908,7 +974,40 @@ def main() -> int:
         "bfloat16 prefill within 2 x the CPU's bfloat16 error: "
         + json.dumps(lm_g))
 
-    # ---------------------------------------------------------- 6. report
+    # ------------------------------------------------- 6. cohort round
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cohort_round("cuda", cohort=2)                   # warm-up
+    _lib.reset_launches()
+    fd_mod.ROUTE_LAUNCHES.clear()
+    mean_h, z_h, round_s = run_cohort_round("cuda")
+    counts_h = _lib.counts()
+    routes_h = dict(fd_mod.ROUTE_LAUNCHES)
+    require(counts_h.get("fused_dense", 0) >= 2 * 64 + 1
+            and counts_h.get("fused_decode_agg", 0) == 1
+            and set(counts_h) == {"fused_dense", "fused_decode_agg"},
+            f"run (h) launches {counts_h}")
+    require(tuple(mean_h.shape) == (1 << 20,)
+            and tuple(z_h.shape) == (64, 4096, 8), "run (h) shapes")
+    mean_c, z_c, _ = run_cohort_round("cpu")
+    err_z = close(z_h.cpu(), z_c, **GOLDEN_BAND)
+    err_mean = close(mean_h.cpu(), mean_c, **GOLDEN_BAND)
+    shapes_h = {f"{M},{K},{N}": fd_mod.kernel_route(M, K, N, torch.float32)
+                for M, K, N in ((4096, 256, 32), (4096, 32, 8),
+                                (64 * 4096, 8, 32))}
+    require(sum(routes_h.values()) == counts_h["fused_dense"]
+            and routes_h.get("sgemm") == 64 and routes_h.get("narrow") == 65,
+            f"run (h) fused_dense by route {routes_h}")
+    launches["fused_dense_run_h"] = counts_h["fused_dense"]
+    launches["fused_decode_agg_run_h"] = counts_h["fused_decode_agg"]
+    log(f"cohort (h) chunked AE 256/(32,)/8, 2^20 values, 64 clients: "
+        f"launches {counts_h}, fused_dense by route {routes_h}; routes by "
+        f"shape {shapes_h}; latents and mean update == cpu within "
+        f"atol=2e-5 rtol=2e-4 (max abs err {err_z!r}, {err_mean!r})")
+    log(f"cohort (h) round wall time {round_s!r} s (host clock, 64 encodes "
+        "+ stack + decode_and_aggregate, ended by a synchronize)")
+
+    # ---------------------------------------------------------- 7. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -925,8 +1024,14 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
+        extra = ({"launches_run_h": launches[name + "_run_h"]}
+                 if name + "_run_h" in launches else {})
+        if name == "fused_dense":
+            extra.update(launches_by_route_run_c=routes_c,
+                         launches_by_route_run_h=routes_h)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
+                            **extra,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             host_ms=r["host_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

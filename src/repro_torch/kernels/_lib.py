@@ -8,7 +8,8 @@ use — never at import, so the CPU tests import every module without a
 compiler. ``--use_fast_math`` stays off: the quantizer's ties depend on
 IEEE division.
 
-Every launch goes through :func:`launch`, which passes tensor pointers and
+Every launch goes through :func:`launch`, which refuses tensors that
+autograd is recording (:func:`check_no_grad`), passes tensor pointers and
 PyTorch's current stream, raises on a non-zero ``cudaGetLastError`` and
 counts one launch for its wrapper in :data:`LAUNCHES`.
 """
@@ -45,8 +46,9 @@ _SIGNATURES = {
     "repro_quantize_blocks": [_P, _P, _P, _LL, _I, _F, _P],
     # q, s, x, nb, block, stream
     "repro_dequantize_blocks": [_P, _P, _P, _LL, _I, _P],
-    # x, w, b, y, M, K, N, act, dtype, stream
-    "repro_fused_dense": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # x, w, b, y, M, K, N, act, dtype, route, tile, sms, stream
+    "repro_fused_dense": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # x, w, b, y, ws, M, K, N, act, dtype, rows, tpr, stream
     "repro_fused_dense_splitk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _P],
@@ -168,10 +170,26 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_no_grad(counter: str, args) -> None:
+    """Raise when autograd is recording and a tensor among ``args``
+    requires grad: a kernel writes its output through a raw pointer, so
+    the output would carry no ``grad_fn`` and the gradient would be cut
+    without an error. (No kernel of the port has a backward; the
+    reference's Pallas kernels have none either.)"""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        raise RuntimeError(
+            f"{counter}: a tensor argument requires grad while autograd is "
+            "recording; the kernel has no backward and would cut the "
+            "gradient (call it under torch.no_grad(), or take the plain "
+            "differentiable path)")
+
+
 def launch(counter: str, fn: str, *args) -> None:
     """Call C launcher ``fn`` with tensor pointers, ints and floats, on the
     current stream of the tensors' device; raise on a launch error and
     count one launch for ``counter``."""
+    check_no_grad(counter, args)
     lib = load()
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

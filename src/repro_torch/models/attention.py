@@ -6,12 +6,16 @@ attention against a linear or ring cache, and the GQA module.
 runs the reference's chunked online-softmax math
 (``ref.chunked_attention_ref``: query chunks, and inside them kv chunks
 with an (m, l, acc) carry), so no (Sq, Skv) matrix is built.
-On a CUDA tensor it launches kernel 6 (``kernels/flash_attention.py``) when
-the call is inside the TPU kernel's contract — ``softcap == 0``, no
-``extra_qk``, ``q_offset == 0``, ``Dv == D`` and the default scale — and
-raises ``NotImplementedError`` outside it; it never falls back to the plain
-math. ``decode_attention`` is plain torch on every device, as the reference
-runs no kernel there.
+On a CUDA tensor :func:`attention_route` splits as the reference does: a
+training path (autograd recording through q, k or v) takes the same
+chunked math on the card, which is differentiable — the reference's
+model-level ``flash_attention`` is that math, and its Pallas kernel has no
+backward, so it never runs where a gradient is taken. Every other call
+launches kernel 6 (``kernels/flash_attention.py``) when it is inside the
+TPU kernel's contract — ``softcap == 0``, no ``extra_qk``,
+``q_offset == 0``, ``Dv == D`` and the default scale — and raises
+``NotImplementedError`` outside it. ``decode_attention`` is plain torch
+on every device, as the reference runs no kernel there.
 
 MLA (``init_mla``, ``mla_forward``, ``mla_decode``) is not ported yet.
 """
@@ -55,6 +59,17 @@ def kernel_contract(q: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
     return None
 
 
+def attention_route(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> str:
+    """``"plain"`` when autograd is recording and q, k or v requires grad
+    (a training path: ``ref.chunked_attention_ref``, differentiable), else
+    ``"kernel"`` (kernel 6 on a CUDA tensor). The CPU always runs the plain
+    math."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return "plain"
+    return "kernel"
+
+
 def flash_attention(
     q: torch.Tensor,                 # (B, Sq, H, D)
     k: torch.Tensor,                 # (B, Skv, KV, D)
@@ -71,7 +86,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """``extra_qk=(q2 (B,Sq,H,P2), k2 (B,Skv,P2))`` adds a second,
     head-shared score term (the decomposed MLA formulation)."""
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" and attention_route(q, k, v) == "kernel":
         why = kernel_contract(q, v, q_offset=q_offset, softcap=softcap,
                               extra_qk=extra_qk, scale=scale)
         if why is not None:

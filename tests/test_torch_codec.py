@@ -316,3 +316,42 @@ def test_savings_copy_matches_jax():
         assert mt.break_even_rounds(4) == mj.break_even_rounds(4)
     with pytest.raises(ValueError):
         tsavings.SavingsModel(-1, 1, 1)
+
+
+# -------------------------------------------------- the cohort round
+def test_cohort_round_matches_jax_kernel_path():
+    """Run (h) of chip_smoke.py at the small point of the ``fl_decode_agg``
+    table (``benchmarks/tables.py:405-419``): a 2^15-value update,
+    ``ChunkedAEConfig(256, (32,), 8)``, 8 clients, update i the base x
+    (1 + 0.01 i), weights i + 1 normalised. Every client's
+    ``codec.encode`` and the server's ``stack_payloads`` +
+    ``decode_and_aggregate`` on the kernel path, the port's plain versions
+    against the reference's Pallas kernels in interpret mode, from the
+    reference's own AE parameters: latents and mean update in the golden
+    band, nothing launched."""
+    from repro_torch.kernels import _lib
+    model, cohort = 1 << 15, 8
+    jcfg = jae.ChunkedAEConfig(chunk_size=256, hidden=(32,), latent_chunk=8)
+    tcfg = tae.ChunkedAEConfig(chunk_size=256, hidden=(32,), latent_chunk=8)
+    pj = jae.init_chunked_ae(jax.random.PRNGKey(0), jcfg)
+    pt = from_jax_params(_np(pj), "cpu")
+    jspec = jcodec.ChunkedAESpec(size=model, cfg=jcfg, use_kernel=True)
+    tspec = tcodec.ChunkedAESpec(size=model, cfg=tcfg, use_kernel=True)
+    flat = np.random.RandomState(1).randn(model).astype(np.float32)
+    w = jagg.normalize_weights([float(i + 1) for i in range(cohort)])
+    assert tagg.normalize_weights([float(i + 1) for i in range(cohort)]) == w
+    before = _lib.counts()
+    jp = [jcodec.encode(jspec, pj, jnp.asarray(flat) * (1 + 0.01 * i))
+          for i in range(cohort)]
+    tp = [tcodec.encode(tspec, pt, torch.from_numpy(flat) * (1 + 0.01 * i))
+          for i in range(cohort)]
+    jstack, tstack = jcodec.stack_payloads(jp), tcodec.stack_payloads(tp)
+    assert tuple(tstack["z"].shape) == (cohort, model // 256, 8)
+    _close(tstack["z"], jstack["z"])
+    jmean = jcodec.decode_and_aggregate(jspec, pj, jstack,
+                                        jnp.asarray(w, jnp.float32))
+    tmean = tcodec.decode_and_aggregate(tspec, pt, tstack,
+                                        torch.tensor(w, dtype=torch.float32))
+    assert tuple(tmean.shape) == (model,)
+    _close(tmean, jmean)
+    assert _lib.counts() == before            # CPU tensors: plain versions

@@ -23,8 +23,9 @@ from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
     kernel_route as decode_agg_route)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention)
-from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
-                                             kernel_route)
+from repro_torch.kernels.fused_dense import (  # noqa: E402
+    ACTS, DTYPES, MMA_ROWS, SGEMM_TILES, fused_dense, kernel_route,
+    tile_plan)
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -87,11 +88,12 @@ def test_fused_dense_kernel_matches_plain(M, K, N, dtype):
                                    (16, 4096, 64), (17, 4096, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_dense_splitk_route_matches_plain(M, K, N, dtype):
-    """The split-K route (M <= 16) at the client's encode and decode shapes,
-    with a ragged N (scalar loads) and the M = 16 / 17 boundary, where the
-    tiled route takes over: every activation against the plain version at
-    the tiled route's tolerances, one launch a call, and the same bits
-    from run to run (partials summed in slab order, no atomics)."""
+    """The split-K route (M <= 16, K > 32) at the client's encode and
+    decode shapes, with a ragged N (scalar loads) and the M = 16 / 17
+    boundary, where sgemm or mma takes over (at K = 8 narrow takes every
+    M): every activation against the plain version at the float32 and
+    bf16 tolerances, one launch a call, and the same bits from run to run
+    (partials summed in slab order, no atomics)."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
@@ -100,7 +102,9 @@ def test_fused_dense_splitk_route_matches_plain(M, K, N, dtype):
     b = torch.randn((N,), generator=g, device="cuda").to(dtype)
     tol = (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
            else dict(atol=5e-2, rtol=1e-2))
-    assert kernel_route(M) == ("splitk" if M <= 16 else "tiled")
+    assert kernel_route(M, K, N, dtype) == (
+        "narrow" if K <= 32 else "splitk" if M <= 16
+        else "mma" if dtype == torch.bfloat16 else "sgemm")
     for act in ("relu", "tanh", "sigmoid", "linear"):
         before = _lib.counts().get("fused_dense", 0)
         got = fused_dense(x, w, b, act=act)
@@ -111,6 +115,115 @@ def test_fused_dense_splitk_route_matches_plain(M, K, N, dtype):
                                    ref.fused_dense_ref(x, w, b, act).float(),
                                    **tol)
         assert torch.equal(got, fused_dense(x, w, b, act=act))
+
+
+def _dense_inputs(M, K, N, dtype):
+    g = torch.Generator(device="cuda").manual_seed(M + 3 * K + 7 * N)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((K, N), generator=g, device="cuda") * max(K, 1) ** -0.5
+         ).to(dtype)
+    b = torch.randn((N,), generator=g, device="cuda").to(dtype)
+    return x, w, b
+
+
+def _dense_tol(dtype):
+    return (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+            else dict(atol=5e-2, rtol=1e-2))
+
+
+TILED_SHAPES = [
+    # narrow (K <= 32): the chunked-AE layers at 2^20 values a client, the
+    # server's hidden layer, the K = 32 boundary, ragged K and N (N not a
+    # multiple of 4 or 8), M = 16 / 17, M off the row tile, N over two
+    # column tiles, K = 1, and run (c)'s K = 8 layers at 4 and 12 rows
+    (4096, 8, 32), (4096, 32, 8), (4096, 32, 256), (65536, 8, 32),
+    (17, 32, 256), (16, 32, 256), (17, 8, 32), (1000, 7, 30),
+    (333, 32, 513), (130, 1, 4), (129, 12, 6), (300, 32, 64), (4, 8, 512),
+    (12, 8, 512), (3, 5, 4100),
+    # mma (bf16) / sgemm (f32), K > 32: the encode's first layer, the
+    # K = 33 boundary, M = 17, ragged K and N, a wide layer, long K
+    (4096, 256, 32), (300, 33, 64), (17, 4096, 64), (1000, 100, 130),
+    (513, 64, 7), (257, 300, 65), (300, 512, 256), (129, 1024, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", TILED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dense_tiled_routes_match_plain(M, K, N, dtype):
+    """The routes other than split-K (narrow at K <= 32, any M; mma for
+    bf16 and sgemm for f32 above it at M > 16) against the plain version
+    with every activation, at the route boundaries and with ragged edges:
+    one launch a call, and the same bits on a second call (a fixed order,
+    no atomics)."""
+    _card()
+    x, w, b = _dense_inputs(M, K, N, dtype)
+    route = kernel_route(M, K, N, dtype)
+    assert route == ("narrow" if K <= 32 else
+                     "mma" if dtype == torch.bfloat16 else "sgemm")
+    for act in ("relu", "tanh", "sigmoid", "linear"):
+        before = _lib.counts().get("fused_dense", 0)
+        got = fused_dense(x, w, b, act=act)
+        torch.cuda.synchronize()
+        assert _lib.counts()["fused_dense"] == before + 1
+        assert got.dtype == dtype and got.shape == (M, N)
+        torch.testing.assert_close(got.float(),
+                                   ref.fused_dense_ref(x, w, b, act).float(),
+                                   **_dense_tol(dtype))
+        assert torch.equal(got, fused_dense(x, w, b, act=act))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,tile", [("mma", bm) for bm in MMA_ROWS]
+                         + [("sgemm", t) for t in range(len(SGEMM_TILES))])
+@pytest.mark.parametrize("M,K,N", [(300, 256, 160), (77, 100, 90)])
+def test_fused_dense_every_tile_matches_plain(route, tile, M, K, N):
+    """Every compiled tile of the mma and sgemm routes, launched directly
+    (the plan picks one a shape), on 16-byte rows and off them (K = 100,
+    N = 90: the element-wise staging branch), against the plain version."""
+    _card()
+    dtype = torch.bfloat16 if route == "mma" else torch.float32
+    x, w, b = _dense_inputs(M, K, N, dtype)
+    y = torch.empty((M, N), dtype=dtype, device="cuda")
+    sms = _lib.device_sms(x.device)
+    _lib.launch("fused_dense", "repro_fused_dense", x, w, b, y, M, K, N,
+                ACTS["tanh"], DTYPES[dtype], {"mma": 1, "sgemm": 2}[route],
+                tile, sms)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(),
+                               ref.fused_dense_ref(x, w, b, "tanh").float(),
+                               **_dense_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_fused_dense_tile_plans_fill_the_card():
+    """At the chunked-AE encode's first layer (4096, 256, 32) the plans
+    give about a wave of blocks: at least half the card's SMs, at most
+    two blocks an SM."""
+    _card()
+    sms = _lib.device_sms(torch.device("cuda"))
+    bm = tile_plan("mma", 4096, 32, sms)
+    assert sms / 2 <= -(-4096 // bm) <= 2 * sms
+    t = tile_plan("sgemm", 4096, 32, sms)
+    assert sms / 2 <= -(-4096 // SGEMM_TILES[t][0]) <= 2 * sms
+
+
+@pytest.mark.gpu
+def test_launch_refuses_a_tensor_that_requires_grad():
+    """A kernel cannot carry a gradient: while autograd records, a tensor
+    argument that requires grad is refused before anything launches; under
+    ``torch.no_grad()`` the same call runs."""
+    _card()
+    x, w, b = _dense_inputs(64, 32, 32, torch.float32)
+    x.requires_grad_(True)
+    before = _lib.counts().get("fused_dense", 0)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_dense(x, w, b)
+    assert _lib.counts().get("fused_dense", 0) == before
+    with torch.no_grad():
+        got = fused_dense(x, w, b)
+    assert _lib.counts()["fused_dense"] == before + 1
+    torch.testing.assert_close(got, ref.fused_dense_ref(x.detach(), w, b),
+                               atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.gpu
@@ -474,3 +587,51 @@ def test_reduced_lm_on_card_matches_cpu():
     for key in ("k", "v"):
         torch.testing.assert_close(gcache["layers"][key].cpu(),
                                    cache["layers"][key], **BAND)
+
+
+@pytest.mark.gpu
+def test_train_loss_gradient_on_card_matches_cpu():
+    """``train_loss``'s gradient on the card against the CPU's, every
+    parameter leaf in the golden band: with q, k and v requiring grad the
+    model's attention takes the differentiable chunked math, so kernel 6
+    launches neither in the forward nor in the backward pass; a
+    ``torch.no_grad()`` prefill of the same weights still launches it once
+    a layer."""
+    _card()
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import flatten, tree_map, value_and_grad
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.models.attention import attention_route
+    cfg = dataclasses.replace(get_config("deepseek_coder_33b").reduced(),
+                              n_heads=14, n_kv_heads=2)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), params)
+    batch = synthetic_lm_batch(0, cfg.vocab_size, 2, 64)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    q = torch.zeros((1, 4, 2, 16), device="cuda", requires_grad=True)
+    assert attention_route(q, q, q) == "plain"
+    with torch.no_grad():
+        assert attention_route(q, q, q) == "kernel"
+
+    def loss_fn(p, bt):
+        return models.train_loss(p, cfg, bt)
+
+    before = _lib.counts().get("flash_attention", 0)
+    gloss, _, ggrads = value_and_grad(loss_fn, gparams, gbatch)
+    torch.cuda.synchronize()
+    assert _lib.counts().get("flash_attention", 0) == before
+    loss, _, grads = value_and_grad(loss_fn, params, batch)
+    torch.testing.assert_close(gloss.cpu(), loss, **BAND)
+    gl, _ = flatten(ggrads)
+    cl, _ = flatten(grads)
+    assert len(gl) == len(cl) > 0
+    for gg, cg in zip(gl, cl):
+        torch.testing.assert_close(gg.cpu(), cg, **BAND)
+    assert any(float(g.abs().max()) > 0 for g in gl)
+    with torch.no_grad():
+        models.prefill(gparams, cfg, gbatch, 64)
+    torch.cuda.synchronize()
+    assert (_lib.counts().get("flash_attention", 0)
+            == before + cfg.n_layers)

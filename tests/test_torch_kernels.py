@@ -32,8 +32,8 @@ from repro_torch.kernels.fused_decode_agg import (  # noqa: E402
     kernel_route as decode_agg_route)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel_route as flash_route)
-from repro_torch.kernels.fused_dense import (fused_dense,  # noqa: E402
-                                             kernel_route, splitk_plan)
+from repro_torch.kernels.fused_dense import (  # noqa: E402
+    MMA_ROWS, SGEMM_TILES, fused_dense, kernel_route, splitk_plan, tile_plan)
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -98,12 +98,56 @@ SPLITK_SHAPES = [(4, 4096, 512), (4, 512, 8), (4, 512, 4096), (4, 8, 512),
                  (12, 8, 512), (16, 4095, 65), (1, 300, 7), (3, 0, 5)]
 
 
-def test_kernel_routes():
+# kernel 3's route table: (M, K, N, dtype) -> route, at the route
+# boundaries (M = 16 / 17, K = 32 / 33) and at the chunked-AE shapes of the
+# cohort scale (chunk 256, hidden 32, latent 8; 4096 chunks a client)
+ROUTE_TABLE = [
+    (1, 4096, 512, torch.float32, "splitk"),
+    (16, 33, 512, torch.bfloat16, "splitk"),
+    (16, 8, 512, torch.bfloat16, "narrow"),
+    (4, 8, 512, torch.float32, "narrow"),
+    (12, 8, 512, torch.float32, "narrow"),
+    (4, 512, 8, torch.float32, "splitk"),
+    (17, 8, 512, torch.float32, "narrow"),
+    (17, 33, 512, torch.float32, "sgemm"),
+    (17, 33, 512, torch.bfloat16, "mma"),
+    (4096, 256, 32, torch.float32, "sgemm"),
+    (4096, 256, 32, torch.bfloat16, "mma"),
+    (4096, 32, 8, torch.float32, "narrow"),
+    (4096, 8, 32, torch.bfloat16, "narrow"),
+    (4096, 32, 256, torch.float32, "narrow"),
+    (4096, 33, 256, torch.float32, "sgemm"),
+    (262144, 8, 32, torch.float32, "narrow"),
+    (1 << 20, 32, 256, torch.float32, "narrow"),
+]
+
+
+@pytest.mark.parametrize("M,K,N,dtype,route", ROUTE_TABLE)
+def test_kernel_routes(M, K, N, dtype, route):
     """Each wrapper's CUDA route comes from shape and dtype alone."""
-    assert [kernel_route(m) for m in (1, 4, 16, 17, 4096)] == [
-        "splitk", "splitk", "splitk", "tiled", "tiled"]
+    assert kernel_route(M, K, N, dtype) == route
     assert flash_route(torch.bfloat16) == "wgmma"
     assert flash_route(torch.float32) == "fma"
+
+
+@pytest.mark.parametrize("route,M,N,sms,tile", [
+    # mma: the widest BM whose grid has >= sms / 2 blocks, else 16
+    ("mma", 4096, 32, 132, 32), ("mma", 4096, 32, 64, 64),
+    ("mma", 8192, 32, 132, 64), ("mma", 17, 512, 132, 16),
+    ("mma", 1000, 32, 132, 16), ("mma", 1 << 20, 64, 132, 64),
+    # sgemm: 32 x 32 or 16 x 32 at N <= 32; 128 x 64 or 64 x 64 at N <= 64;
+    # 128 x 128, 128 x 64 or 64 x 64 above
+    ("sgemm", 4096, 32, 132, 0), ("sgemm", 2048, 32, 132, 4),
+    ("sgemm", 4096, 64, 132, 1), ("sgemm", 16384, 64, 132, 2),
+    ("sgemm", 1 << 20, 64, 132, 2), ("sgemm", 4096, 256, 132, 2),
+    ("sgemm", 2048, 256, 132, 1), ("sgemm", 1 << 20, 256, 132, 3),
+    ("narrow", 4096, 32, 132, 0)])
+def test_fused_dense_tile_plan(route, M, N, sms, tile):
+    assert tile_plan(route, M, N, sms) == tile
+    if route == "mma":
+        assert tile in MMA_ROWS
+    elif route == "sgemm":
+        assert SGEMM_TILES[tile][1] >= min(N, 64) or N > 64
 
 
 @pytest.mark.parametrize("M,K,N", SPLITK_SHAPES)
@@ -432,3 +476,23 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
                          torch.empty((256, 8), device="meta"),
                          torch.empty(8, device="meta"))
     assert _lib.counts() == before          # nothing launched
+
+
+# -------------------------------------------------------------- grad guard
+def test_grad_guard_refuses_tensors_that_autograd_records():
+    """``_lib.launch`` calls this first: a tensor argument that requires
+    grad while autograd records is refused (a kernel's output would carry
+    no gradient); under ``torch.no_grad()``, or for tensors that need no
+    gradient, it passes. Nothing is launched either way."""
+    x = torch.ones((2, 3), requires_grad=True)
+    before = _lib.counts()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        _lib.check_no_grad("fused_dense", (x, torch.ones(3), 4, 1.0))
+    with pytest.raises(RuntimeError, match="fused_dense"):
+        _lib.check_no_grad("fused_dense", (torch.ones(3), x * 2))
+    with torch.no_grad():
+        _lib.check_no_grad("fused_dense", (x, 4))
+    _lib.check_no_grad("fused_dense", (x.detach(), None, 4, 1.0))
+    with torch.inference_mode():
+        _lib.check_no_grad("fused_dense", (torch.ones(3),))
+    assert _lib.counts() == before

@@ -8,6 +8,10 @@
   ``decode_step``s, on the JAX package's own weights carried across, with a
   linear cache and with a ring cache (``window < cache_len``); everything
   in the golden band ``atol=2e-5, rtol=2e-4``;
+* ``train_loss``'s gradient on the reduced llama3 / stablelm configs
+  against ``jax.grad`` of the reference's, every parameter leaf in the
+  golden band, and the attention route that takes it (the differentiable
+  chunked math wherever autograd records through q, k or v);
 * the full-width deepseek-coder-33b tree (33.3 billion parameters): leaf
   paths, shapes and dtypes equal ``jax.eval_shape`` of the reference's
   ``init_params`` in flat order, built under ``FakeTensorMode`` so nothing
@@ -31,7 +35,7 @@ from repro.data import pipeline as jpipe  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 import repro_torch.models as tmodels  # noqa: E402
 from repro_torch.core.pytree import (flatten, from_jax_params,  # noqa: E402
-                                     leaf_paths)
+                                     leaf_paths, value_and_grad)
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 
@@ -124,6 +128,45 @@ def test_dense_lm_matches_jax(arch, window):
         token = jnp.argmax(jlogits[:, :cfg.vocab_size], axis=-1)[:, None]
     _compare_cache(cache, jcache, "after decode")
     assert _lib.counts() == before            # CPU tensors: plain versions
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "stablelm_1_6b"])
+def test_train_loss_gradient_matches_jax(arch):
+    """The gradient of ``train_loss`` with respect to every parameter leaf,
+    the port's autograd against ``jax.grad`` of the reference, from the
+    reference's own weights carried across: the attention is the chunked
+    online-softmax math on both sides, differentiated through."""
+    cfg, jcfg = _reduced(arch)
+    jparams = jmodels.init_params(jax.random.PRNGKey(0), jcfg)
+    params = from_jax_params(_np(jparams), "cpu")
+    batch = tpipe.synthetic_lm_batch(1, cfg.vocab_size, B, S)
+    jbatch = {k: jnp.asarray(v.numpy(), jnp.int32) for k, v in batch.items()}
+    loss, _, grads = value_and_grad(
+        lambda p, bt: tmodels.train_loss(p, cfg, bt), params, batch)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodels.train_loss(p, jcfg, jbatch)[0])(jparams)
+    _close(loss.item(), float(jloss), "train_loss")
+    got, _ = flatten(grads)
+    want = jax.tree_util.tree_leaves(jgrads)
+    paths = [p for p, _, _ in leaf_paths(grads)]
+    assert len(got) == len(want) == len(paths) > 0
+    for path, g, j in zip(paths, got, want):
+        assert tuple(g.shape) == j.shape, path
+        _close(g.numpy(), j, f"d train_loss / d {path}")
+    assert any(float(g.abs().max()) > 0 for g in got)
+
+
+def test_attention_route_follows_autograd():
+    """The model-level attention takes the plain, differentiable route
+    exactly where autograd records through q, k or v; every other call
+    takes kernel 6 on a CUDA tensor."""
+    from repro_torch.models.attention import attention_route
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, 4, 1, 16), requires_grad=True)
+    assert attention_route(q, q, q) == "kernel"
+    assert attention_route(q, k, q) == "plain"
+    with torch.no_grad():
+        assert attention_route(q, k, q) == "kernel"
 
 
 def test_full_width_tree_matches_jax_eval_shape():

@@ -38,13 +38,22 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+# kernel 3 (M, K, N, act, dtype): run (c)'s layers (split-K), then the
+# chunked-AE layers at the cohort scale (chunk 256, hidden 32, latent 8):
+# a client's encode and EF decode at 4096 chunks, the server's hidden
+# layer at run (h)'s cohort of 64 and the cohort of 256
 FD_SHAPES = ((4, 4096, 512, "relu", "float32"), (4, 512, 8, "relu", "float32"),
              (4, 8, 512, "relu", "float32"),
              (4, 512, 4096, "linear", "float32"),
              (12, 8, 512, "relu", "float32"),
              (4096, 256, 32, "relu", "bfloat16"),
              (256 * 4096, 8, 32, "relu", "float32"),
-             (256 * 4096, 32, 256, "linear", "float32"))
+             (256 * 4096, 32, 256, "linear", "float32"),
+             (4096, 256, 32, "relu", "float32"),
+             (4096, 32, 8, "relu", "float32"),
+             (4096, 8, 32, "relu", "float32"),
+             (4096, 32, 256, "linear", "float32"),
+             (64 * 4096, 8, 32, "relu", "float32"))
 # kernel 4 (C, M, K, N): run (c), cohort scale; kernel 5 (buckets, K, N,
 # decoder slots): run (d), the ragged round, fl_partition's point, the
 # mixed-route round (chip_smoke.py's shapes)
@@ -103,11 +112,15 @@ def time_root(root: Path) -> dict:
     import torch.nn.functional as F
     from chip_smoke import time_ms
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_dense import fused_dense
+    from repro_torch.kernels.fused_dense import fused_dense, kernel_route
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(root)}
+    # kernel 3's routes; an older root routes by M alone
+    four = len(inspect.signature(kernel_route).parameters) == 4
     for M, K, N, act, dt in FD_SHAPES:
         dtype = getattr(torch, dt)
+        out[f"route {M},{K},{N} {dt}"] = (kernel_route(M, K, N, dtype)
+                                          if four else kernel_route(M))
         x, w, b = (torch.randn(s, generator=g, device="cuda").to(dtype)
                    for s in ((M, K), (K, N), (N,)))
         iters = 10 if M > 100_000 else 50
@@ -181,6 +194,7 @@ def sweep() -> list:
     for rows, tpr in ((512, 4), (256, 4), (512, 8), (56, 32)):
         rows_out.append(run(4, 512, 4096, rows, tpr))
     rows_out += _sweep_few_rows(torch, g, time_ms, _lib, ref)
+    rows_out += _sweep_tiles(torch, g, time_ms, _lib, ref)
     for M, K, N, act in ((4, 4096, 512, "relu"), (4, 512, 4096, "linear"),
                          (12, 8, 512, "relu")):
         x, w, b = (torch.randn(s, generator=g, device="cuda")
@@ -251,6 +265,54 @@ def _sweep_few_rows(torch, g, time_ms, _lib, ref) -> list:
     return res
 
 
+def _sweep_tiles(torch, g, time_ms, _lib, ref) -> list:
+    """Kernel 3 above M = 16: the narrow route at 1, 2, 4 and 8 rows a
+    thread at the chunked-AE shapes, every compiled tile of the mma and
+    sgemm routes at the encode's first layer (4096, 256, 32), and the
+    narrow route launched directly at split-K's K = 8 shapes (4, 8, 512)
+    and (12, 8, 512), beside the split-K route that the wrapper takes
+    there (narrow's tile 0: its own rule for the rows a thread)."""
+    from repro_torch.kernels import fused_dense as fd
+    res = []
+
+    def one(M, K, N, dtype, route, tile, act="relu"):
+        x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+        w = (torch.randn((K, N), generator=g, device="cuda")
+             * K ** -0.5).to(dtype)
+        b = torch.randn((N,), generator=g, device="cuda").to(dtype)
+        y = torch.empty((M, N), dtype=dtype, device="cuda")
+        sms = _lib.device_sms(x.device)
+
+        def call():
+            _lib.launch("fused_dense", "repro_fused_dense", x, w, b, y, M, K,
+                        N, fd.ACTS[act], fd.DTYPES[dtype],
+                        fd._TILED_ROUTES[route], tile, sms)
+        call()
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.fused_dense_ref(x, w, b, act).float())
+                    .abs().max())
+        return dict(kernel="fused_dense", shape=[M, K, N],
+                    dtype=str(dtype).split(".")[-1], route=route, tile=tile,
+                    ms=time_ms(call, 50), max_abs_err=err,
+                    splitk_ms=(time_ms(lambda: fd.fused_dense(x, w, b,
+                                                              act=act), 50)
+                               if M <= fd.SPLITK_MAX_M else None))
+
+    for M, K, N, act in ((1 << 20, 8, 32, "relu"),
+                         (1 << 20, 32, 256, "linear"),
+                         (4096, 32, 8, "relu"), (4096, 8, 32, "relu"),
+                         (4096, 32, 256, "linear"), (1 << 18, 8, 32, "relu")):
+        for rm in (1, 2, 4, 8):
+            res.append(one(M, K, N, torch.float32, "narrow", rm, act))
+    for bm in fd.MMA_ROWS:
+        res.append(one(4096, 256, 32, torch.bfloat16, "mma", bm))
+    for t in range(len(fd.SGEMM_TILES)):
+        res.append(one(4096, 256, 32, torch.float32, "sgemm", t))
+    for M in (4, 12):
+        res.append(one(M, 8, 512, torch.float32, "narrow", 0))
+    return res
+
+
 def slabs(root: Path) -> list:
     """Run (c)'s kernel 4, (3, 4, 512, 4096), in a ``copy slabs`` of a
     checkout: the few_rows route as shipped (each block reduces hbar for
@@ -296,6 +358,14 @@ def slabs(root: Path) -> list:
 
 # ------------------------------------------------------------- variants
 HEADER = "src/repro_torch/csrc/decode_agg_tile.cuh"
+FD_CU = "src/repro_torch/csrc/fused_dense.cu"
+# a slab's products only after every copy in flight has landed: loads and
+# products do not overlap (the effect of a single-buffered K)
+_WAIT_ALL = "    cp_async_wait<0>();\n    __syncthreads();\n"
+_MMA_NEXT = ("      load(kt + kMmaStages - 1, (kt + kMmaStages - 1) % "
+             "kMmaStages);\n    cp_async_commit();\n")
+_SGEMM_NEXT = ("      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);\n"
+               "    cp_async_commit();\n")
 FDA_CU = "src/repro_torch/csrc/fused_decode_agg.cu"
 GDA_CU = "src/repro_torch/csrc/grouped_decode_agg.cu"
 # (ii) of the few_rows design question: K slabs, each block reducing hbar
@@ -522,6 +592,59 @@ _RETURN_AFTER_REDUCE = (
     "    out[(long long)threadIdx.x * N + n_begin] = hbar[threadIdx.x];\n"
     "  return;\n")
 VARIANTS = {
+    # kernel 3's narrow route with one row a thread at every width (each
+    # float4 of w read from shared memory feeds one row's FMAs), and with
+    # two x tiles in flight instead of three
+    "narrow_one_row": [(FD_CU, "  if (M <= 16) return 1;\n",
+                        "  if (M > 0) return 1;\n")],
+    "narrow_two_stages": [
+        (FD_CU, "constexpr int kNarrowStages = 3;",
+         "constexpr int kNarrowStages = 2;")],
+    # ... and with w's tile staged one element a load, converted (the
+    # ragged shapes' branch), instead of 16-byte copies all in flight
+    "narrow_w_scalar": [
+        (FD_CU, "if constexpr (ALIGNED && std::is_same<T, float>::value) {",
+         "if constexpr (false) {"),
+        (FD_CU, "} else if constexpr (ALIGNED) {\n    const int cpn = nt / 8;",
+         "} else if constexpr (false) {\n    const int cpn = nt / 8;")],
+    # kernel 3's mma route with one slab in flight at a time, with 64-deep
+    # slabs (K = 256 in four)
+    "mma_bk64": [
+        (FD_CU, "kMmaBN = 32, kMmaBK = 128,", "kMmaBN = 32, kMmaBK = 64,")],
+    # ... with 256-deep slabs (K = 256 in one), and with 8 k warps (one
+    # 16-deep step of a slab each)
+    "mma_bk256": [
+        (FD_CU, "kMmaBN = 32, kMmaBK = 128,", "kMmaBN = 32, kMmaBK = 256,")],
+    "mma_kwarps8": [
+        (FD_CU, "kMmaKWarps = 4, kMmaStages", "kMmaKWarps = 8, kMmaStages")],
+    # ... with one k warp (each warp all of K for its 16 rows, no sum
+    # across warps), and with each block loading w's slab from a place of
+    # its own (blocks that start at once ask for different lines of w)
+    "mma_kwarps1": [
+        (FD_CU, "kMmaKWarps = 4, kMmaStages", "kMmaKWarps = 1, kMmaStages")],
+    "mma_w_staggered": [
+        (FD_CU, "        const int r = e / (kMmaBN / 8), "
+                "q = e % (kMmaBN / 8);",
+         "        const int f = (e + 64 * (int)blockIdx.x) % (kMmaBK * "
+         "(kMmaBN / 8));\n"
+         "        const int r = f / (kMmaBN / 8), q = f % (kMmaBN / 8);")],
+    "mma_one_stage": [
+        (FD_CU, "kMmaKWarps = 4, kMmaStages = 3;",
+         "kMmaKWarps = 4, kMmaStages = 2;"),
+        (FD_CU, _MMA_NEXT, _MMA_NEXT + _WAIT_ALL)],
+    # kernel 3's narrow-N sgemm tiles (32 x 32, 16 x 32) without the k
+    # groups (128 threads a block), and with one slab in flight at a time
+    "sgemm_no_kgroups": [
+        (FD_CU, "launch_sgemm_inst<32, 32, 4, 2, 32, 4, 4, ALIGNED>",
+         "launch_sgemm_inst<32, 32, 4, 2, 32, 4, 1, ALIGNED>"),
+        (FD_CU, "launch_sgemm_inst<16, 32, 2, 2, 32, 4, 4, ALIGNED>",
+         "launch_sgemm_inst<16, 32, 2, 2, 32, 4, 1, ALIGNED>")],
+    "sgemm_one_stage": [
+        (FD_CU, "launch_sgemm_inst<32, 32, 4, 2, 32, 4, 4, ALIGNED>",
+         "launch_sgemm_inst<32, 32, 4, 2, 32, 2, 4, ALIGNED>"),
+        (FD_CU, "launch_sgemm_inst<16, 32, 2, 2, 32, 4, 4, ALIGNED>",
+         "launch_sgemm_inst<16, 32, 2, 2, 32, 2, 4, ALIGNED>"),
+        (FD_CU, _SGEMM_NEXT, _SGEMM_NEXT + _WAIT_ALL)],
     # the bands body split into its two phases: the client reduce alone
     # (one value a row written, the expand skipped), the expand alone (no
     # client read); "parent_*" on the body before the bands redesign
