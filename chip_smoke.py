@@ -69,6 +69,24 @@ Phases, each reported on its own lines:
    calls on the CPU in the golden band, the launch counts checked, the
    round's wall time on a line of its own. The kernels record carries
    these counts as ``launches_run_h``.
+7. scalable runtime — (i) ``SampledSync`` over the paper's CIFAR CNN at
+   full width (550,586 parameters): 1,000 clients of 64 ``cifar_like``
+   images, a cohort of 100 trained in one vmapped pass a step, 2 rounds of
+   1 local epoch, update payload with error feedback through
+   ``ComposedCompressor(ChunkedAECompressor(ChunkedAEConfig(),
+   use_kernel=True), bits=8)`` (kernels 1–4 on the path: the server's
+   latent dequantize, hidden layer and kernel-4 reduce); bytes, vmap
+   rounds and launches checked, round times on the host clock; a reduced
+   copy (16 clients, cohort 4) on the card and the CPU in the golden
+   band. (j) ``AsyncBuffered`` over the MNIST MLP at
+   ``PAPER_SCALE_SCENARIO`` (1,000 clients, K 50, a 10 % straggler tail),
+   3 rounds, ``ChainCompressor((TopK 1 %, q8))`` (the scatter route),
+   both event engines, which must agree bit for bit; a reduced copy at
+   ``SMOKE_SCALE_SCENARIO`` on the card and the CPU (arrival traces
+   exact, parameters in the golden band); the scatter route called twice
+   on the card (``torch.equal``) and beside one ``index_add_`` over the
+   whole cohort. The kernels record carries the runs' counts as
+   ``launches_run_i`` and ``launches_run_j``.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -187,39 +205,40 @@ def tie_rows(x, qmax: float, every: int):
     return x
 
 
-def check_quantize(nb: int, bits: int, seed: int, iters: int) -> dict:
+def check_quantize(nb: int, bits: int, seed: int, iters: int,
+                   block: int = 256) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.quantize import (dequantize_blocks_2d,
                                               quantize_blocks_2d)
     g = torch.Generator(device="cuda").manual_seed(seed)
     qmax = float(2 ** (bits - 1) - 1)
-    x = torch.randn((nb, 256), generator=g, device="cuda") * 3.0
+    x = torch.randn((nb, block), generator=g, device="cuda") * 3.0
     x = tie_rows(x, qmax, 7).contiguous()
-    q, s = quantize_blocks_2d(x, bits=bits, block=256)
+    q, s = quantize_blocks_2d(x, bits=bits, block=block)
     q_r, s_r = ref.quantize_blocks_ref(x, bits)
     torch.cuda.synchronize()
     require(torch.equal(q, q_r), f"quantize codes differ (bits={bits})")
     require(torch.equal(s, s_r), f"quantize scales differ (bits={bits})")
-    d = dequantize_blocks_2d(q, s, block=256)
+    d = dequantize_blocks_2d(q, s, block=block)
     d_r = ref.dequantize_blocks_ref(q_r, s_r)
     require(torch.equal(d, d_r), "dequantize differs")
     # the one PyTorch call with the same function: int8 · f32 promotes to f32
     require(torch.equal(d, torch.mul(q, s[:, None])), "dequantize != torch.mul")
-    n = nb * 256
+    n = nb * block
     rows = []
     for name, kern, plain, lib, nbytes, flops in (
             ("quantize_blocks_2d",
-             lambda: quantize_blocks_2d(x, bits=bits, block=256),
+             lambda: quantize_blocks_2d(x, bits=bits, block=block),
              lambda: ref.quantize_blocks_ref(x, bits), None,
              4 * n + n + 4 * nb, 4 * n),
             ("dequantize_blocks_2d",
-             lambda: dequantize_blocks_2d(q, s, block=256),
+             lambda: dequantize_blocks_2d(q, s, block=block),
              lambda: ref.dequantize_blocks_ref(q, s),
              lambda: torch.mul(q, s[:, None]),
              n + 4 * nb + 4 * n, n)):
         b_ms, b_by = bound(nbytes, flops, "float32")
-        rows.append(dict(name=name, shape=[nb, 256], bits=bits,
+        rows.append(dict(name=name, shape=[nb, block], bits=bits,
                          max_abs_err=0.0, ms=time_ms(kern, iters),
                          host_ms=host_ms(kern, iters),
                          plain_ms=time_ms(plain, iters),
@@ -750,6 +769,140 @@ def run_cohort_round(device: str, model: int = 1 << 20, cohort: int = 64):
     return mean, stacked["z"], time.perf_counter() - t0
 
 
+# ------------------------------------------------------ scalable runtime
+CIFAR_PARAMS = 550_586
+
+
+def run_sampled_cnn(device: str, n_clients: int = 1000, cohort: int = 100,
+                    rounds: int = 2):
+    """Run (i): ``SampledSync`` over the paper's CIFAR CNN at full width
+    (550,586 parameters), ``n_clients`` equal shards of 64 ``cifar_like``
+    images (so the cohort takes the vmap path), a C-of-N cohort, 1 local
+    epoch, update payload with error feedback, through
+    ``ComposedCompressor(ChunkedAECompressor(ChunkedAEConfig(),
+    use_kernel=True), bits=8)``: 135 chunks of 4,096 → 1,080 latents → q8
+    at block 64. The AE is drawn from a seed, its normalizer set to the
+    update's scale (std 1e-3). Returns (run, records, scheduler, host
+    seconds per round, each ended by a synchronize)."""
+    import torch
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import (ChunkedAECompressor, ChunkedAEConfig,
+                                  ComposedCompressor, FederatedRun, FLConfig,
+                                  SampledSync, init_chunked_ae)
+    from repro_torch.data.pipeline import (cifar_like, train_eval_split,
+                                           uniform_partition)
+    cfg = ChunkedAEConfig()
+    ae = init_chunked_ae(torch.Generator().manual_seed(2), cfg, device)
+    ae["norm"] = {"mean": torch.zeros((), device=device),
+                  "std": torch.full((), 1e-3, device=device)}
+    train, ev = train_eval_split(cifar_like(0, n_clients * 64 + 256), 256)
+    sched = SampledSync(cohort=cohort)
+    run = FederatedRun(
+        CIFAR_CLASSIFIER, uniform_partition(0, train, n_clients),
+        FLConfig(n_rounds=rounds, local_epochs=1, payload="update",
+                 error_feedback=True, seed=0),
+        compressors=[ComposedCompressor(
+            ChunkedAECompressor(ae, cfg, use_kernel=True), bits=8)
+            for _ in range(n_clients)],
+        eval_data=ev, scheduler=sched, device=device)
+    return (run,) + _timed_rounds(run, rounds, device) + (sched,)
+
+
+def run_async_mlp(device: str, scenario=None, engine: str = "heap",
+                  rounds: int = 3):
+    """Run (j): ``AsyncBuffered`` over the MNIST MLP at full width (15,910
+    parameters) at ``scenario`` (``PAPER_SCALE_SCENARIO`` by default: 1,000
+    clients, K 50, ``LatencyModel(1.0, 0.5, straggler_frac=0.1,
+    straggler_mult=8.0)``), 128 examples a client and 2 local epochs (four
+    Adam steps: after one, every moved parameter has moved by lr to within
+    rounding, and top-k would rank the rounding), update payload with error
+    feedback through ``ChainCompressor((TopK 1 %, q8))``, the scatter
+    route. Returns (run, records, host seconds per round)."""
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.configs.paper import PAPER_SCALE_SCENARIO
+    from repro_torch.core import (AsyncBuffered, ChainCompressor,
+                                  FederatedRun, FLConfig, LatencyModel,
+                                  QuantizeCompressor, TopKCompressor)
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    sc = PAPER_SCALE_SCENARIO if scenario is None else scenario
+    n = sc.n_clients
+    train, ev = train_eval_split(mnist_like(0, n * 128 + 256), 256)
+    run = FederatedRun(
+        MNIST_CLASSIFIER, uniform_partition(0, train, n),
+        FLConfig(n_rounds=rounds, local_epochs=2, payload="update",
+                 error_feedback=True, seed=0),
+        compressors=[ChainCompressor([TopKCompressor(0.01),
+                                      QuantizeCompressor(bits=8)])
+                     for _ in range(n)],
+        eval_data=ev, device=device,
+        scheduler=AsyncBuffered(
+            buffer_k=sc.buffer_k, engine=engine,
+            latency=LatencyModel(base=sc.base_latency,
+                                 jitter=sc.latency_jitter,
+                                 straggler_frac=sc.straggler_frac,
+                                 straggler_mult=sc.straggler_mult)))
+    return (run,) + _timed_rounds(run, rounds, device)
+
+
+def _timed_rounds(run, rounds: int, device: str):
+    """``run.run()`` a round at a time, each round's host seconds ended by
+    a synchronize."""
+    import torch
+    secs = []
+    for r in range(rounds):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.history.append(run.scheduler.run_round(r))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return run.history, secs
+
+
+def check_same_trace(tag: str, a, b) -> None:
+    """Two runs of one async configuration: identical arrival traces."""
+    for x, y in zip(a, b, strict=True):
+        for k in ("participants", "staleness", "sim_time", "bytes_up",
+                  "bytes_up_raw", "bytes_down"):
+            require(getattr(x, k) == getattr(y, k), f"{tag}: {k} differ")
+
+
+def check_scatter_route() -> dict:
+    """The scatter route of ``decode_and_aggregate`` at run (j)'s shapes
+    (50 clients, top-k 159 of 15,910, q8 values) on the card: two calls
+    ``torch.equal``; the CPU within the golden band; and whether one
+    ``index_add_`` over the whole cohort (atomics) is bit-equal across two
+    calls, reported, not required."""
+    import torch
+    from repro_torch.core import codec, normalize_weights
+    spec = codec.ChainSpec((codec.TopKSpec(15_910, 159),
+                            codec.QuantizeSpec(159)))
+    g = torch.Generator().manual_seed(3)
+    xs = torch.randn((50, 15_910), generator=g) * 1e-3
+    w = torch.tensor(normalize_weights([float(i + 1) for i in range(50)]))
+    outs = {}
+    for dev in ("cuda", "cpu", "cuda"):
+        st = codec.stack_payloads([codec.encode(spec, None, x.to(dev))
+                                   for x in xs])
+        outs.setdefault(dev, []).append(
+            codec.decode_and_aggregate(spec, None, st, w.to(dev)))
+    require(torch.equal(*outs["cuda"]), "scatter route: two card calls "
+            "differ")
+    err = close(outs["cuda"][0].cpu(), outs["cpu"][0], **GOLDEN_BAND)
+    vals = codec._chain_decode_batched(spec, None, st, upto=1) * \
+        w.to("cuda")[:, None]
+    idx = st["s0"]["indices"].reshape(-1).long()
+    one = [torch.zeros(15_910, device="cuda").index_add_(0, idx,
+                                                         vals.reshape(-1))
+           for _ in range(2)]
+    return {"second_call_bit_equal": True, "cpu_max_abs_err": err,
+            "one_call_index_add_bit_equal": bool(torch.equal(*one)),
+            "one_call_vs_route_max_abs_err":
+                float((one[0] - outs["cuda"][0]).abs().max())}
+
+
 def check_records(hist, up: float, raw: float, down: float) -> None:
     for r in hist:
         require(r.bytes_up == up, f"bytes_up {r.bytes_up} != {up}")
@@ -793,6 +946,8 @@ def main() -> int:
     import repro_torch
     require(Path(repro_torch.__file__).resolve().is_relative_to(ROOT),
             "repro_torch must come from this checkout")
+    from repro_torch.core import codec
+    from repro_torch.core.pytree import leaves, ravel
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 references
     torch.backends.cudnn.allow_tf32 = False
@@ -870,8 +1025,29 @@ def main() -> int:
                          torch.bfloat16, 18, 10),
              check_flash(2, 512, 512, 32, 32, 64, "causal", None,
                          torch.float32, 19, 10)]
+    # runs (i) and (j): the q8 of 1,080 latents (17 blocks of 64) a
+    # client and the server's 100 x 17 rows; a client's chunked-AE
+    # encode 4096 -> 512 -> 8 and EF decode 8 -> 512 -> 4096 over 135
+    # chunks, the server's hidden layer over 100 x 135 chunks and its
+    # kernel-4 reduce; the q8 of 159 top-k values (one block of 256) a
+    # client and the server's 50 rows
+    runtime = (list(check_quantize(17, 8, 26, 50, block=64).values())
+               + list(check_quantize(1700, 8, 27, 50, block=64).values())
+               + [check_fused_dense(135, 4096, 512, "relu", torch.float32,
+                                    28, 50),
+                  check_fused_dense(135, 512, 8, "relu", torch.float32, 29,
+                                    50),
+                  check_fused_dense(135, 8, 512, "relu", torch.float32, 30,
+                                    50),
+                  check_fused_dense(135, 512, 4096, "linear", torch.float32,
+                                    31, 50),
+                  check_fused_dense(13_500, 8, 512, "relu", torch.float32,
+                                    32, 20),
+                  check_decode_agg(100, 135, 512, 4096, 33, 20)]
+               + list(check_quantize(1, 8, 34, 50).values())
+               + list(check_quantize(50, 8, 35, 50).values()))
     for r in (fd[1:] + grouped + cohort + client
-              + [slice_rows["flash_attention"]] + flash):
+              + [slice_rows["flash_attention"]] + flash + runtime):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -1007,7 +1183,110 @@ def main() -> int:
     log(f"cohort (h) round wall time {round_s!r} s (host clock, 64 encodes "
         "+ stack + decode_and_aggregate, ended by a synchronize)")
 
-    # ---------------------------------------------------------- 7. report
+    # ------------------------------------------------ 7. scalable runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lib.reset_launches()
+    fd_mod.ROUTE_LAUNCHES.clear()
+    run_i, hist_i, secs_i, sched_i = run_sampled_cnn("cuda")
+    counts_i = _lib.counts()
+    routes_i = dict(fd_mod.ROUTE_LAUNCHES)
+    n_i = sum(t.numel() for t in leaves(run_i.global_params))
+    require(n_i == CIFAR_PARAMS, f"run (i) holds {n_i} parameters")
+    require((sched_i.vmap_rounds, sched_i.loop_rounds) == (2, 0),
+            f"run (i) vmap/loop rounds {sched_i.vmap_rounds}, "
+            f"{sched_i.loop_rounds}")
+    # 135 chunks x 8 latents = 1,080 -> 17 blocks of 64: codes + scales
+    comp_i = run_i.compressors[0]
+    wire_i = codec.wire_bytes(comp_i.spec(CIFAR_PARAMS),
+                              comp_i.codec_params())
+    require(wire_i == 17 * 64 + 17 * 4, f"run (i) wire bytes {wire_i}")
+    check_records(hist_i, 100 * wire_i, 100 * CIFAR_PARAMS * 4,
+                  100 * CIFAR_PARAMS * 4)
+    for r in hist_i:
+        require(len(r.participants) == 100, "run (i) cohort size")
+    for k in ("quantize_blocks_2d", "dequantize_blocks_2d", "fused_dense",
+              "fused_decode_agg"):
+        require(counts_i.get(k, 0) > 0, f"run (i) never launched {k}")
+        launches[k + "_run_i"] = counts_i[k]
+    log(f"runtime (i) SampledSync CIFAR CNN ({n_i} params), 100 of 1,000 "
+        f"clients, composed chunked AE q8: launches {counts_i}, fused_dense "
+        f"by route {routes_i}; vmap rounds {sched_i.vmap_rounds}; "
+        + "; ".join(f"r{r.round} loss {r.global_metrics['loss']!r} up "
+                    f"{r.bytes_up!r} B" for r in hist_i))
+    log(f"runtime (i) round wall time {secs_i!r} s (host clock, vmapped "
+        "local step + 100 encodes + EF decodes + decode_and_aggregate + "
+        "eval, each ended by a synchronize)")
+    del run_i
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_ig, hist_ig, _, _ = run_sampled_cnn("cuda", 16, 4)
+    run_ic, hist_ic, _, _ = run_sampled_cnn("cpu", 16, 4)
+    for g, c in zip(hist_ig, hist_ic, strict=True):
+        require(g.participants == c.participants, "run (i) reduced cohorts")
+    err = check_cuda_vs_cpu("run (i) reduced", run_ig, hist_ig, run_ic,
+                            hist_ic)
+    log("runtime (i) reduced (16 clients, cohort 4) cuda == cpu: cohorts "
+        "and bytes exact, loss/accuracy/params within atol=2e-5 rtol=2e-4 "
+        f"(params max abs err {err!r})")
+
+    from repro_torch.configs.paper import SMOKE_SCALE_SCENARIO
+    # the two engines in turns (heap, vector, vector, heap): every run must
+    # give the first one's traces and bit-identical parameters
+    runs_j, secs_j = [], {"heap": [], "vector": []}
+    for engine in ("heap", "vector", "vector", "heap"):
+        _lib.reset_launches()
+        run_x, hist_x, secs_x = run_async_mlp("cuda", engine=engine)
+        runs_j.append((engine, hist_x, ravel(run_x.global_params)[0],
+                       _lib.counts()))
+        secs_j[engine].append(secs_x)
+        if len(runs_j) == 1:
+            comp_j = run_x.compressors[0]
+        del run_x
+    _, hist_jh, params_jh, counts_j = runs_j[0]
+    for engine, hist_x, params_x, _ in runs_j[1:]:
+        check_same_trace(f"run (j) heap/{engine}", hist_jh, hist_x)
+        require(torch.equal(params_jh, params_x),
+                f"run (j): the {engine} engine's parameters differ")
+    for r in hist_jh:
+        require(len(r.participants) == 50, "run (j) buffer size")
+        require(math.isfinite(r.global_metrics["loss"]), "run (j) loss")
+    # k = 159: int32 indices + one q8 block of the values
+    wire_j = codec.wire_bytes(comp_j.spec(15_910))
+    require(wire_j == 159 * 4 + 256 + 4, f"run (j) wire bytes {wire_j}")
+    require(all(r.bytes_up == 50 * wire_j for r in hist_jh),
+            "run (j) bytes_up")
+    require(hist_jh[0].bytes_down == 1000 * 15_910 * 4
+            and all(r.bytes_down == 50 * 15_910 * 4 for r in hist_jh[1:]),
+            "run (j) bytes_down")
+    for k in ("quantize_blocks_2d", "dequantize_blocks_2d"):
+        require(counts_j.get(k, 0) > 0, f"run (j) never launched {k}")
+        launches[k + "_run_j"] = counts_j[k]
+    log(f"runtime (j) AsyncBuffered MNIST MLP, 1,000 clients, K 50, TopK "
+        f"1 % -> q8: launches {counts_j}; heap == vector (traces, bytes, "
+        "torch.equal params); "
+        + "; ".join(f"r{r.round} staleness max {max(r.staleness)} sim_time "
+                    f"{r.sim_time!r} loss {r.global_metrics['loss']!r}"
+                    for r in hist_jh))
+    log(f"runtime (j) round wall time in turns heap, vector, vector, heap: "
+        f"heap {secs_j['heap']!r} s, vector {secs_j['vector']!r} s (host "
+        "clock, each ended by a synchronize)")
+    del runs_j
+    for engine in ("heap", "vector"):
+        run_g, hist_g, _ = run_async_mlp("cuda", SMOKE_SCALE_SCENARIO,
+                                         engine)
+        run_jc, hist_jc, _ = run_async_mlp("cpu", SMOKE_SCALE_SCENARIO,
+                                           engine)
+        check_same_trace(f"run (j) reduced {engine} cuda/cpu", hist_g,
+                         hist_jc)
+        err = check_cuda_vs_cpu(f"run (j) reduced {engine}", run_g, hist_g,
+                                run_jc, hist_jc)
+        log(f"runtime (j) reduced ({engine}, 16 clients, K 4) cuda == cpu: "
+            "arrival traces exact, loss/accuracy/params within atol=2e-5 "
+            f"rtol=2e-4 (params max abs err {err!r})")
+    log("runtime scatter route: " + json.dumps(check_scatter_route()))
+
+    # ---------------------------------------------------------- 8. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -1024,8 +1303,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
-        extra = ({"launches_run_h": launches[name + "_run_h"]}
-                 if name + "_run_h" in launches else {})
+        extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
+                 for x in "hij" if f"{name}_run_{x}" in launches}
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h)

@@ -3,24 +3,40 @@ communication for federated learning (port of ``repro.core``)."""
 from repro_torch.core.aggregate import (  # noqa: F401
     apply_update,
     normalize_weights,
+    staleness_weights,
     weighted_mean_stacked,
 )
+from repro_torch.core.arrival import ArrivalEngine, pop_k_device  # noqa: F401
 from repro_torch.core.autoencoder import (  # noqa: F401
     ChunkedAEConfig,
+    ConvAEConfig,
+    ae_accuracy,
+    ae_loss,
+    conv_decode,
+    conv_encode,
     fc_decode,
     fc_encode,
     fc_reconstruct,
     init_chunked_ae,
+    init_conv_ae,
     init_fc_ae,
     train_autoencoder,
+    train_autoencoder_cohort,
 )
 from repro_torch.core.codec import (  # noqa: F401
+    ChainSpec,
     ChunkedAESpec,
+    ComposedSpec,
     FCAESpec,
     IdentitySpec,
     QuantizeSpec,
+    TopKSpec,
+    composed_chain,
     decode_and_aggregate,
+    decode_batched,
     stack_payloads,
+    stage_ops,
+    stage_out_size,
     wire_bytes,
 )
 from repro_torch.core import codec  # noqa: F401
@@ -37,12 +53,17 @@ from repro_torch.core.partition import (  # noqa: F401
 )
 from repro_torch.core import partition  # noqa: F401
 from repro_torch.core.compressor import (  # noqa: F401
+    ChainCompressor,
     ChunkedAECompressor,
+    ComposedCompressor,
     Compressor,
     FCAECompressor,
     IdentityCompressor,
     PartitionedCompressor,
     QuantizeCompressor,
+    TopKCompressor,
+    ef_compensate,
+    ef_residual,
     partitioned,
     tree_bytes,
 )
@@ -51,7 +72,19 @@ from repro_torch.core.federated import (  # noqa: F401
     FLConfig,
     RoundRecord,
 )
-from repro_torch.core.prepass import evaluate, local_train, run_prepass  # noqa: F401
+from repro_torch.core.prepass import (  # noqa: F401
+    evaluate,
+    local_train,
+    local_train_batched,
+    run_prepass,
+)
 from repro_torch.core.savings import SavingsModel, reconcile  # noqa: F401
-from repro_torch.core.scheduler import SyncFedAvg  # noqa: F401
+from repro_torch.core.scheduler import (  # noqa: F401
+    AsyncBuffered,
+    ClientState,
+    LatencyModel,
+    RoundScheduler,
+    SampledSync,
+    SyncFedAvg,
+)
 from repro_torch.core.task import ClassifierTask, ClientTask  # noqa: F401

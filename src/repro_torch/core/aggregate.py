@@ -1,5 +1,6 @@
 """FedAvg aggregation over decoded collaborator updates (port of the parts
-of ``repro.core.aggregate`` the synchronous path uses)."""
+of ``repro.core.aggregate`` the synchronous and buffered-async paths use;
+``distortion_weights`` waits for rate control)."""
 from __future__ import annotations
 
 from typing import Any, List, Sequence
@@ -39,3 +40,17 @@ def apply_update(global_params: Tree, mean_update: Tree,
     return tree_map(
         lambda p, u: (p.float() + server_lr * u.float()).to(p.dtype),
         global_params, mean_update)
+
+
+def staleness_weights(base_weights: Sequence[float],
+                      staleness: Sequence[int],
+                      power: float = 0.5) -> List[float]:
+    """FedBuff-style staleness discount (Nguyen et al., 2022): an update
+    computed against global version ``v`` and applied at ``v + s`` is
+    weighted by ``(1 + s) ** -power``; ``power=0`` is plain sample-count
+    weighting (DESIGN.md §6.2). Only the relative discount matters: the
+    server normalizes."""
+    if len(base_weights) != len(staleness):
+        raise ValueError("one staleness per weight")
+    return [w * float(1 + s) ** (-power)
+            for w, s in zip(base_weights, staleness)]

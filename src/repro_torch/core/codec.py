@@ -1,21 +1,27 @@
 """Codec protocol: static specs + pure encode/decode functions (port of
-``repro.core.codec`` for the bare specs and per-layer partitions; chains,
-composed, top-k, k-means and entropy are not ported yet).
+``repro.core.codec``: the Identity, Quantize, TopK, FCAE and ChunkedAE
+stages, chains of them, ``ComposedSpec`` and per-layer partitions; the
+k-means and entropy stages and ``measured_bytes`` are not ported yet).
 
 A codec is a pair of functions driven by a frozen, hashable **spec** that
 carries everything static (original length, bit widths, chunking, AE
 shapes); payloads are dicts of fixed-shape tensors with no length metadata,
-so the cohort's payloads stack along a client axis. Each spec registers a
-small ops class (``fwd`` / ``inv`` / ``inv_batched`` / ``payload_shapes``)
-in ``_STAGE_OPS`` (DESIGN.md §13.1).
+so the cohort's payloads stack along a client axis. Each stage spec
+registers a small ops class (``fwd`` / ``inv`` / ``inv_batched`` /
+``carry_key`` / ``carry_shape`` / ``out_size`` / ``payload_shapes``) in
+``_STAGE_OPS`` (DESIGN.md §13.1). :class:`ChainSpec` composes stages
+left to right (sparsify → AE → quantize); :class:`ComposedSpec` is the
+2-stage ``(AE, quantize)`` chain with its historical flat payload keys.
 
 The server entry point is :func:`decode_and_aggregate` (DESIGN.md §7): the
 generic route decodes the stacked cohort in one batched pass and reduces
-with an einsum over the client axis; the kernel-path chunked AE runs its
-hidden decoder layers on the folded ``(C·n_chunks)`` batch and folds the
+with an einsum over the client axis; kernel-terminal AE stacks (the
+kernel-path chunked AE, bare or behind pointwise suffix stages) run the
+hidden decoder layers on the folded ``(C·n_chunks)`` batch and fold the
 FedAvg weights into the final decoder product inside the fused
 decode→aggregate kernel, so per-client decoded tensors never exist
-(DESIGN.md §7.1).
+(DESIGN.md §7.1); top-k-prefixed chains reduce by one weighted
+``index_add_`` over the shipped indices.
 """
 from __future__ import annotations
 
@@ -51,6 +57,16 @@ class QuantizeSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class TopKSpec:
+    """Top-k magnitudes (DGC/STC-style); ships (values, int32 indices).
+
+    As a chain prefix the values vector (length ``k``) is the carry fed to
+    the next stage, and only the int32 indices ship from this stage."""
+    size: int
+    k: int
+
+
+@dataclasses.dataclass(frozen=True)
 class FCAESpec:
     """Paper-faithful full FC AE; ``cfg.input_dim ≥ size`` (padded)."""
     size: int
@@ -70,12 +86,71 @@ class ChunkedAESpec:
         return -(-self.size // self.cfg.chunk_size)
 
 
+@dataclasses.dataclass(frozen=True)
+class ComposedSpec:
+    """AE latents further quantized (§4.2 "orthogonal add-on"): the 2-stage
+    chain ``ChainSpec((inner, QuantizeSpec(n_latent, bits, block)))`` that
+    every entry point canonicalizes through :func:`composed_chain`, with the
+    flat payload keys ``{"z_q", "z_scales"}`` and bare AE params."""
+    inner: Union[FCAESpec, ChunkedAESpec]
+    bits: int = 8
+    block: int = 64
+
+    @property
+    def size(self) -> int:
+        return self.inner.size
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainSpec:
+    """Composable codec stack: ``stages`` applied left to right at encode.
+
+    Every non-terminal stage must be *carrying* (its payload has a carry
+    entry the next stage consumes, flattened 1-D); Quantize is
+    terminal-only. Payload entries are namespaced ``{"s0": {...}, "s1":
+    {...}}`` (stages that ship nothing are omitted); params are a tuple
+    with one entry per stage (None for stateless stages)."""
+    stages: Tuple[Any, ...]
+
+    def __post_init__(self):
+        stages = tuple(self.stages)
+        object.__setattr__(self, "stages", stages)
+        if not stages:
+            raise ValueError("ChainSpec needs at least one stage")
+        for s in stages:
+            if isinstance(s, (ChainSpec, ComposedSpec)):
+                raise TypeError(
+                    f"ChainSpec stages must be atomic, got {type(s).__name__}"
+                    " (flatten nested chains; use composed_chain() for"
+                    " ComposedSpec)")
+            stage_ops(s)
+        n_ae = sum(isinstance(s, (FCAESpec, ChunkedAESpec)) for s in stages)
+        if n_ae > 1:
+            raise ValueError("at most one AE stage per chain")
+        for i, s in enumerate(stages[:-1]):
+            ops = stage_ops(s)
+            if ops.carry_key is None:
+                raise ValueError(
+                    f"{type(s).__name__} is terminal-only (no carry) and "
+                    f"cannot precede {type(stages[i + 1]).__name__}")
+            out = ops.out_size(s)
+            if stages[i + 1].size != out:
+                raise ValueError(
+                    f"chain size mismatch: {type(s).__name__} emits {out} "
+                    f"values but {type(stages[i + 1]).__name__} expects "
+                    f"{stages[i + 1].size}")
+
+    @property
+    def size(self) -> int:
+        return self.stages[0].size
+
+
 # ``partition.PartitionSpec`` (one frozen sub-spec per named leaf group,
 # DESIGN.md §10) is also a member of this union: every entry point below
 # dispatches it to the per-group functions in core/partition.py (imported
 # lazily — partition.py imports this module at top level).
-CodecSpec = Union[IdentitySpec, QuantizeSpec, FCAESpec, ChunkedAESpec,
-                  "PartitionSpec"]
+CodecSpec = Union[IdentitySpec, QuantizeSpec, TopKSpec, FCAESpec,
+                  ChunkedAESpec, ComposedSpec, ChainSpec, "PartitionSpec"]
 
 
 def _partition_mod():
@@ -89,36 +164,13 @@ def is_partitioned(spec) -> bool:
     return isinstance(spec, _partition_mod().PartitionSpec)
 
 
-def kernel_terminal_ae(spec: CodecSpec) -> Optional[ChunkedAESpec]:
-    """The kernel-path chunked-AE stage when ``spec`` can take the fused
-    decode→aggregate launch: a bare ``ChunkedAESpec(use_kernel=True)``.
-    None otherwise. (The reference also accepts chains whose AE expansion
-    is the last decode transform; those wait for the chain stages.)"""
-    if isinstance(spec, ChunkedAESpec) and spec.use_kernel:
-        return spec
-    return None
-
-
-def kernel_chain_latents(spec: CodecSpec, params: Optional[Params],
-                         stacked: Payload) -> Tuple[torch.Tensor, Params]:
-    """``(z, ae_params)`` feeding the fused kernel for a
-    :func:`kernel_terminal_ae` spec: the stacked latents ``(C, n_chunks,
-    latent)``. (A chain's pointwise suffix would be inverted here first;
-    chains are not ported yet.)"""
-    return stacked["z"], params
-
-
-def ae_stage_params(spec: CodecSpec, params: Optional[Params]
-                    ) -> Optional[Params]:
-    """The AE stage's params inside ``spec`` — the object whose identity
-    keys decoder slots in the grouped launch. For the bare specs that is
-    ``params`` itself (a chain's would be its AE stage's entry)."""
-    return params
-
-
 # =====================================================================
-# stage ops — one class per spec, registered in _STAGE_OPS
+# stage ops — one class per stage spec, registered in _STAGE_OPS
 # =====================================================================
+#   carry_key      payload entry the next chain stage consumes, or None for
+#                  terminal-only stages (quantize)
+#   carry_shape    natural (unbatched) shape of that carry entry
+#   out_size       flattened carry length == next stage's ``size``
 #   fwd            (spec, params, flat) → payload dict
 #   inv            (spec, params, payload) → flat (spec.size,)
 #   inv_batched    (spec, params, stacked) → (C, spec.size), shared params
@@ -131,6 +183,16 @@ def _dequant_to(bits: int, block: int, n: int, q: torch.Tensor,
 
 
 class _IdentityOps:
+    carry_key = "flat"
+
+    @staticmethod
+    def carry_shape(spec):
+        return (spec.size,)
+
+    @staticmethod
+    def out_size(spec):
+        return spec.size
+
     @staticmethod
     def fwd(spec, params, flat):
         return {"flat": flat}
@@ -149,6 +211,16 @@ class _IdentityOps:
 
 
 class _QuantizeOps:
+    carry_key = None
+
+    @staticmethod
+    def carry_shape(spec):
+        raise TypeError("QuantizeSpec is terminal-only")
+
+    @staticmethod
+    def out_size(spec):
+        return None
+
     @staticmethod
     def fwd(spec, params, flat):
         from repro_torch.kernels import ops
@@ -186,7 +258,57 @@ class _QuantizeOps:
         return {"q": q, "scales": ((nb,), torch.float32)}
 
 
+class _TopKOps:
+    carry_key = "values"
+
+    @staticmethod
+    def carry_shape(spec):
+        return (spec.k,)
+
+    @staticmethod
+    def out_size(spec):
+        return spec.k
+
+    @staticmethod
+    def fwd(spec, params, flat):
+        # ``lax.top_k``'s order: descending |x|, ties to the lower index —
+        # a stable descending sort keeps equal magnitudes in index order
+        # (``torch.topk`` promises no tie order on CUDA)
+        order = torch.sort(torch.abs(flat), descending=True, stable=True)[1]
+        idx = order[:spec.k].to(torch.int32)
+        return {"values": flat[order[:spec.k]], "indices": idx}
+
+    @staticmethod
+    def inv(spec, params, payload):
+        vals = payload["values"]
+        flat = torch.zeros((spec.size,), dtype=vals.dtype, device=vals.device)
+        flat[payload["indices"].long()] = vals
+        return flat
+
+    @staticmethod
+    def inv_batched(spec, params, stacked):
+        vals, idx = stacked["values"], stacked["indices"]
+        out = torch.zeros((vals.shape[0], spec.size), dtype=vals.dtype,
+                          device=vals.device)
+        return out.scatter_(1, idx.long(), vals)
+
+    @staticmethod
+    def payload_shapes(spec, params):
+        return {"values": ((spec.k,), torch.float32),
+                "indices": ((spec.k,), torch.int32)}
+
+
 class _FCAEOps:
+    carry_key = "z"
+
+    @staticmethod
+    def carry_shape(spec):
+        return (spec.cfg.latent_dim,)
+
+    @staticmethod
+    def out_size(spec):
+        return spec.cfg.latent_dim
+
     @staticmethod
     def fwd(spec, params, flat):
         pad = spec.cfg.input_dim - spec.size
@@ -211,6 +333,16 @@ class _FCAEOps:
 
 
 class _ChunkedAEOps:
+    carry_key = "z"
+
+    @staticmethod
+    def carry_shape(spec):
+        return (spec.n_chunks, spec.cfg.latent_chunk)
+
+    @staticmethod
+    def out_size(spec):
+        return spec.n_chunks * spec.cfg.latent_chunk
+
     @staticmethod
     def fwd(spec, params, flat):
         if spec.use_kernel:
@@ -241,23 +373,245 @@ class _ChunkedAEOps:
 _STAGE_OPS = {
     IdentitySpec: _IdentityOps,
     QuantizeSpec: _QuantizeOps,
+    TopKSpec: _TopKOps,
     FCAESpec: _FCAEOps,
     ChunkedAESpec: _ChunkedAEOps,
 }
+# stages of the reference this package does not have yet (ROADMAP Queue A
+# item 8): a spec of these types raises NotImplementedError, not TypeError
+_UNPORTED_STAGES = ("KMeansSpec", "EntropySpec")
 
 
 def stage_ops(spec):
-    """The registered ops class for a spec."""
+    """The registered ops class for an atomic stage spec."""
     try:
         return _STAGE_OPS[type(spec)]
     except KeyError:
-        raise TypeError(f"unknown or unported codec spec "
-                        f"{type(spec).__name__}") from None
+        name = type(spec).__name__
+        if name in _UNPORTED_STAGES:
+            raise NotImplementedError(
+                f"codec stage {name} is not ported yet (ROADMAP Queue A "
+                "item 8)") from None
+        raise TypeError(f"unknown codec stage {name}") from None
+
+
+def stage_out_size(spec) -> Optional[int]:
+    """Flattened carry length a stage emits (next stage's ``size``), or
+    None for terminal-only stages."""
+    return stage_ops(spec).out_size(spec)
+
+
+def stage_carry_shape(spec) -> Tuple[int, ...]:
+    """Natural (unbatched) shape of a carrying stage's carry entry."""
+    return stage_ops(spec).carry_shape(spec)
+
+
+def latent_shape(spec: Union[FCAESpec, ChunkedAESpec]) -> Tuple[int, ...]:
+    """Static shape of the AE latent payload entry ``z``."""
+    if isinstance(spec, (FCAESpec, ChunkedAESpec)):
+        return stage_carry_shape(spec)
+    raise TypeError(f"no latent for {type(spec).__name__}")
+
+
+# =====================================================================
+# chain helpers
+# =====================================================================
+def composed_chain(spec: ComposedSpec) -> ChainSpec:
+    """The 2-stage chain a ``ComposedSpec`` canonicalizes to."""
+    n_latent = 1
+    for d in latent_shape(spec.inner):
+        n_latent *= d
+    return ChainSpec((spec.inner,
+                      QuantizeSpec(size=n_latent, bits=spec.bits,
+                                   block=spec.block)))
+
+
+def _composed_wrap_payload(payload: Payload) -> Payload:
+    """Chain payload ``{"s1": {q, scales}}`` → the flat keys."""
+    return {"z_q": payload["s1"]["q"], "z_scales": payload["s1"]["scales"]}
+
+
+def _composed_unwrap_payload(payload: Payload) -> Payload:
+    """The flat keys → chain payload of the canonical 2-stage chain."""
+    return {"s1": {"q": payload["z_q"], "scales": payload["z_scales"]}}
+
+
+def _chain_params(spec: ChainSpec, params: Optional[Params]
+                  ) -> Tuple[Optional[Params], ...]:
+    """Per-stage params tuple (None-filled when ``params is None``)."""
+    n = len(spec.stages)
+    if params is None:
+        return (None,) * n
+    if not isinstance(params, tuple) or len(params) != n:
+        raise ValueError(
+            f"ChainSpec params must be a tuple of {n} per-stage entries "
+            f"(None for stateless stages), got {type(params).__name__}")
+    return params
+
+
+def _chain_encode(spec: ChainSpec, params, flat: torch.Tensor) -> Payload:
+    vs = spec.stages
+    ps = _chain_params(spec, params)
+    out: Payload = {}
+    x = flat
+    last = len(vs) - 1
+    for i, st in enumerate(vs):
+        ops = stage_ops(st)
+        pl = ops.fwd(st, ps[i], x)
+        if i < last:
+            carry = pl.pop(ops.carry_key)
+            if pl:                     # side entries (e.g. top-k indices)
+                out[f"s{i}"] = pl
+            x = carry.reshape(-1)      # mid-chain carries travel flat
+        else:
+            out[f"s{i}"] = pl          # terminal stage ships its carry too
+    return out
+
+
+def _chain_decode(spec: ChainSpec, params, payload: Payload) -> torch.Tensor:
+    vs = spec.stages
+    ps = _chain_params(spec, params)
+    last = len(vs) - 1
+    x = stage_ops(vs[last]).inv(vs[last], ps[last], payload[f"s{last}"])
+    for i in range(last - 1, -1, -1):
+        st = vs[i]
+        ops = stage_ops(st)
+        pl = dict(payload.get(f"s{i}", {}))
+        pl[ops.carry_key] = x.reshape(ops.carry_shape(st))
+        x = ops.inv(st, ps[i], pl)
+    return x
+
+
+def _chain_decode_batched(spec: ChainSpec, params, stacked: Payload, *,
+                          upto: int = 0) -> torch.Tensor:
+    """Backward fold of ``inv_batched`` down to (and excluding) stage
+    ``upto``: ``upto=0`` is the full batched decode → ``(C, spec.size)``;
+    ``upto=i`` stops with stage ``i``'s carry, ``(C, out_size(stage i))``
+    — how the scatter and kernel aggregate routes peel pointwise
+    suffixes."""
+    vs = spec.stages
+    ps = _chain_params(spec, params)
+    last = len(vs) - 1
+    X = stage_ops(vs[last]).inv_batched(vs[last], ps[last],
+                                        stacked[f"s{last}"])
+    for i in range(last - 1, upto - 1, -1):
+        st = vs[i]
+        ops = stage_ops(st)
+        C = X.shape[0]
+        pl = dict(stacked.get(f"s{i}", {}))
+        pl[ops.carry_key] = X.reshape((C,) + ops.carry_shape(st))
+        X = ops.inv_batched(st, ps[i], pl)
+    return X
+
+
+def ae_stage_params(spec: CodecSpec, params: Optional[Params]
+                    ) -> Optional[Params]:
+    """The AE stage's params entry inside a (possibly chained) spec — the
+    object whose identity keys decoder slots in the grouped launch."""
+    if isinstance(spec, ChainSpec):
+        for st, p in zip(spec.stages, _chain_params(spec, params)):
+            if isinstance(st, (FCAESpec, ChunkedAESpec)):
+                return p
+        return None
+    return params
+
+
+def ae_stage_input(spec: CodecSpec, params: Optional[Params],
+                   flat: torch.Tensor) -> torch.Tensor:
+    """Forward-fold ``flat`` through a chain's prefix stages up to its AE
+    stage: the vector the AE actually encodes. Identity for non-chain
+    specs."""
+    if not isinstance(spec, ChainSpec):
+        return flat
+    ps = _chain_params(spec, params)
+    x = flat
+    for i, st in enumerate(spec.stages):
+        if isinstance(st, (FCAESpec, ChunkedAESpec)):
+            return x
+        ops = stage_ops(st)
+        x = ops.fwd(st, ps[i], x)[ops.carry_key].reshape(-1)
+    return x
+
+
+def kernel_terminal_ae(spec: CodecSpec) -> Optional[ChunkedAESpec]:
+    """The kernel-path chunked-AE stage when ``spec`` can take the fused
+    decode→aggregate launch: a bare ``ChunkedAESpec(use_kernel=True)``, or
+    a chain whose AE expansion is the *last* decode transform
+    (identity-only prefix, quantize-only suffix). None otherwise — e.g.
+    sparsified chains, whose final decode transform is a scatter."""
+    if isinstance(spec, ChunkedAESpec) and spec.use_kernel:
+        return spec
+    if isinstance(spec, ChainSpec):
+        vs = spec.stages
+        idx = [i for i, s in enumerate(vs)
+               if isinstance(s, (FCAESpec, ChunkedAESpec))]
+        if len(idx) != 1:
+            return None
+        i = idx[0]
+        st = vs[i]
+        if not (isinstance(st, ChunkedAESpec) and st.use_kernel):
+            return None
+        if any(not isinstance(s, IdentitySpec) for s in vs[:i]):
+            return None
+        if any(not isinstance(s, QuantizeSpec) for s in vs[i + 1:]):
+            return None
+        return st
+    return None
+
+
+def kernel_chain_latents(spec: CodecSpec, params: Optional[Params],
+                         stacked: Payload) -> Tuple[torch.Tensor, Params]:
+    """``(z, ae_params)`` feeding the fused kernel for a
+    :func:`kernel_terminal_ae` spec: the stacked latents ``(C, n_chunks,
+    latent)`` after batched-inverting any pointwise suffix stages."""
+    if isinstance(spec, ChunkedAESpec):
+        return stacked["z"], params
+    vs = spec.stages
+    ps = _chain_params(spec, params)
+    i = next(j for j, s in enumerate(vs) if isinstance(s, ChunkedAESpec))
+    if i == len(vs) - 1:
+        return stacked[f"s{i}"]["z"], ps[i]
+    Z = _chain_decode_batched(spec, params, stacked, upto=i + 1)
+    return Z.reshape((Z.shape[0],) + stage_carry_shape(vs[i])), ps[i]
 
 
 # =====================================================================
 # wire pricing
 # =====================================================================
+def _require_priceable(spec: CodecSpec, params: Optional[Params]) -> None:
+    """AE-bearing specs cannot be priced without their parameter shapes."""
+    if isinstance(spec, ComposedSpec):
+        _require_priceable(spec.inner, params)
+    elif isinstance(spec, ChainSpec):
+        for st, p in zip(spec.stages, _chain_params(spec, params)):
+            _require_priceable(st, p)
+    elif isinstance(spec, (FCAESpec, ChunkedAESpec)) and params is None:
+        raise ValueError(
+            f"wire_bytes({type(spec).__name__}(size={spec.size})): this "
+            "spec encodes through an autoencoder, so pricing needs the AE "
+            "parameter shapes — pass params (e.g. "
+            "compressor.codec_params()) instead of None")
+
+
+def _payload_shapes(spec: CodecSpec, params: Optional[Params]
+                    ) -> Dict[Any, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{key: (shape, dtype)}`` of every leaf one encode ships (chain keys
+    are ``(stage, key)`` pairs)."""
+    if isinstance(spec, ComposedSpec):
+        q = _payload_shapes(composed_chain(spec), (params, None))
+        return {"z_q": q[("s1", "q")], "z_scales": q[("s1", "scales")]}
+    if isinstance(spec, ChainSpec):
+        vs = spec.stages
+        out = {}
+        for i, (st, p) in enumerate(zip(vs, _chain_params(spec, params))):
+            ops = stage_ops(st)
+            for key, sd in ops.payload_shapes(st, p).items():
+                if i == len(vs) - 1 or key != ops.carry_key:
+                    out[(f"s{i}", key)] = sd
+        return out
+    return stage_ops(spec).payload_shapes(spec, params)
+
+
 def wire_bytes(spec: CodecSpec, params: Optional[Params] = None) -> int:
     """Static uplink cost of one encoded payload for ``spec``, in bytes,
     from the payload's shapes and dtypes alone (nothing runs). Equal to
@@ -266,14 +620,9 @@ def wire_bytes(spec: CodecSpec, params: Optional[Params] = None) -> int:
     if is_partitioned(spec):
         return sum(_partition_mod().wire_bytes_by_group(spec,
                                                         params).values())
-    if isinstance(spec, (FCAESpec, ChunkedAESpec)) and params is None:
-        raise ValueError(
-            f"wire_bytes({type(spec).__name__}(size={spec.size})): this "
-            "spec encodes through an autoencoder, so pricing needs the AE "
-            "parameter shapes — pass params (e.g. "
-            "compressor.codec_params()) instead of None")
+    _require_priceable(spec, params)
     total = 0
-    for shape, dtype in stage_ops(spec).payload_shapes(spec, params).values():
+    for shape, dtype in _payload_shapes(spec, params).values():
         n = 1
         for d in shape:
             n *= d
@@ -291,6 +640,11 @@ def encode(spec: CodecSpec, params: Optional[Params],
     ``None`` otherwise."""
     if is_partitioned(spec):
         return _partition_mod().encode_tree(spec, params, flat)
+    if isinstance(spec, ComposedSpec):
+        return _composed_wrap_payload(
+            _chain_encode(composed_chain(spec), (params, None), flat))
+    if isinstance(spec, ChainSpec):
+        return _chain_encode(spec, params, flat)
     return stage_ops(spec).fwd(spec, params, flat)
 
 
@@ -299,6 +653,11 @@ def decode(spec: CodecSpec, params: Optional[Params],
     """Aggregator-side decoder → flat ``(spec.size,)`` vector."""
     if is_partitioned(spec):
         return _partition_mod().decode_tree(spec, params, payload)
+    if isinstance(spec, ComposedSpec):
+        return _chain_decode(composed_chain(spec), (params, None),
+                             _composed_unwrap_payload(payload))
+    if isinstance(spec, ChainSpec):
+        return _chain_decode(spec, params, payload)
     return stage_ops(spec).inv(spec, params, payload)
 
 
@@ -318,12 +677,17 @@ def decode_batched(spec: CodecSpec, params: Optional[Params],
         return _partition_mod().decode_tree_batched(
             spec, params, stacked, params_batched=params_batched)
     if params_batched:
-        from repro_torch.core.pytree import tree_map
-        C = next(iter(stacked.values())).shape[0]
+        from repro_torch.core.pytree import leaves, tree_map
+        C = leaves(stacked)[0].shape[0]
         return torch.stack([
             decode(spec, tree_map(lambda x, i=i: x[i], params),
-                   {k: v[i] for k, v in stacked.items()})
+                   tree_map(lambda x, i=i: x[i], stacked))
             for i in range(C)])
+    if isinstance(spec, ComposedSpec):
+        return _chain_decode_batched(composed_chain(spec), (params, None),
+                                     _composed_unwrap_payload(stacked))
+    if isinstance(spec, ChainSpec):
+        return _chain_decode_batched(spec, params, stacked)
     return stage_ops(spec).inv_batched(spec, params, stacked)
 
 
@@ -357,12 +721,26 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
     ``weights`` must already be normalized (Σ=1; see
     ``aggregate.normalize_weights``). ``base`` (the flat global params
     under the weights-payload protocol) is subtracted after the reduction
-    (Σw=1). Three routes:
+    (Σw=1). Routes, in the reference's order:
 
     * partitioned homogeneous cohort: one fused reduction per group, each
       by the routes below, scattered back (mixed partitioned cohorts go
       through ``partition.server_decode_aggregate`` instead);
-    * kernel-path chunked AE (``ChunkedAESpec(use_kernel=True)``, shared
+    A ``ComposedSpec`` is first canonicalized into its 2-stage chain, as
+    every other entry point does, so a composed kernel-path chunked AE
+    takes the kernel-terminal route. (The reference picks the route on the
+    bare ``ComposedSpec`` and takes the generic route there; the two agree
+    to float tolerance.)
+
+    * scatter-terminal chains (a top-k prefix and at least one more stage,
+      shared params): batched-invert the suffix down to the top-k values
+      ``(C, k)`` and reduce by weighted ``index_add_`` over the shipped
+      indices — dense per-client rows are never built. One ``index_add_``
+      a client, clients in order: a client's k indices are distinct, so no
+      two adds of one call meet at an address, and every element sums its
+      clients in client order on any device (one call over the whole
+      cohort would add with atomics on CUDA, in no fixed order);
+    * kernel-terminal AE stacks (:func:`kernel_terminal_ae`, shared
       params): hidden decoder layers on the folded cohort, then the fused
       decode→aggregate kernel folds ``weights`` into the final decoder
       product (DESIGN.md §7.1);
@@ -378,9 +756,28 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
                 cspec, p, stacked[name], w, base_g,
                 params_batched=params_batched and p is not None)
         return part.scatter_groups(spec.structure, means, spec.size)
-    if not params_batched and kernel_terminal_ae(spec) is not None:
-        mean = _fused_chunked_decode_agg(spec, params, stacked["z"], w)
-        return mean if base is None else mean - base
+    if isinstance(spec, ComposedSpec):
+        return decode_and_aggregate(
+            composed_chain(spec), (params, None),
+            _composed_unwrap_payload(stacked), w, base,
+            params_batched=params_batched)
+    if not params_batched:
+        if (isinstance(spec, ChainSpec)
+                and isinstance(spec.stages[0], TopKSpec)
+                and len(spec.stages) > 1):
+            vals = _chain_decode_batched(spec, params, stacked, upto=1)
+            idx = stacked["s0"]["indices"]              # (C, k)
+            wv = vals.float() * w[:, None]
+            out = torch.zeros((spec.size,), dtype=torch.float32,
+                              device=wv.device)
+            for c in range(wv.shape[0]):
+                out.index_add_(0, idx[c].long(), wv[c])
+            return out if base is None else out - base  # Σw=1
+        kspec = kernel_terminal_ae(spec)
+        if kspec is not None:
+            z, ae_prm = kernel_chain_latents(spec, params, stacked)
+            mean = _fused_chunked_decode_agg(kspec, ae_prm, z, w)
+            return mean if base is None else mean - base
     rows = decode_batched(spec, params, stacked,
                           params_batched=params_batched)
     if base is not None:

@@ -1,6 +1,7 @@
 """Weight-update compressors: the collaborator→aggregator codec API (port of
-``repro.core.compressor`` for Identity, Quantize, FCAE, ChunkedAE and
-Partitioned).
+``repro.core.compressor`` for Identity, Quantize, TopK, FCAE, ChunkedAE,
+Composed, Chain and Partitioned; KMeans and the entropy-priced chain are
+not ported yet).
 
 Each compressor is a thin host-side adapter over ``core/codec.py``: a
 static ``spec(n)`` plus its AE params; the math is ``codec.encode`` /
@@ -120,6 +121,73 @@ class QuantizeCompressor(Compressor):
 
 
 @dataclasses.dataclass
+class TopKCompressor(Compressor):
+    """Keep the top-k magnitudes (DGC-style); ship (values, int32 indices)."""
+
+    fraction: float = 0.01
+
+    def spec(self, n: int) -> codec.TopKSpec:
+        return codec.TopKSpec(size=n, k=max(1, int(n * self.fraction)))
+
+
+@dataclasses.dataclass
+class ChainCompressor(Compressor):
+    """Composable codec stack (DESIGN.md §13): ``inner`` sub-compressors
+    chained left to right, each stage's spec sized from the previous
+    stage's carry length. ``codec_params()`` is a per-stage tuple (None for
+    stateless stages), cached by identity so the server's shared-params
+    ``is`` check keeps grouping chain cohorts."""
+
+    inner: Any                              # Sequence[Compressor]
+
+    def __post_init__(self):
+        self.inner = list(self.inner)
+        if not self.inner:
+            raise ValueError("ChainCompressor needs at least one stage")
+
+    def spec(self, n: int) -> codec.ChainSpec:
+        stages = []
+        size = n
+        for i, comp in enumerate(self.inner):
+            st = comp.spec(size)
+            stages.append(st)
+            if i < len(self.inner) - 1:
+                size = codec.stage_out_size(st)
+                if size is None:
+                    raise ValueError(
+                        f"{type(comp).__name__} is terminal-only and cannot "
+                        f"precede {type(self.inner[i + 1]).__name__}")
+        return codec.ChainSpec(tuple(stages))
+
+    def codec_params(self):
+        ps = tuple(comp.codec_params() for comp in self.inner)
+        if all(p is None for p in ps):
+            return None
+        cached = getattr(self, "_params_cache", None)
+        if (cached is not None and len(cached) == len(ps)
+                and all(a is b for a, b in zip(cached, ps))):
+            return cached
+        self._params_cache = ps
+        return ps
+
+    def ae_compressor(self):
+        for comp in self.inner:
+            sub = comp.ae_compressor()
+            if sub is not None:
+                return sub
+        return None
+
+    def set_codec_params(self, restored) -> None:
+        if restored is None:
+            return
+        if len(restored) != len(self.inner):
+            raise ValueError(f"restored chain params have {len(restored)} "
+                             f"stages, the adapter has {len(self.inner)}")
+        for comp, p in zip(self.inner, restored):
+            comp.set_codec_params(p)
+
+
+@dataclasses.dataclass
 class FCAECompressor(Compressor):
     """Paper-faithful full FC AE: latent = the entire update's encoding."""
 
@@ -157,6 +225,26 @@ class ChunkedAECompressor(Compressor):
 
     def ae_compressor(self):
         return self
+
+
+@dataclasses.dataclass
+class ComposedCompressor(Compressor):
+    """AE latents further quantized — the paper's "orthogonal combination"
+    (§4.2): the ratio multiplies (AE ratio × 32/bits)."""
+
+    inner: Compressor
+    bits: int = 8
+    block: int = 64
+
+    def spec(self, n: int) -> codec.ComposedSpec:
+        return codec.ComposedSpec(inner=self.inner.spec(n), bits=self.bits,
+                                  block=self.block)
+
+    def codec_params(self):
+        return self.inner.codec_params()
+
+    def ae_compressor(self):
+        return self.inner.ae_compressor()
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Federated-learning orchestration with compressed update communication
 (port of ``repro.core.federated``; lifecycle, rate control, SoA client
-state and checkpointing are not ported yet).
+state and checkpointing are not ported yet). ``SyncFedAvg``,
+``SampledSync`` and ``AsyncBuffered`` drive it.
 
 The paper's FL scheme (§1, §3, Fig. 3): a server ships a global model to
 collaborators; each trains locally for E epochs; the weight update (or the
@@ -58,6 +59,8 @@ class RoundRecord:
     bytes_down_raw: float = 0.0
     bytes_decoder: float = 0.0         # decoder-sync share of bytes_down
     participants: Optional[List[int]] = None
+    staleness: Optional[List[int]] = None   # async only, per participant
+    sim_time: float = 0.0              # async only: simulated clock
 
 
 class FederatedRun:

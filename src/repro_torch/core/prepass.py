@@ -1,6 +1,5 @@
 """Pre-pass round (paper §3, Fig. 2) and local training (port of
-``repro.core.prepass``; the vmapped ``local_train_batched`` is not ported
-yet).
+``repro.core.prepass``).
 
 The server ships the global model; each collaborator trains it locally
 without aggregation, logging the flattened weight vector at the end of
@@ -15,8 +14,8 @@ import torch
 
 from repro_torch.configs.paper import AEConfig, ClassifierConfig
 from repro_torch.core import autoencoder as ae
-from repro_torch.core.pytree import leaves, ravel, value_and_grad
-from repro_torch.data.pipeline import batches
+from repro_torch.core.pytree import leaves, ravel, tree_map, value_and_grad
+from repro_torch.data.pipeline import batch_indices, batches
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.classifiers import classifier_loss, init_classifier
 from repro_torch.optim.optimizers import make_optimizer
@@ -64,6 +63,70 @@ def local_train(
         if snapshot_every_epoch:
             snapshots.append(ravel(params)[0])
     return params, snapshots, history
+
+
+def _batched_grad(clf_cfg: ClassifierConfig, prox_mu: float):
+    """Per-client gradients over a homogeneous cohort: ``torch.func.vmap``
+    of ``torch.func.grad`` of the functional loss, the params and the batch
+    batched along a leading client axis, the FedProx anchor shared. No
+    kernel wrapper runs inside (a batched tensor has no ``data_ptr``): the
+    classifier loss is plain tensor ops."""
+
+    def loss_fn(p, batch, anchor):
+        loss, metrics = classifier_loss(p, clf_cfg, batch)
+        if prox_mu > 0.0:
+            sq = sum(torch.sum(torch.square(a - b))
+                     for a, b in zip(leaves(p), leaves(anchor)))
+            loss = loss + 0.5 * prox_mu * sq
+        return loss, metrics
+
+    return torch.func.vmap(torch.func.grad(loss_fn, has_aux=True),
+                           in_dims=(0, 0, None))
+
+
+def local_train_batched(
+    params: Tree,
+    clf_cfg: ClassifierConfig,
+    stacked_data: Dict[str, torch.Tensor],     # leaves shaped (C, n, ...)
+    *,
+    epochs: int,
+    lr: float = 1e-3,
+    batch_size: int = 64,
+    seed: int = 0,
+    optimizer: str = "adam",
+    prox_mu: float = 0.0,
+    anchor: Optional[Tree] = None,
+) -> Tuple[Tree, List[Dict[str, float]]]:
+    """``local_train`` over a homogeneous cohort in one pass a step
+    (DESIGN.md §6.4): all C clients start from ``params`` and train on
+    their own shard of ``stacked_data``, in the batch order of
+    ``batch_indices(seed * 1000 + epoch, ...)`` that the sequential path
+    draws with the same shared ``seed``. Each step is one vmapped gradient
+    (:func:`_batched_grad`) and one Adam update over the stacked tree:
+    Adam is element-wise, so updating the stacked leaves is each client's
+    update. Returns (stacked params with a leading client axis, per-client
+    final metrics)."""
+    C, n = stacked_data["x"].shape[0], stacked_data["x"].shape[1]
+    opt = make_optimizer(optimizer, lr)
+    grad_fn = _batched_grad(clf_cfg,
+                            prox_mu if anchor is not None else 0.0)
+    anchor_arg = anchor if anchor is not None else params
+    stacked = tree_map(
+        lambda x: x.detach()[None].expand((C,) + x.shape).clone(), params)
+    state = opt.init(stacked)
+    dev = stacked_data["x"].device
+    last = None
+    for epoch in range(epochs):
+        for sel in batch_indices(seed * 1000 + epoch, n, batch_size):
+            sel_t = torch.as_tensor(sel, dtype=torch.int64, device=dev)
+            batch = {k: v[:, sel_t] for k, v in stacked_data.items()}
+            grads, last = grad_fn(stacked, batch, anchor_arg)
+            stacked, state = opt.update(stacked, grads, state)
+    if last is None:
+        return stacked, [{} for _ in range(C)]
+    host = {k: v.detach().cpu().tolist() for k, v in last.items()}
+    return stacked, [{k: float(v[ci]) for k, v in host.items()}
+                     for ci in range(C)]
 
 
 @torch.no_grad()

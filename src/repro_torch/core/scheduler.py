@@ -1,6 +1,16 @@
-"""Round schedulers (port of ``repro.core.scheduler``: ``SyncFedAvg`` and the
-server path every scheduler shares; ``SampledSync``, ``AsyncBuffered`` and
-the lifecycle/rate-control hooks are not ported yet). DESIGN.md §6.
+"""Round schedulers (port of ``repro.core.scheduler``, DESIGN.md §6):
+
+* :class:`SyncFedAvg` — every collaborator trains every round;
+* :class:`SampledSync` — a C-of-N cohort a round, trained in one vmapped
+  pass when the cohort's shards have equal shapes;
+* :class:`AsyncBuffered` — FedBuff-style: a simulated-latency event loop
+  (a ``heapq`` or the vectorized ``ArrivalEngine``) delivers updates, the
+  first K are staleness-weighted and aggregated, those clients are
+  re-dispatched with the new model. :class:`LatencyModel` gives each
+  (client, dispatch) its round-trip time.
+
+The AE-lifecycle and rate-control hooks and the schedulers' checkpoint
+state are not ported yet.
 
 Clients ship *encoded payloads*. The server stacks the round's cohort
 along a client axis and runs one ``codec.decode_and_aggregate`` call per
@@ -16,12 +26,15 @@ needs, in :func:`_encode_local`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+import heapq
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.aggregate import apply_update, normalize_weights
+from repro_torch.core.aggregate import (apply_update, normalize_weights,
+                                        staleness_weights)
 from repro_torch.core.compressor import (codec_stats, ef_compensate,
                                          ef_residual, tree_bytes)
 from repro_torch.core.pytree import ravel, stack, tree_map
@@ -32,9 +45,13 @@ Tree = Any
 @dataclasses.dataclass
 class ClientState:
     """Server-side bookkeeping for one collaborator: ``residual`` is its
-    error-feedback state (DESIGN.md §6.3)."""
+    error-feedback state (DESIGN.md §6.3), ``version`` the global-model
+    version it last received, ``dispatched`` the global params shipped at
+    dispatch (async only: the client trains against this snapshot)."""
 
     residual: Optional[Tree] = None
+    version: int = 0
+    dispatched: Optional[Tree] = None
 
 
 @dataclasses.dataclass
@@ -207,3 +224,243 @@ class SyncFedAvg(RoundScheduler):
             [e.stats["compression_ratio"] for e in encoded],
             bytes_down=model_bytes * n, bytes_down_raw=model_bytes * n,
             participants=list(range(n)))
+
+
+@dataclasses.dataclass
+class SampledSync(RoundScheduler):
+    """Partial participation: each round samples ``cohort`` of the N clients
+    without replacement (McMahan et al., 2017), broadcasts the global model
+    to exactly that cohort and FedAvgs their compressed updates. Unsampled
+    clients keep their error-feedback residual.
+
+    With ``use_vmap`` and a homogeneous cohort (equal shard shapes), local
+    training for the cohort is one vmapped pass a step
+    (``task.local_update_batched``, DESIGN.md §6.4); a ragged cohort falls
+    back to the loop. ``vmap_rounds`` and ``loop_rounds`` count which path
+    each round took."""
+
+    cohort: int = 2
+    sample_seed: int = 0
+    use_vmap: bool = True
+    vmap_rounds: int = dataclasses.field(default=0, init=False)
+    loop_rounds: int = dataclasses.field(default=0, init=False)
+
+    def sampled(self, r: int) -> List[int]:
+        n = len(self.run.datasets)
+        c = min(self.cohort, n)
+        rng = np.random.RandomState((self.sample_seed * 100003 + r) % 2 ** 31)
+        return sorted(rng.choice(n, size=c, replace=False).tolist())
+
+    def _cohort_locals(self, cohort: List[int], r: int) -> Optional[list]:
+        run, cfg = self.run, self.run.cfg
+        if not self.use_vmap or len(cohort) < 2:
+            return None
+        return run.task.local_update_batched(
+            run.global_params, [run.datasets[ci] for ci in cohort], cfg,
+            seed=cfg.seed * 997 + r, anchor=run.global_params)
+
+    def run_round(self, r: int):
+        run, cfg = self.run, self.run.cfg
+        cohort = self.sampled(r)
+        model_bytes = float(tree_bytes(run.global_params))
+        batched = self._cohort_locals(cohort, r)
+        if batched is not None:
+            self.vmap_rounds += 1
+        else:
+            self.loop_rounds += 1
+        encoded = []
+        for k, ci in enumerate(cohort):
+            run.clients[ci].version = r
+            if batched is not None:
+                local, m = batched[k]
+                encoded.append(_encode_local(
+                    run, ci, local, run.global_params, run.clients[ci], m))
+            else:
+                encoded.append(_client_round(
+                    run, ci, run.global_params, cfg.seed * 997 + r))
+        run.global_params = _server_aggregate(
+            run, encoded, [e.weight for e in encoded])
+        c = len(cohort)
+        return _finish_record(
+            run, r, [e.metrics for e in encoded],
+            sum(e.stats["compressed_bytes"] for e in encoded),
+            sum(e.stats["original_bytes"] for e in encoded),
+            [e.stats["compression_ratio"] for e in encoded],
+            bytes_down=model_bytes * c, bytes_down_raw=model_bytes * c,
+            participants=cohort)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencyModel:
+    """Deterministic per-(client, dispatch) round-trip latency in abstract
+    simulation units: ``base`` × U[1 − jitter, 1 + jitter], times
+    ``straggler_mult`` for the first ``ceil(straggler_frac · N)`` clients.
+    The uniform draw comes from ``np.random.SeedSequence([seed, client,
+    dispatch])``; ``legacy_hash`` reproduces the older
+    ``RandomState((seed·7919 + client·104729 + dispatch) mod 2^31)``
+    stream, which collides across (client, dispatch) pairs at large N."""
+
+    base: float = 1.0
+    jitter: float = 0.0
+    straggler_frac: float = 0.0
+    straggler_mult: float = 10.0
+    seed: int = 0
+    legacy_hash: bool = False
+
+    def is_straggler(self, client: int, n_clients: int) -> bool:
+        return client < int(np.ceil(self.straggler_frac * n_clients))
+
+    def sample(self, client: int, dispatch: int, n_clients: int) -> float:
+        lat = self.base
+        if self.jitter > 0.0:
+            if self.legacy_hash:
+                rng = np.random.RandomState(
+                    (self.seed * 7919 + client * 104729 + dispatch) % 2 ** 31)
+                u = rng.rand()
+            else:
+                u = np.random.default_rng(np.random.SeedSequence(
+                    [self.seed, client, dispatch])).random()
+            lat *= 1.0 + self.jitter * (2.0 * u - 1.0)
+        if self.is_straggler(client, n_clients):
+            lat *= self.straggler_mult
+        return float(lat)
+
+
+@dataclasses.dataclass
+class AsyncBuffered(RoundScheduler):
+    """FedBuff-style buffered asynchronous aggregation (Nguyen et al., 2022).
+
+    Every client is dispatched at t=0 with the v0 global model. A simulated
+    event loop (arrival time, FIFO tie-break) delivers updates; each
+    ``run_round`` drains the first ``buffer_k`` arrivals, trains each
+    lazily against the snapshot it was dispatched with (seed keyed to its
+    dispatch version), aggregates them in one server call with weights
+    ``w_i · (1 + s_i) ** -staleness_power`` (``s_i`` = global versions
+    elapsed since dispatch), bumps the version and re-dispatches those
+    clients at the start of the next round, so every broadcast byte lands
+    in a record. With ``buffer_k == N`` and a zero-jitter, straggler-free
+    latency model the trajectory equals :class:`SyncFedAvg`.
+
+    ``engine="heap"`` is the host ``heapq`` loop; ``"vector"`` the
+    struct-of-arrays :class:`~repro_torch.core.arrival.ArrivalEngine`,
+    order-exact against it (same ``(time, seq)`` contract, ``float64``
+    times), so the two give bit-identical runs.
+    ``distortion_power`` other than 0 needs rate control, which is not
+    ported yet, and raises."""
+
+    buffer_k: int = 2
+    latency: LatencyModel = dataclasses.field(default_factory=LatencyModel)
+    staleness_power: float = 0.5
+    distortion_power: float = 0.0
+    engine: str = "heap"               # "heap" | "vector"
+
+    def bind(self, run) -> None:
+        if self.engine not in ("heap", "vector"):
+            raise ValueError(f"unknown AsyncBuffered engine {self.engine!r}")
+        if self.distortion_power:
+            raise NotImplementedError(
+                "distortion-weighted staleness needs a rate controller, "
+                "which is not ported yet (ROADMAP Queue A item 9)")
+        super().bind(run)
+        self._reset()
+
+    def state_dict(self) -> dict:
+        raise NotImplementedError(
+            "AsyncBuffered checkpoint state is not ported yet (ROADMAP "
+            "Queue A item 7)")
+
+    def on_restore(self, state: Optional[dict] = None) -> None:
+        raise NotImplementedError(
+            "AsyncBuffered checkpoint state is not ported yet (ROADMAP "
+            "Queue A item 7)")
+
+    def _reset(self) -> None:
+        run = self.run
+        # broadcast size per global version (it changes only when the
+        # global model is replaced, i.e. when the version bumps)
+        self._bcast_cache: Optional[Tuple[int, float]] = None
+        if self.engine == "vector":
+            from repro_torch.core.arrival import ArrivalEngine
+            self._arrivals = ArrivalEngine(len(run.datasets))
+        else:
+            self._heap: List[Tuple[float, int, int]] = []  # (arrival,seq,ci)
+            self._seq = 0                                  # FIFO tie-break
+        self._version = 0
+        self._clock = 0.0
+        self._pending_down = 0.0    # downlink dispatched, not yet recorded
+        self._to_redispatch: List[int] = []
+        for ci in range(len(run.datasets)):
+            self._dispatch(ci)
+
+    def _push(self, ci: int, t: float) -> None:
+        if self.engine == "vector":
+            self._arrivals.push(ci, t)
+        else:
+            heapq.heappush(self._heap, (t, self._seq, ci))
+            self._seq += 1
+
+    def _pop_k(self, k: int) -> List[Tuple[float, int]]:
+        """First-K arrivals as ``(time, ci)`` in pop order. Nothing is
+        pushed mid-drain (re-dispatch is deferred), so the vector engine's
+        one K-selection equals K heap pops."""
+        if self.engine == "vector":
+            return self._arrivals.pop_k(k)
+        out = []
+        for _ in range(k):
+            t, _, ci = heapq.heappop(self._heap)
+            out.append((t, ci))
+        return out
+
+    def _in_flight(self) -> int:
+        return (self._arrivals.in_flight() if self.engine == "vector"
+                else len(self._heap))
+
+    def _broadcast_bytes(self) -> float:
+        if self._bcast_cache is None or self._bcast_cache[0] != self._version:
+            self._bcast_cache = (
+                self._version, float(tree_bytes(self.run.global_params)))
+        return self._bcast_cache[1]
+
+    def _dispatch(self, ci: int) -> None:
+        run = self.run
+        state = run.clients[ci]
+        state.version = self._version
+        state.dispatched = run.global_params
+        self._pending_down += self._broadcast_bytes()
+        lat = self.latency.sample(ci, self._version, len(run.datasets))
+        self._push(ci, self._clock + lat)
+
+    def run_round(self, r: int):
+        run, cfg = self.run, self.run.cfg
+        for ci in self._to_redispatch:     # deferred from the previous flush
+            self._dispatch(ci)
+        self._to_redispatch = []
+        k = min(self.buffer_k, self._in_flight())
+        if k <= 0:
+            raise RuntimeError("async scheduler has no in-flight clients")
+        bytes_down = self._pending_down
+        self._pending_down = 0.0
+
+        encoded, stales, arrived = [], [], []
+        for t, ci in self._pop_k(k):
+            self._clock = max(self._clock, t)
+            state = run.clients[ci]
+            encoded.append(_client_round(
+                run, ci, state.dispatched, cfg.seed * 997 + state.version))
+            stales.append(self._version - state.version)
+            arrived.append(ci)
+
+        weights = staleness_weights([e.weight for e in encoded], stales,
+                                    self.staleness_power)
+        run.global_params = _server_aggregate(run, encoded, weights)
+        self._version += 1
+        for ci in arrived:
+            run.clients[ci].dispatched = None
+        self._to_redispatch = list(arrived)
+        return _finish_record(
+            run, r, [e.metrics for e in encoded],
+            sum(e.stats["compressed_bytes"] for e in encoded),
+            sum(e.stats["original_bytes"] for e in encoded),
+            [e.stats["compression_ratio"] for e in encoded],
+            bytes_down=bytes_down, bytes_down_raw=bytes_down,
+            participants=arrived, staleness=stales, sim_time=self._clock)

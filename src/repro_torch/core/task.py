@@ -1,11 +1,12 @@
 """Client tasks: the model-side half of the federated runtime (port of
-``repro.core.task``: the ``ClientTask`` protocol and ``ClassifierTask``;
-``LMDeltaTask`` is not ported yet). DESIGN.md §14.1 describes the protocol.
+``repro.core.task``: the ``ClientTask`` protocol and ``ClassifierTask``
+with its vmapped cohort path; ``LMDeltaTask`` is not ported yet).
+DESIGN.md §14.1 describes the protocol.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,18 @@ class ClientTask:
         """One client's local round → ``(trained params, final metrics)``;
         ``anchor`` is the round-start global model (FedProx target)."""
         raise NotImplementedError
+
+    def local_update_batched(self, params: Tree,
+                             datasets: List[Dict[str, torch.Tensor]],
+                             cfg, *, seed: int,
+                             anchor: Optional[Tree] = None
+                             ) -> Optional[List[Tuple[Tree,
+                                                      Dict[str, float]]]]:
+        """Cohort fast path: train every client of a homogeneous cohort in
+        one vmapped pass. ``None`` (the default) when the task has no
+        batched path or the cohort is ragged — the scheduler then calls
+        :meth:`local_update` client by client."""
+        return None
 
     def evaluate(self, params: Tree, data: Dict[str, torch.Tensor]
                  ) -> Dict[str, float]:
@@ -68,6 +81,26 @@ class ClassifierTask(ClientTask):
             prox_mu=(cfg.prox_mu if cfg.aggregation == "fedprox" else 0.0),
             anchor=anchor)
         return local, (hist[-1] if hist else {})
+
+    def local_update_batched(self, params, datasets, cfg, *, seed,
+                             anchor=None):
+        from repro_torch.core.prepass import local_train_batched
+        shapes = [{k: tuple(v.shape) for k, v in d.items()}
+                  for d in datasets]
+        if any(s != shapes[0] for s in shapes[1:]):
+            return None
+        stacked_data = {k: torch.stack([d[k] for d in datasets])
+                        for k in datasets[0]}
+        stacked, metrics = local_train_batched(
+            params, self.clf_cfg, stacked_data,
+            epochs=cfg.local_epochs, lr=cfg.lr, batch_size=cfg.batch_size,
+            seed=seed, optimizer=cfg.optimizer,
+            prox_mu=(cfg.prox_mu if cfg.aggregation == "fedprox" else 0.0),
+            anchor=anchor)
+        from repro_torch.core.pytree import tree_map
+        locals_ = [tree_map(lambda x, i=i: x[i], stacked)
+                   for i in range(len(datasets))]
+        return list(zip(locals_, metrics))
 
     def evaluate(self, params, data):
         from repro_torch.core.prepass import evaluate

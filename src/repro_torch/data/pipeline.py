@@ -38,6 +38,12 @@ def mnist_like(seed: int, n: int = 2048) -> Data:
     return synthetic_classification(seed, n, (784,), 10, sep=8.0, noise=0.7)
 
 
+def cifar_like(seed: int, n: int = 2048) -> Data:
+    """CIFAR-shaped (32, 32, 3) HWC images, 10 classes."""
+    return synthetic_classification(seed, n, (32, 32, 3), 10,
+                                    sep=8.0, noise=0.7)
+
+
 def train_eval_split(data: Data, n_eval: int) -> Tuple[Data, Data]:
     """Split one dataset into train/eval; eval shares the generating seed
     (class centers) with train."""

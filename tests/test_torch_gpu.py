@@ -635,3 +635,120 @@ def test_train_loss_gradient_on_card_matches_cpu():
     torch.cuda.synchronize()
     assert (_lib.counts().get("flash_attention", 0)
             == before + cfg.n_layers)
+
+
+# ------------------------------------------------- the scalable runtime
+def _tied_cuda(seed: int, n: int = 15_910) -> torch.Tensor:
+    """Repeated magnitudes: zeros, ± pairs of one value, a block of equal
+    values across the top-k cut."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n) * 0.1).astype(np.float32)
+    x[: n // 10] = 0.0
+    x[n // 4: n // 4 + 400] = 0.25
+    x[n // 2: n // 2 + 400] = -0.25
+    return torch.from_numpy(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,k", [(0, 159), (1, 500), (2, 1200)])
+def test_topk_on_card_equals_cpu_bit_for_bit(seed, k):
+    _card()
+    from repro_torch.core import codec
+    spec = codec.ChainSpec((codec.TopKSpec(15_910, k),
+                            codec.QuantizeSpec(k)))
+    x = _tied_cuda(seed)
+    pg = codec.encode(spec, None, x.cuda())
+    pc = codec.encode(spec, None, x)
+    for st in pg:
+        for key in pg[st]:
+            assert torch.equal(pg[st][key].cpu(), pc[st][key]), (st, key)
+    assert pg["s0"]["indices"].dtype == torch.int32
+    assert torch.equal(codec.decode(spec, None, pg).cpu(),
+                       codec.decode(spec, None, pc))
+
+
+@pytest.mark.gpu
+def test_cifar_cnn_logits_and_gradient_on_card_match_cpu():
+    """Full CIFAR width; the classifier turns TF32 off for its convs itself,
+    so the global cuDNN flag is left on here."""
+    _card()
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core.pytree import ravel, tree_map, value_and_grad
+    from repro_torch.data.pipeline import cifar_like
+    from repro_torch.models.classifiers import (apply_classifier,
+                                                classifier_loss,
+                                                init_classifier)
+    params = init_classifier(torch.Generator().manual_seed(0),
+                             CIFAR_CLASSIFIER, "cpu")
+    pg = tree_map(lambda t: t.cuda(), params)
+    data = cifar_like(0, 64)
+    dg = {k: v.cuda() for k, v in data.items()}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lg = apply_classifier(pg, CIFAR_CLASSIFIER, dg["x"])
+        _, _, gg = value_and_grad(
+            lambda p, b: classifier_loss(p, CIFAR_CLASSIFIER, b), pg, dg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert torch.backends.cudnn.allow_tf32 is False
+    lc = apply_classifier(params, CIFAR_CLASSIFIER, data["x"])
+    _, _, gc_ = value_and_grad(
+        lambda p, b: classifier_loss(p, CIFAR_CLASSIFIER, b), params, data)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), **BAND)
+    np.testing.assert_allclose(ravel(gg)[0].cpu().numpy(),
+                               ravel(gc_)[0].numpy(), **BAND)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 7, 50])
+def test_pop_k_device_on_card_equals_arrival_engine(k):
+    _card()
+    from repro_torch.core import ArrivalEngine, LatencyModel, pop_k_device
+    n = 200
+    lat = LatencyModel(jitter=0.5, straggler_frac=0.1, seed=4)
+    eng = ArrivalEngine(n)
+    for ci in range(n):
+        # every fifth client on one time: equal-time ties across seqs
+        eng.push(ci, 1.0 if ci % 5 == 0 else lat.sample(ci, 0, n))
+    times = torch.from_numpy(eng.times).cuda()
+    seqs = torch.from_numpy(eng.seqs).cuda()
+    t_dev, i_dev = pop_k_device(times, seqs, k)
+    popped = eng.pop_k(k)
+    assert i_dev.cpu().tolist() == [ci for _, ci in popped]
+    assert t_dev.cpu().tolist() == [t for t, _ in popped]
+
+
+@pytest.mark.gpu
+def test_async_engines_bit_identical_on_card():
+    _card()
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import (AsyncBuffered, ChainCompressor,
+                                  FederatedRun, FLConfig, LatencyModel,
+                                  QuantizeCompressor, TopKCompressor)
+    from repro_torch.core.pytree import ravel
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    train, ev = train_eval_split(mnist_like(0, 16 * 128 + 64), 64)
+    shards = uniform_partition(0, train, 16)
+    out = {}
+    for engine in ("heap", "vector"):
+        run = FederatedRun(
+            MNIST_CLASSIFIER, shards,
+            FLConfig(n_rounds=4, local_epochs=2, payload="update",
+                     error_feedback=True),
+            compressors=[ChainCompressor([TopKCompressor(0.01),
+                                          QuantizeCompressor(bits=8)])
+                         for _ in range(16)],
+            eval_data=ev, device="cuda",
+            scheduler=AsyncBuffered(buffer_k=4, engine=engine,
+                                    latency=LatencyModel(
+                                        jitter=0.5, straggler_frac=0.25,
+                                        straggler_mult=8.0)))
+        out[engine] = (run.run(), ravel(run.global_params)[0])
+    (hh, ph), (hv, pv) = out["heap"], out["vector"]
+    for a, b in zip(hh, hv, strict=True):
+        assert (a.participants, a.staleness, a.sim_time, a.bytes_up,
+                a.bytes_down) == (b.participants, b.staleness, b.sim_time,
+                                  b.bytes_up, b.bytes_down)
+        assert a.global_metrics == b.global_metrics
+    assert torch.equal(ph, pv)

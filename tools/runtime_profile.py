@@ -1,0 +1,137 @@
+"""Where a round of the scalable runtime spends its time on the card.
+
+    python3 tools/runtime_profile.py [--out build/runtime_profile.json]
+
+Builds run (i) (``SampledSync`` over the CIFAR CNN, 100 of 1,000 clients,
+the composed chunked AE) and run (j) (``AsyncBuffered`` over the MNIST MLP
+at ``PAPER_SCALE_SCENARIO``, TopK 1 % → q8) as ``chip_smoke.py`` does,
+plays one warm-up round of each, and then, for one more round:
+
+* splits (i)'s round into its phases on the host clock, each ended by a
+  synchronize — the vmapped local training, the 100 client encodes with
+  their EF decodes, the server's ``_server_aggregate`` and the global
+  evaluation — calling the functions ``SampledSync.run_round`` calls, in
+  its order;
+* traces the whole round of (i) and of (j) with ``torch.profiler``: the
+  round's wall time, the card's busy time (the union of its kernels'
+  intervals) and idle share, and the ten kernels with the most device
+  time.
+
+Needs a card; prints one JSON object and writes it to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _phases_sampled(run, r: int) -> dict:
+    """One ``SampledSync`` round, phase by phase (the body of
+    ``SampledSync.run_round``)."""
+    from repro_torch.core.scheduler import _encode_local, _server_aggregate
+    sched = run.scheduler
+    out = {}
+    _sync()
+    t0 = time.perf_counter()
+    cohort = sched.sampled(r)
+    batched = sched._cohort_locals(cohort, r)
+    _sync()
+    out["local_train_vmapped_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoded = [_encode_local(run, ci, local, run.global_params,
+                             run.clients[ci], m)
+               for ci, (local, m) in zip(cohort, batched)]
+    _sync()
+    out["encode_and_ef_decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run.global_params = _server_aggregate(run, encoded,
+                                          [e.weight for e in encoded])
+    _sync()
+    out["server_aggregate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run.task.evaluate(run.global_params, run.eval_data)
+    _sync()
+    out["evaluate_s"] = time.perf_counter() - t0
+    return out
+
+
+def _busy_ms(events) -> float:
+    """Union of the device kernels' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3                         # profiler times are in us
+
+
+def _traced_round(run, r: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.history.append(run.scheduler.run_round(r))
+        _sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms(kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_s": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "device_kernels": len(kernels),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/runtime_profile.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("runtime_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"device": torch.cuda.get_device_name(0)}
+    run_i = chip_smoke.run_sampled_cnn("cuda", rounds=1)[0]   # warm-up
+    result["sampled_cnn_phases"] = _phases_sampled(run_i, 1)
+    result["sampled_cnn_round"] = _traced_round(run_i, 2)
+    del run_i
+    run_j = chip_smoke.run_async_mlp("cuda", rounds=1)[0]     # warm-up
+    result["async_mlp_round"] = _traced_round(run_j, 1)
+    text = json.dumps(result)
+    print(text)
+    out = ROOT / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
