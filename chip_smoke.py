@@ -22,7 +22,8 @@ Phases, each reported on its own lines:
    beside ``scaled_dot_product_attention`` as the library call), at a
    window and a full, kv-padded shape, and in float32 at head dim 64.
    The chunked AE's four layers at 4096 chunks a client and run (h)'s
-   server hidden layer run in float32. Kernels 3 to 6 have routes, named
+   server hidden layer run in float32, and so do the client and server
+   shapes of runs (i), (j) and (k). Kernels 3 to 6 have routes, named
    in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
    32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
@@ -86,8 +87,41 @@ Phases, each reported on its own lines:
    exact, parameters in the golden band); the scatter route called twice
    on the card (``torch.equal``) and beside one ``index_add_`` over the
    whole cohort. The kernels record carries the runs' counts as
-   ``launches_run_i`` and ``launches_run_j``.
+   ``launches_run_i`` and ``launches_run_j``. Run (j) then crosses a
+   checkpoint: saved after round 1 with one engine, restored into the
+   other, round 2 must be ``torch.equal`` to the uninterrupted run, its
+   downlink bytes equal;
+8. lifecycle and resume — (k) ``SyncFedAvg`` over the CIFAR CNN at full
+   width, 8 clients of 64 images, run (i)'s composed kernel-path chunked
+   AE on one shared params object, ``AELifecycle(refresh_every=2,
+   drift_ratio=1.5, buffer_size=4, min_snapshots=2, refresh_epochs=5)``,
+   6 rounds: round 0 ships the 8 initial decoders, the cadence refits at
+   rounds 2 and 4 in one ``train_autoencoder_cohort`` dispatch each; the
+   server reduces on kernel 4 until the first refit takes effect, then
+   decodes client by client (each client has its own decoder). Per round
+   its host time, launches, routes, syncs and refits; the refit's time on
+   its own; ``savings.reconcile`` against the records. The run is played
+   twice (``torch.equal``: the card's run-to-run determinism, cuDNN's
+   deterministic algorithms on), then saved after round 3, loaded into a
+   fresh run and played on: parameters, residuals, codec params, snapshot
+   rings and records equal the uninterrupted run's. A reduced copy (2
+   clients, 3 rounds, a refit at round 1) on the card and the CPU in the
+   golden band. The kernels record carries the counts as
+   ``launches_run_k``;
+9. the paper's §5.2 federation — (l) ``color_imbalance_split(0, 256)``
+   (collaborator 1 grayscale), each collaborator's pre-pass (5 epochs,
+   then a 6-epoch fit of the paper's CIFAR FC AE at full width, 550,586 →
+   320, 352.9 M parameters) and its own ``FCAECompressor``, payload
+   "weights", ``AELifecycle(refresh_every=2, drift_ratio=2.0,
+   buffer_size=4, min_snapshots=2, refresh_epochs=6)``, 4 rounds; uplink,
+   decoder-ship bytes and ``savings.reconcile`` printed; played twice,
+   then saved after round 1 and resumed, held as (k);
+10. k-means and entropy — ``KMeansSpec(550,586, k=16, iters=8)`` on the
+   card against the CPU (codebook in the golden band, codes equal away
+   from midpoints, a second card call ``torch.equal``), and the measured
+   bytes of an entropy-coded TopK → k-means chain equal on both.
 
+Checkpoints go to ``build/chip_smoke/`` and are deleted after loading.
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. Imports nothing of JAX or ``repro``.
@@ -810,14 +844,22 @@ def run_sampled_cnn(device: str, n_clients: int = 1000, cohort: int = 100,
 
 def run_async_mlp(device: str, scenario=None, engine: str = "heap",
                   rounds: int = 3):
-    """Run (j): ``AsyncBuffered`` over the MNIST MLP at full width (15,910
-    parameters) at ``scenario`` (``PAPER_SCALE_SCENARIO`` by default: 1,000
-    clients, K 50, ``LatencyModel(1.0, 0.5, straggler_frac=0.1,
-    straggler_mult=8.0)``), 128 examples a client and 2 local epochs (four
-    Adam steps: after one, every moved parameter has moved by lr to within
-    rounding, and top-k would rank the rounding), update payload with error
-    feedback through ``ChainCompressor((TopK 1 %, q8))``, the scatter
-    route. Returns (run, records, host seconds per round)."""
+    """Run (j): :func:`build_async_mlp`, played ``rounds`` rounds. Returns
+    (run, records, host seconds per round)."""
+    run = build_async_mlp(device, scenario, engine, rounds)
+    return (run,) + _timed_rounds(run, rounds, device)
+
+
+def build_async_mlp(device: str, scenario=None, engine: str = "heap",
+                    rounds: int = 3):
+    """Run (j)'s ``FederatedRun``: ``AsyncBuffered`` over the MNIST MLP at
+    full width (15,910 parameters) at ``scenario``
+    (``PAPER_SCALE_SCENARIO`` by default: 1,000 clients, K 50,
+    ``LatencyModel(1.0, 0.5, straggler_frac=0.1, straggler_mult=8.0)``),
+    128 examples a client and 2 local epochs (four Adam steps: after one,
+    every moved parameter has moved by lr to within rounding, and top-k
+    would rank the rounding), update payload with error feedback through
+    ``ChainCompressor((TopK 1 %, q8))``, the scatter route."""
     from repro_torch.configs.paper import MNIST_CLASSIFIER
     from repro_torch.configs.paper import PAPER_SCALE_SCENARIO
     from repro_torch.core import (AsyncBuffered, ChainCompressor,
@@ -842,7 +884,7 @@ def run_async_mlp(device: str, scenario=None, engine: str = "heap",
                                  jitter=sc.latency_jitter,
                                  straggler_frac=sc.straggler_frac,
                                  straggler_mult=sc.straggler_mult)))
-    return (run,) + _timed_rounds(run, rounds, device)
+    return run
 
 
 def _timed_rounds(run, rounds: int, device: str):
@@ -934,6 +976,267 @@ def check_cuda_vs_cpu(tag: str, run_gpu, hist_gpu, run_cpu, hist_cpu,
         return close(pg, pc, atol, rtol)
     except AssertionError as e:
         raise AssertionError(f"{tag}: global params: {e}") from None
+
+
+# ------------------------------------------------- lifecycle and resume
+CKPT_DIR = ROOT / "build" / "chip_smoke"
+# run (k)'s lifecycle; refresh_epochs cut from the default 40
+LIFECYCLE_K = dict(refresh_every=2, drift_ratio=1.5, buffer_size=4,
+                   min_snapshots=2, refresh_epochs=5)
+# run (k)'s reduced copy for card vs CPU: 2 clients, 3 rounds, a refit at
+# round 1 that round 2 decodes with
+LIFECYCLE_K_REDUCED = dict(refresh_every=1, drift_ratio=1.5, buffer_size=4,
+                           min_snapshots=1, refresh_epochs=2)
+LIFECYCLE_L = dict(refresh_every=2, drift_ratio=2.0, buffer_size=4,
+                   min_snapshots=2, refresh_epochs=6)
+
+
+class CohortSpy:
+    """Counts ``train_autoencoder_cohort`` dispatches (the lifecycle's
+    refits call it, a group of one through ``train_autoencoder``): per call
+    the cohort size C, the dataset shape, the seconds it took (ended by a
+    synchronize) and, on the card, the peak of allocated device memory
+    during the call. A context manager that puts the function back."""
+
+    def __enter__(self):
+        from repro_torch.core import autoencoder as ae
+        self.mod, self.real, self.calls = ae, ae.train_autoencoder_cohort, []
+
+        def spy(gens, cfg, datasets, **kw):
+            import torch
+            if datasets.is_cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = self.real(gens, cfg, datasets, **kw)
+            call = dict(C=int(datasets.shape[0]), shape=list(datasets.shape))
+            if datasets.is_cuda:
+                torch.cuda.synchronize()
+                call["peak_bytes"] = torch.cuda.max_memory_allocated()
+            call["s"] = time.perf_counter() - t0
+            self.calls.append(call)
+            return out
+        ae.train_autoencoder_cohort = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.train_autoencoder_cohort = self.real
+
+
+def play(run, rounds: int, device: str, spy=None):
+    """Play ``rounds`` rounds of ``run`` from where it stands (its round
+    offset after a restore), one at a time: per round its host seconds
+    (ended by a synchronize), the kernel launches and ``fused_dense``
+    routes it added, and the cohort-fit dispatches it made."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import fused_dense as fd_mod
+    out = []
+    start = run.round_offset + len(run.history)
+    for r in range(start, start + rounds):
+        c0, q0 = _lib.counts(), dict(fd_mod.ROUTE_LAUNCHES)
+        n0 = len(spy.calls) if spy is not None else 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.history.append(run.scheduler.run_round(r))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        c1, q1 = _lib.counts(), dict(fd_mod.ROUTE_LAUNCHES)
+        out.append(dict(
+            round=r, s=time.perf_counter() - t0,
+            launches={k: v - c0.get(k, 0) for k, v in c1.items()
+                      if v - c0.get(k, 0)},
+            routes={k: v - q0.get(k, 0) for k, v in q1.items()
+                    if v - q0.get(k, 0)},
+            refits=(spy.calls[n0:] if spy is not None else [])))
+    return out
+
+
+def build_lifecycle_cnn(device: str, n_clients: int = 8, rounds: int = 6,
+                        lifecycle=None):
+    """Run (k): ``SyncFedAvg`` over the paper's CIFAR CNN at full width
+    (550,586 parameters), ``n_clients`` shards of 64 ``cifar_like`` images,
+    1 local epoch, update payload with error feedback, each client the
+    composed kernel-path chunked AE of run (i)
+    (``ComposedCompressor(ChunkedAECompressor(ChunkedAEConfig(),
+    use_kernel=True), bits=8)``: 135 chunks of 4,096 → 1,080 latents → q8
+    at block 64, 1,156 B), all clients on one params object drawn from a
+    seed (normalizer std 1e-3), and an ``AELifecycle`` (``LIFECYCLE_K`` by
+    default). The AE is drawn on the CPU and moved, so every build starts
+    from the same values."""
+    import torch
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import (AELifecycle, ChunkedAECompressor,
+                                  ChunkedAEConfig, ComposedCompressor,
+                                  FederatedRun, FLConfig, init_chunked_ae)
+    from repro_torch.data.pipeline import (cifar_like, train_eval_split,
+                                           uniform_partition)
+    cfg = ChunkedAEConfig()
+    ae = init_chunked_ae(torch.Generator().manual_seed(2), cfg, device)
+    ae["norm"] = {"mean": torch.zeros((), device=device),
+                  "std": torch.full((), 1e-3, device=device)}
+    train, ev = train_eval_split(cifar_like(0, n_clients * 64 + 256), 256)
+    return FederatedRun(
+        CIFAR_CLASSIFIER, uniform_partition(0, train, n_clients),
+        FLConfig(n_rounds=rounds, local_epochs=1, payload="update",
+                 error_feedback=True, seed=0),
+        compressors=[ComposedCompressor(
+            ChunkedAECompressor(ae, cfg, use_kernel=True), bits=8)
+            for _ in range(n_clients)],
+        eval_data=ev, device=device,
+        lifecycle=AELifecycle(**(LIFECYCLE_K if lifecycle is None
+                                 else lifecycle)))
+
+
+def prepass_color_imbalance(device: str):
+    """Run (l)'s pre-pass (``examples/fl_color_imbalance.py:93-101``):
+    ``color_imbalance_split(0, 256)``, then for each collaborator
+    ``run_prepass`` with the CIFAR CNN and the paper's CIFAR FC AE
+    (``cifar_ae_for(550,586)``: 550,586 → 320, no hidden layer), 5
+    pre-pass epochs and a 6-epoch AE fit. Returns (datasets, eval data, AE
+    config, AE params a collaborator, AE loss histories)."""
+    import torch
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER, cifar_ae_for
+    from repro_torch.core import run_prepass
+    from repro_torch.data.pipeline import color_imbalance_split
+    datasets, ev = color_imbalance_split(0, 256)
+    ae_cfg = cifar_ae_for(CIFAR_PARAMS)
+    aes, hists = [], []
+    for ci, d in enumerate(datasets):
+        out = run_prepass(torch.Generator().manual_seed(10 + ci),
+                          CIFAR_CLASSIFIER, ae_cfg, d, prepass_epochs=5,
+                          ae_epochs=6, device=device)
+        aes.append(out["ae_params"])
+        hists.append(out["ae_history"]["loss"])
+        del out
+    return datasets, ev, ae_cfg, aes, hists
+
+
+def build_color_imbalance(prepass, device: str, rounds: int):
+    """Run (l): the paper's §5.2 two-collaborator federation (collaborator
+    0 colour, 1 grayscale), the CIFAR CNN, payload "weights" (the
+    converged weights cross the wire), each collaborator its own
+    ``FCAECompressor`` from its pre-pass, ``AELifecycle(**LIFECYCLE_L)``."""
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import (AELifecycle, FCAECompressor, FederatedRun,
+                                  FLConfig)
+    datasets, ev, ae_cfg, aes, _ = prepass
+    return FederatedRun(
+        CIFAR_CLASSIFIER, datasets,
+        FLConfig(n_rounds=rounds, local_epochs=1, payload="weights", seed=0),
+        compressors=[FCAECompressor(p, ae_cfg) for p in aes],
+        eval_data=ev, device=device, lifecycle=AELifecycle(**LIFECYCLE_L))
+
+
+RECORD_BYTES = ("bytes_up", "bytes_up_raw", "bytes_up_measured",
+                "bytes_down", "bytes_down_raw", "bytes_decoder", "ae_syncs",
+                "participants", "staleness", "sim_time")
+
+
+def tensors_of(run) -> dict:
+    """Everything a resume must reproduce, by name: global params, and per
+    client its residual, dispatch snapshot, snapshot rings and codec
+    params."""
+    from repro_torch.core.pytree import leaves
+    out = {"global": leaves(run.global_params)}
+    for ci, (st, comp) in enumerate(zip(run.clients, run.compressors)):
+        out[f"client {ci}"] = leaves([st.residual, st.dispatched,
+                                      st.snapshots, st.part_snapshots])
+        out[f"codec {ci}"] = leaves(comp.codec_params())
+    return out
+
+
+def check_resume(tag: str, full, resumed, n_first: int) -> None:
+    """A resumed run against the uninterrupted one: every tensor of
+    :func:`tensors_of` ``torch.equal``; the lifecycle scalars and every
+    record after the save point equal, bytes included."""
+    import torch
+    a, b = tensors_of(full), tensors_of(resumed)
+    require(a.keys() == b.keys(), f"{tag}: state layouts differ")
+    for k in a:
+        require(len(a[k]) == len(b[k])
+                and all(torch.equal(x, y) for x, y in zip(a[k], b[k])),
+                f"{tag}: {k} differs from the uninterrupted run")
+    for sa, sb in zip(full.clients, resumed.clients, strict=True):
+        require((sa.version, sa.last_refresh, sa.ae_baseline,
+                 sa.part_last_refresh, sa.part_baseline)
+                == (sb.version, sb.last_refresh, sb.ae_baseline,
+                    sb.part_last_refresh, sb.part_baseline),
+                f"{tag}: lifecycle scalars differ")
+    for x, y in zip(full.history[n_first:], resumed.history, strict=True):
+        require(x.round == y.round, f"{tag}: rounds differ")
+        for k in RECORD_BYTES:
+            require(getattr(x, k) == getattr(y, k),
+                    f"{tag}: round {x.round} {k} differ")
+        require(x.global_metrics == y.global_metrics,
+                f"{tag}: round {x.round} metrics differ")
+
+
+def resume_via_checkpoint(tag: str, build, n_first: int, n_rest: int,
+                          device: str):
+    """Play ``n_first`` rounds of ``build(n_first)``, ``save_state``, load
+    into a fresh ``build(n_rest)`` and play the rest. Returns (resumed run,
+    its per-round plays, checkpoint bytes, save and load seconds)."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / f"{tag}.npz"
+    first = build(n_first)
+    play(first, n_first, device)
+    t0 = time.perf_counter()
+    first.save_state(str(path))
+    save_s = time.perf_counter() - t0
+    del first
+    resumed = build(n_rest)
+    t0 = time.perf_counter()
+    require(resumed.load_state(str(path)) == n_first,
+            f"{tag}: restored round")
+    load_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    path.unlink()
+    return resumed, play(resumed, n_rest, device), nbytes, save_s, load_s
+
+
+def check_kmeans() -> dict:
+    """``KMeansSpec(550,586, k=16, iters=8)`` on the card against the CPU
+    on one vector (a CIFAR-CNN-sized update, drawn from a seed): the
+    codebook within the golden band, codes equal wherever a value is not
+    within the codebooks' difference of a midpoint between neighbouring
+    centroids, a second card call ``torch.equal``; and
+    ``measured_bytes`` of a ``ChainCompressor([TopK 1 %, KMeans],
+    entropy_coded=True)`` payload equal on the card and the CPU."""
+    import torch
+    from repro_torch.core import (ChainCompressor, KMeansCompressor,
+                                  TopKCompressor, codec)
+    spec = codec.KMeansSpec(CIFAR_PARAMS, k=16, iters=8)
+    x = torch.randn((CIFAR_PARAMS,), generator=torch.Generator()
+                    .manual_seed(40)) * 1e-3
+    xc = x.cuda()
+    cpu = codec.encode(spec, None, x)
+    card = [codec.encode(spec, None, xc) for _ in range(2)]
+    require(torch.equal(card[0]["codes"], card[1]["codes"])
+            and torch.equal(card[0]["codebook"], card[1]["codebook"]),
+            "k-means: two card calls differ")
+    cb_err = close(card[0]["codebook"].cpu(), cpu["codebook"], **GOLDEN_BAND)
+    cb = torch.sort(cpu["codebook"])[0]
+    mids = (cb[1:] + cb[:-1]) / 2
+    near = ((x[:, None] - mids[None, :]).abs()
+            <= 2 * cb_err + 1e-9).any(dim=1)
+    differ = card[0]["codes"].cpu() != cpu["codes"]
+    require(not bool((differ & ~near).any()),
+            "k-means: codes differ away from a midpoint")
+    ms = host_ms(lambda: codec.encode(spec, None, xc), 10)
+    chain = ChainCompressor([TopKCompressor(0.01), KMeansCompressor()],
+                            entropy_coded=True)
+    cspec = chain.spec(CIFAR_PARAMS)
+    mb = [codec.measured_bytes(cspec, codec.encode(cspec, None, v))
+          for v in (xc, x)]
+    require(mb[0] == mb[1], f"measured bytes card {mb[0]} cpu {mb[1]}")
+    return {"codebook_max_abs_err": cb_err,
+            "codes_near_midpoint": int(near.sum()),
+            "codes_differing": int(differ.sum()),
+            "second_call_bit_equal": True, "encode_host_ms": ms,
+            "chain_measured_bytes": mb[0],
+            "chain_wire_bytes": codec.wire_bytes(cspec)}
 
 
 def main() -> int:
@@ -1046,6 +1349,13 @@ def main() -> int:
                   check_decode_agg(100, 135, 512, 4096, 33, 20)]
                + list(check_quantize(1, 8, 34, 50).values())
                + list(check_quantize(50, 8, 35, 50).values()))
+    # run (k)'s server (8 clients, until the first refit): the latents'
+    # dequantize (8 x 17 rows), the hidden layer over 8 x 135 chunks and
+    # the kernel-4 reduce; its clients' layers are run (i)'s above
+    runtime += (list(check_quantize(136, 8, 36, 50, block=64).values())
+                + [check_fused_dense(1080, 8, 512, "relu", torch.float32,
+                                     37, 50),
+                   check_decode_agg(8, 135, 512, 4096, 38, 20)])
     for r in (fd[1:] + grouped + cohort + client
               + [slice_rows["flash_attention"]] + flash + runtime):
         log("kernel " + json.dumps(r))
@@ -1285,8 +1595,237 @@ def main() -> int:
             "arrival traces exact, loss/accuracy/params within atol=2e-5 "
             f"rtol=2e-4 (params max abs err {err!r})")
     log("runtime scatter route: " + json.dumps(check_scatter_route()))
+    # run (j) across a checkpoint: save after round 1 with one engine,
+    # restore into the other, play round 2; it must equal the first
+    # uninterrupted run (heap) bit for bit, downlink bytes included
+    for saver, loader in (("heap", "vector"), ("vector", "heap")):
+        path = CKPT_DIR / f"run_j_{saver}.npz"
+        CKPT_DIR.mkdir(parents=True, exist_ok=True)
+        first = build_async_mlp("cuda", engine=saver, rounds=2)
+        _timed_rounds(first, 2, "cuda")
+        first.save_state(str(path))
+        del first
+        resumed = build_async_mlp("cuda", engine=loader, rounds=1)
+        require(resumed.load_state(str(path)) == 2, "run (j) restore")
+        path.unlink()
+        resumed.run()
+        require(torch.equal(ravel(resumed.global_params)[0], params_jh),
+                f"run (j) {saver} -> {loader}: parameters differ")
+        x, y = hist_jh[2], resumed.history[0]
+        for k in RECORD_BYTES:
+            require(getattr(x, k) == getattr(y, k),
+                    f"run (j) {saver} -> {loader}: {k} differ")
+        log(f"runtime (j) saved after round 1 ({saver} engine), restored "
+            f"into the {loader} engine: round 2 torch.equal to the "
+            f"uninterrupted run, bytes_down {y.bytes_down!r} equal")
+        del resumed
 
-    # ---------------------------------------------------------- 8. report
+    # ---------------------------------------- 8. lifecycle and resume (k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # cuDNN's conv weight gradient may add with atomics; a resume is held
+    # to torch.equal, so runs (k) and (l) take its deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    _lib.reset_launches()
+    fd_mod.ROUTE_LAUNCHES.clear()
+    with CohortSpy() as spy:
+        run_k = build_lifecycle_cnn("cuda")
+        plays_k = play(run_k, 6, "cuda", spy)
+    torch.cuda.synchronize()
+    counts_k = _lib.counts()
+    routes_k = dict(fd_mod.ROUTE_LAUNCHES)
+    hist_k = run_k.history
+    from repro_torch.core import (ChunkedAEConfig, SavingsModel,
+                                  ae_param_count, train_autoencoder_cohort)
+    from repro_torch.core.autoencoder import decoder_sync_bytes
+    from repro_torch.core.pytree import stack as stack_trees, tree_map
+    # decoder ships and AE sizes depend on shapes alone
+    ae_k = run_k.compressors[0].codec_params()
+    ship_k = decoder_sync_bytes(ae_k)
+    for k in ("quantize_blocks_2d", "dequantize_blocks_2d", "fused_dense",
+              "fused_decode_agg"):
+        require(counts_k.get(k, 0) > 0, f"run (k) never launched {k}")
+        launches[k + "_run_k"] = counts_k[k]
+    require(hist_k[0].ae_syncs == list(range(8))
+            and hist_k[0].bytes_decoder == 8 * ship_k,
+            "run (k): round 0 must ship the 8 initial decoders")
+    refit_rounds = [p["round"] for p in plays_k if p["refits"]]
+    require(2 in refit_rounds and hist_k[2].ae_syncs == list(range(8)),
+            "run (k): the cadence must refit all 8 clients at round 2")
+    for p, rec in zip(plays_k, hist_k):
+        n_refit = len(rec.ae_syncs) if rec.round else 0
+        require(len(p["refits"]) == (1 if n_refit else 0)
+                and all(c["C"] == n_refit for c in p["refits"]),
+                f"run (k) round {rec.round}: refits {p['refits']} for "
+                f"{n_refit} clients, not one cohort dispatch")
+        require(rec.bytes_up == 8 * 1156.0
+                and rec.bytes_up_measured == rec.bytes_up
+                and rec.bytes_down == 8 * CIFAR_PARAMS * 4
+                + len(rec.ae_syncs) * ship_k
+                and math.isfinite(rec.global_metrics["loss"]),
+                f"run (k) round {rec.round} bytes")
+        # one decoder for all until the first refit takes effect; then
+        # each client decodes with its own (the per-client route)
+        k4 = p["launches"].get("fused_decode_agg", 0)
+        require(k4 == (1 if rec.round <= refit_rounds[0] else 0),
+                f"run (k) round {rec.round}: kernel 4 launched {k4} times")
+    ae_size = ae_param_count(ae_k)
+    rec_k = run_k.savings_report(SavingsModel(
+        original_size=CIFAR_PARAMS, compressed_size=1156 // 4,
+        autoencoder_size=ae_size))
+    require(rec_k["observed_decoder_bytes"]
+            == sum(r.bytes_decoder for r in hist_k)
+            and rec_k["decoder_syncs"] == sum(len(r.ae_syncs)
+                                              for r in hist_k)
+            and rec_k["decoder_rel_err"] < 0.01,
+            f"run (k) reconcile {rec_k}")
+    log(f"lifecycle (k) SyncFedAvg CIFAR CNN ({CIFAR_PARAMS} params), 8 "
+        f"clients, composed chunked AE q8, AELifecycle({LIFECYCLE_K}): "
+        f"launches {counts_k}, fused_dense by route {routes_k}")
+    for p, rec in zip(plays_k, hist_k):
+        log(f"lifecycle (k) r{rec.round}: {p['s']!r} s (host clock), "
+            f"launches {p['launches']}, fused_dense by route {p['routes']}, "
+            f"ae_syncs {rec.ae_syncs}, bytes_decoder {rec.bytes_decoder!r}, "
+            f"refits {p['refits']}, loss {rec.global_metrics['loss']!r}")
+    log("lifecycle (k) savings.reconcile " + json.dumps(rec_k))
+    # run-to-run: the uninterrupted run again must be torch.equal, so a
+    # difference after a resume is the resume's
+    run_k2 = build_lifecycle_cnn("cuda")
+    play(run_k2, 6, "cuda")
+    check_resume("run (k) rerun", run_k, run_k2, 0)
+    del run_k2
+    with CohortSpy() as spy_r:
+        res_k, plays_kr, nbytes_k, save_k, load_k = resume_via_checkpoint(
+            "run_k", lambda n: build_lifecycle_cnn("cuda", rounds=n), 4, 2,
+            "cuda")
+    check_resume("run (k) resume", run_k, res_k, 4)
+    require([c["C"] for c in spy_r.calls]
+            == [len(r.ae_syncs) for r in run_k.history
+                if r.round and r.ae_syncs],
+            "run (k) resume: refits differ")
+    log(f"lifecycle (k) saved after round 3 ({nbytes_k} B, {save_k!r} s), "
+        f"loaded into a fresh run ({load_k!r} s), rounds 4-5 "
+        f"({[p['s'] for p in plays_kr]!r} s): params, residuals, codec "
+        "params, snapshot rings and records torch.equal / equal to the "
+        "uninterrupted run (which a rerun reproduced bit for bit)")
+    del res_k, run_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs_kr = {dev: build_lifecycle_cnn(dev, 2, 3, LIFECYCLE_K_REDUCED)
+               for dev in ("cuda", "cpu")}
+    hists_kr = {dev: r.run() for dev, r in runs_kr.items()}
+    for g, c in zip(hists_kr["cuda"], hists_kr["cpu"], strict=True):
+        require(g.ae_syncs == c.ae_syncs and g.bytes_decoder
+                == c.bytes_decoder, "run (k) reduced: syncs differ")
+    err_kr = check_cuda_vs_cpu("run (k) reduced", runs_kr["cuda"],
+                               hists_kr["cuda"], runs_kr["cpu"],
+                               hists_kr["cpu"])
+    # the refit on identical inputs: the CPU copy's refit rows and AE
+    # params, fitted as its next refit would be, on the card and the CPU
+    lc_kr, run_kc = runs_kr["cpu"].lifecycle, runs_kr["cpu"]
+    rows = torch.stack([lc_kr._refit_dataset(run_kc, ci)[1]
+                        for ci in range(2)])
+    init = stack_trees([c.codec_params() for c in run_kc.compressors])
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        fits[dev] = train_autoencoder_cohort(
+            [lc_kr._rng(3, ci) for ci in range(2)],
+            ChunkedAEConfig().as_fc(), rows.to(dev),
+            init=tree_map(lambda t, d=dev: t.to(d), init),
+            epochs=LIFECYCLE_K_REDUCED["refresh_epochs"],
+            refit_normalizer=False)[0]
+    err_fit = max(close(a.cpu(), b, **GOLDEN_BAND) for a, b in zip(
+        leaves(fits["cuda"]), leaves(fits["cpu"])))
+    # what the two runs' clients hold: their snapshot rings and refit AEs
+    # follow each client's own error feedback, where a latent's q8 code
+    # may round differently on the two sides (reported, not held)
+    run_kg = runs_kr["cuda"]
+    err_snap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        leaves([c.snapshots for c in run_kg.clients]),
+        leaves([c.snapshots for c in run_kc.clients])))
+    err_ae = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        leaves([c.codec_params() for c in run_kg.compressors]),
+        leaves([c.codec_params() for c in run_kc.compressors])))
+    log(f"lifecycle (k) reduced (2 clients, 3 rounds, "
+        f"AELifecycle({LIFECYCLE_K_REDUCED})) cuda == cpu: syncs and bytes "
+        f"exact, loss/accuracy/params within atol=2e-5 rtol=2e-4 (params "
+        f"max abs err {err_kr!r}); a refit on identical rows and warm start "
+        f"within atol=2e-5 rtol=2e-4 (max abs err {err_fit!r}); the runs' "
+        f"snapshot rings differ by up to {err_snap!r}, their refit AE "
+        f"params by up to {err_ae!r}; ae_syncs "
+        f"{[r.ae_syncs for r in hists_kr['cuda']]}")
+    del runs_kr, hists_kr, fits
+
+    # ------------------------------- 9. the paper's §5.2 federation (l)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre_l = prepass_color_imbalance("cuda")
+    torch.cuda.synchronize()
+    prepass_s = time.perf_counter() - t0
+    ae_cfg_l, aes_l = pre_l[2], pre_l[3]
+    n_ae_l = ae_param_count(aes_l[0])
+    ship_l = decoder_sync_bytes(aes_l[0])
+    for h in pre_l[4]:
+        require(h[-1] < h[0], "run (l): the pre-pass AE fit did not descend")
+    with CohortSpy() as spy_l:
+        run_l = build_color_imbalance(pre_l, "cuda", 4)
+        plays_l = play(run_l, 4, "cuda", spy_l)
+    hist_l = run_l.history
+    require(run_l.clients[0].last_refresh >= 0 and hist_l[0].ae_syncs
+            == [0, 1] and hist_l[0].bytes_decoder == 2 * ship_l,
+            "run (l): round 0 must ship both decoders")
+    require(hist_l[2].ae_syncs == [0, 1] and len(spy_l.calls) >= 1
+            and any(c["C"] == 2 for c in spy_l.calls),
+            "run (l): the cadence must refit both in one cohort dispatch")
+    for p, rec in zip(plays_l, hist_l):
+        require(len(p["refits"]) <= 1, f"run (l) round {rec.round} refits")
+        require(rec.bytes_up == 2 * 320 * 4
+                and rec.bytes_up_raw == 2 * CIFAR_PARAMS * 4
+                and rec.bytes_down == 2 * CIFAR_PARAMS * 4
+                + len(rec.ae_syncs) * ship_l
+                and math.isfinite(rec.global_metrics["loss"]),
+                f"run (l) round {rec.round} bytes")
+    rec_l = run_l.savings_report(SavingsModel(
+        original_size=CIFAR_PARAMS, compressed_size=320,
+        autoencoder_size=n_ae_l))
+    require(rec_l["observed_decoder_bytes"]
+            == sum(r.bytes_decoder for r in hist_l)
+            and rec_l["decoder_rel_err"] < 0.01, f"run (l) reconcile {rec_l}")
+    log(f"paper (l) §5.2 colour imbalance, CIFAR CNN, FC AE "
+        f"{ae_cfg_l.input_dim} -> {ae_cfg_l.latent_dim} ({n_ae_l} params), "
+        f"pre-pass of both collaborators {prepass_s!r} s, AE loss "
+        f"{[(h[0], h[-1]) for h in pre_l[4]]!r}; AELifecycle({LIFECYCLE_L})")
+    for p, rec in zip(plays_l, hist_l):
+        log(f"paper (l) r{rec.round}: {p['s']!r} s (host clock), up "
+            f"{rec.bytes_up!r} B (ratio {rec.compression_ratio!r}), "
+            f"decoder ships {rec.ae_syncs} = {rec.bytes_decoder!r} B "
+            f"({ship_l!r} B a ship), refits {p['refits']}, acc "
+            f"{rec.global_metrics['accuracy']!r}, collaborator acc "
+            f"{[m.get('accuracy') for m in rec.collab_metrics]!r}")
+    log("paper (l) savings.reconcile " + json.dumps(rec_l))
+    run_l2 = build_color_imbalance(pre_l, "cuda", 4)
+    play(run_l2, 4, "cuda")
+    check_resume("run (l) rerun", run_l, run_l2, 0)
+    del run_l2
+    res_l, plays_lr, nbytes_l, save_l, load_l = resume_via_checkpoint(
+        "run_l", lambda n: build_color_imbalance(pre_l, "cuda", n), 2, 2,
+        "cuda")
+    check_resume("run (l) resume", run_l, res_l, 2)
+    log(f"paper (l) saved after round 1 ({nbytes_l} B, {save_l!r} s), "
+        f"loaded into a fresh run ({load_l!r} s), rounds 2-3 "
+        f"({[p['s'] for p in plays_lr]!r} s): torch.equal / equal to the "
+        "uninterrupted run (which a rerun reproduced bit for bit)")
+    del res_l, run_l, pre_l, aes_l
+    torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 10. k-means and entropy
+    log("kmeans KMeansSpec(550586, k=16, iters=8) card vs cpu: "
+        + json.dumps(check_kmeans()))
+
+    # --------------------------------------------------------- 11. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -1304,10 +1843,11 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
-                 for x in "hij" if f"{name}_run_{x}" in launches}
+                 for x in "hijk" if f"{name}_run_{x}" in launches}
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
-                         launches_by_route_run_h=routes_h)
+                         launches_by_route_run_h=routes_h,
+                         launches_by_route_run_k=routes_k)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
                             **extra,

@@ -12,8 +12,14 @@ from repro_torch.core.autoencoder import (  # noqa: F401
     ConvAEConfig,
     ae_accuracy,
     ae_loss,
+    ae_param_count,
+    chunked_decode,
+    chunked_encode,
     conv_decode,
     conv_encode,
+    decoder_param_count,
+    decoder_sync_bytes,
+    decoder_tree,
     fc_decode,
     fc_encode,
     fc_reconstruct,
@@ -27,13 +33,18 @@ from repro_torch.core.codec import (  # noqa: F401
     ChainSpec,
     ChunkedAESpec,
     ComposedSpec,
+    EntropySpec,
     FCAESpec,
     IdentitySpec,
+    KMeansSpec,
     QuantizeSpec,
     TopKSpec,
+    ae_spec,
     composed_chain,
     decode_and_aggregate,
     decode_batched,
+    is_shape_static,
+    measured_bytes,
     stack_payloads,
     stage_ops,
     stage_out_size,
@@ -52,6 +63,7 @@ from repro_torch.core.partition import (  # noqa: F401
     wire_bytes_by_group,
 )
 from repro_torch.core import partition  # noqa: F401
+from repro_torch.core.lifecycle import AELifecycle  # noqa: F401
 from repro_torch.core.compressor import (  # noqa: F401
     ChainCompressor,
     ChunkedAECompressor,
@@ -59,6 +71,7 @@ from repro_torch.core.compressor import (  # noqa: F401
     Compressor,
     FCAECompressor,
     IdentityCompressor,
+    KMeansCompressor,
     PartitionedCompressor,
     QuantizeCompressor,
     TopKCompressor,
@@ -71,6 +84,7 @@ from repro_torch.core.federated import (  # noqa: F401
     FederatedRun,
     FLConfig,
     RoundRecord,
+    validation_model_curve,
 )
 from repro_torch.core.prepass import (  # noqa: F401
     evaluate,
@@ -78,7 +92,12 @@ from repro_torch.core.prepass import (  # noqa: F401
     local_train_batched,
     run_prepass,
 )
-from repro_torch.core.savings import SavingsModel, reconcile  # noqa: F401
+from repro_torch.core.savings import (  # noqa: F401
+    SavingsModel,
+    reconcile,
+    sweep_collaborators,
+    sweep_rounds,
+)
 from repro_torch.core.scheduler import (  # noqa: F401
     AsyncBuffered,
     ClientState,

@@ -1,7 +1,7 @@
 """Codec protocol: static specs + pure encode/decode functions (port of
-``repro.core.codec``: the Identity, Quantize, TopK, FCAE and ChunkedAE
-stages, chains of them, ``ComposedSpec`` and per-layer partitions; the
-k-means and entropy stages and ``measured_bytes`` are not ported yet).
+``repro.core.codec``: the Identity, Quantize, TopK, FCAE, ChunkedAE and
+k-means stages, chains of them with an optional entropy-pricing stage,
+``ComposedSpec``, per-layer partitions and the measured-bytes channel).
 
 A codec is a pair of functions driven by a frozen, hashable **spec** that
 carries everything static (original length, bit widths, chunking, AE
@@ -10,8 +10,9 @@ so the cohort's payloads stack along a client axis. Each stage spec
 registers a small ops class (``fwd`` / ``inv`` / ``inv_batched`` /
 ``carry_key`` / ``carry_shape`` / ``out_size`` / ``payload_shapes``) in
 ``_STAGE_OPS`` (DESIGN.md §13.1). :class:`ChainSpec` composes stages
-left to right (sparsify → AE → quantize); :class:`ComposedSpec` is the
-2-stage ``(AE, quantize)`` chain with its historical flat payload keys.
+left to right (sparsify → AE → quantize or k-means → entropy-priced
+wire); :class:`ComposedSpec` is the 2-stage ``(AE, quantize)`` chain with
+its historical flat payload keys.
 
 The server entry point is :func:`decode_and_aggregate` (DESIGN.md §7): the
 generic route decodes the stacked cohort in one batched pass and reduces
@@ -87,6 +88,33 @@ class ChunkedAESpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class KMeansSpec:
+    """K-means codebook quantization (FedZip's clustered quantization).
+
+    The codebook is fit at encode time (``iters`` Lloyd steps,
+    quantile-seeded or warm-started from ``params["codebook"]``) and ships
+    with the codes: the payload is ``{"codes", "codebook"}``, codes uint8
+    for ``k ≤ 256``. Terminal-only: codes are not a vector the next stage
+    could transform."""
+    size: int
+    k: int = 16
+    iters: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class EntropySpec:
+    """Entropy-coded wire size, priced analytically (DESIGN.md §13.3).
+
+    A pure pricing stage: encode ships nothing for it, but
+    :func:`measured_bytes` prices every integer payload leaf of the chain
+    at its empirical Shannon entropy plus ``table_bytes_per_symbol`` per
+    distinct symbol. Only valid as the last stage of a chain; chains
+    carrying it are not shape-static (:func:`is_shape_static`), so
+    :func:`wire_bytes` keeps the dense price."""
+    table_bytes_per_symbol: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ComposedSpec:
     """AE latents further quantized (§4.2 "orthogonal add-on"): the 2-stage
     chain ``ChainSpec((inner, QuantizeSpec(n_latent, bits, block)))`` that
@@ -105,11 +133,12 @@ class ComposedSpec:
 class ChainSpec:
     """Composable codec stack: ``stages`` applied left to right at encode.
 
-    Every non-terminal stage must be *carrying* (its payload has a carry
-    entry the next stage consumes, flattened 1-D); Quantize is
-    terminal-only. Payload entries are namespaced ``{"s0": {...}, "s1":
-    {...}}`` (stages that ship nothing are omitted); params are a tuple
-    with one entry per stage (None for stateless stages)."""
+    Every non-terminal vector stage must be *carrying* (its payload has a
+    carry entry the next stage consumes, flattened 1-D); Quantize and
+    k-means are terminal-only. ``EntropySpec`` may trail the vector stages
+    as a pure pricing stage. Payload entries are namespaced ``{"s0": {...},
+    "s1": {...}}`` (stages that ship nothing are omitted); params are a
+    tuple with one entry per vector stage (None for stateless stages)."""
     stages: Tuple[Any, ...]
 
     def __post_init__(self):
@@ -123,26 +152,38 @@ class ChainSpec:
                     f"ChainSpec stages must be atomic, got {type(s).__name__}"
                     " (flatten nested chains; use composed_chain() for"
                     " ComposedSpec)")
-            stage_ops(s)
-        n_ae = sum(isinstance(s, (FCAESpec, ChunkedAESpec)) for s in stages)
+            if not isinstance(s, EntropySpec):
+                stage_ops(s)
+        if isinstance(stages[0], EntropySpec):
+            raise ValueError("EntropySpec cannot lead a chain")
+        if any(isinstance(s, EntropySpec) for s in stages[:-1]):
+            raise ValueError("EntropySpec only valid as the last stage")
+        vs = self.vector_stages
+        n_ae = sum(isinstance(s, (FCAESpec, ChunkedAESpec)) for s in vs)
         if n_ae > 1:
             raise ValueError("at most one AE stage per chain")
-        for i, s in enumerate(stages[:-1]):
+        for i, s in enumerate(vs[:-1]):
             ops = stage_ops(s)
             if ops.carry_key is None:
                 raise ValueError(
                     f"{type(s).__name__} is terminal-only (no carry) and "
-                    f"cannot precede {type(stages[i + 1]).__name__}")
+                    f"cannot precede {type(vs[i + 1]).__name__}")
             out = ops.out_size(s)
-            if stages[i + 1].size != out:
+            if vs[i + 1].size != out:
                 raise ValueError(
                     f"chain size mismatch: {type(s).__name__} emits {out} "
-                    f"values but {type(stages[i + 1]).__name__} expects "
-                    f"{stages[i + 1].size}")
+                    f"values but {type(vs[i + 1]).__name__} expects "
+                    f"{vs[i + 1].size}")
 
     @property
     def size(self) -> int:
         return self.stages[0].size
+
+    @property
+    def vector_stages(self) -> Tuple[Any, ...]:
+        """The stages that transform data (everything but EntropySpec)."""
+        return tuple(s for s in self.stages
+                     if not isinstance(s, EntropySpec))
 
 
 # ``partition.PartitionSpec`` (one frozen sub-spec per named leaf group,
@@ -150,7 +191,8 @@ class ChainSpec:
 # dispatches it to the per-group functions in core/partition.py (imported
 # lazily — partition.py imports this module at top level).
 CodecSpec = Union[IdentitySpec, QuantizeSpec, TopKSpec, FCAESpec,
-                  ChunkedAESpec, ComposedSpec, ChainSpec, "PartitionSpec"]
+                  ChunkedAESpec, KMeansSpec, ComposedSpec, ChainSpec,
+                  "PartitionSpec"]
 
 
 def _partition_mod():
@@ -168,7 +210,7 @@ def is_partitioned(spec) -> bool:
 # stage ops — one class per stage spec, registered in _STAGE_OPS
 # =====================================================================
 #   carry_key      payload entry the next chain stage consumes, or None for
-#                  terminal-only stages (quantize)
+#                  terminal-only stages (quantize, k-means)
 #   carry_shape    natural (unbatched) shape of that carry entry
 #   out_size       flattened carry length == next stage's ``size``
 #   fwd            (spec, params, flat) → payload dict
@@ -370,16 +412,87 @@ class _ChunkedAEOps:
                       params["enc"][-1]["w"].dtype)}
 
 
+def _quantile_linear(x: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """``jnp.quantile(x, probs)`` (method "linear") in float32: position
+    ``p·(n − 1)`` in the sorted vector, its floor and ceil blended by the
+    fractional part. A sort, not ``torch.quantile``, which refuses inputs
+    over 2^24 elements; a NaN anywhere makes every quantile NaN, as in the
+    reference."""
+    a = torch.sort(x)[0]
+    a = torch.where(torch.isnan(x).any(), torch.full_like(a, float("nan")),
+                    a)
+    n = torch.tensor(float(x.numel()), dtype=torch.float32, device=x.device)
+    q = probs * (n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    hw = q - low
+    lw = 1 - hw
+    low = torch.clamp(low, min=0).minimum(n - 1).long()
+    high = torch.clamp(high, min=0).minimum(n - 1).long()
+    return a[low] * lw + a[high] * hw
+
+
+def _nearest(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """Index of each value's nearest centroid, ties to the lower index
+    (``argmin``'s first minimum, as ``jnp.argmin``)."""
+    return torch.argmin(torch.abs(x[:, None] - cb[None, :]), dim=1)
+
+
+class _KMeansOps:
+    carry_key = None
+
+    @staticmethod
+    def carry_shape(spec):
+        raise TypeError("KMeansSpec is terminal-only")
+
+    @staticmethod
+    def out_size(spec):
+        return None
+
+    @staticmethod
+    def fwd(spec, params, flat):
+        x = flat.float()
+        if params is not None and "codebook" in params:
+            cb = params["codebook"].float()
+        else:
+            probs = (torch.arange(spec.k, dtype=torch.float32,
+                                  device=x.device) + 0.5) / spec.k
+            cb = _quantile_linear(x, probs)
+        ks = torch.arange(spec.k, device=x.device)
+        for _ in range(spec.iters):
+            # cluster sums as a one-hot product: a fixed addition order on
+            # every device (a scatter-add adds with atomics on CUDA)
+            onehot = (_nearest(x, cb)[:, None] == ks[None, :]).float()
+            sums = x @ onehot
+            cnts = onehot.sum(0)
+            # empty clusters keep their old centroid instead of going NaN
+            cb = torch.where(cnts > 0, sums / torch.clamp_min(cnts, 1.0), cb)
+        codes = _nearest(x, cb)
+        dt = torch.uint8 if spec.k <= 256 else torch.int32
+        return {"codes": codes.to(dt), "codebook": cb}
+
+    @staticmethod
+    def inv(spec, params, payload):
+        return payload["codebook"][payload["codes"].long()]
+
+    @staticmethod
+    def inv_batched(spec, params, stacked):
+        return torch.gather(stacked["codebook"], 1, stacked["codes"].long())
+
+    @staticmethod
+    def payload_shapes(spec, params):
+        dt = torch.uint8 if spec.k <= 256 else torch.int32
+        return {"codes": ((spec.size,), dt),
+                "codebook": ((spec.k,), torch.float32)}
+
+
 _STAGE_OPS = {
     IdentitySpec: _IdentityOps,
     QuantizeSpec: _QuantizeOps,
     TopKSpec: _TopKOps,
     FCAESpec: _FCAEOps,
     ChunkedAESpec: _ChunkedAEOps,
+    KMeansSpec: _KMeansOps,
 }
-# stages of the reference this package does not have yet (ROADMAP Queue A
-# item 8): a spec of these types raises NotImplementedError, not TypeError
-_UNPORTED_STAGES = ("KMeansSpec", "EntropySpec")
 
 
 def stage_ops(spec):
@@ -387,12 +500,8 @@ def stage_ops(spec):
     try:
         return _STAGE_OPS[type(spec)]
     except KeyError:
-        name = type(spec).__name__
-        if name in _UNPORTED_STAGES:
-            raise NotImplementedError(
-                f"codec stage {name} is not ported yet (ROADMAP Queue A "
-                "item 8)") from None
-        raise TypeError(f"unknown codec stage {name}") from None
+        raise TypeError(
+            f"unknown codec stage {type(spec).__name__}") from None
 
 
 def stage_out_size(spec) -> Optional[int]:
@@ -439,7 +548,7 @@ def _composed_unwrap_payload(payload: Payload) -> Payload:
 def _chain_params(spec: ChainSpec, params: Optional[Params]
                   ) -> Tuple[Optional[Params], ...]:
     """Per-stage params tuple (None-filled when ``params is None``)."""
-    n = len(spec.stages)
+    n = len(spec.vector_stages)
     if params is None:
         return (None,) * n
     if not isinstance(params, tuple) or len(params) != n:
@@ -450,7 +559,7 @@ def _chain_params(spec: ChainSpec, params: Optional[Params]
 
 
 def _chain_encode(spec: ChainSpec, params, flat: torch.Tensor) -> Payload:
-    vs = spec.stages
+    vs = spec.vector_stages
     ps = _chain_params(spec, params)
     out: Payload = {}
     x = flat
@@ -469,7 +578,7 @@ def _chain_encode(spec: ChainSpec, params, flat: torch.Tensor) -> Payload:
 
 
 def _chain_decode(spec: ChainSpec, params, payload: Payload) -> torch.Tensor:
-    vs = spec.stages
+    vs = spec.vector_stages
     ps = _chain_params(spec, params)
     last = len(vs) - 1
     x = stage_ops(vs[last]).inv(vs[last], ps[last], payload[f"s{last}"])
@@ -489,7 +598,7 @@ def _chain_decode_batched(spec: ChainSpec, params, stacked: Payload, *,
     ``upto=i`` stops with stage ``i``'s carry, ``(C, out_size(stage i))``
     — how the scatter and kernel aggregate routes peel pointwise
     suffixes."""
-    vs = spec.stages
+    vs = spec.vector_stages
     ps = _chain_params(spec, params)
     last = len(vs) - 1
     X = stage_ops(vs[last]).inv_batched(vs[last], ps[last],
@@ -504,12 +613,28 @@ def _chain_decode_batched(spec: ChainSpec, params, stacked: Payload, *,
     return X
 
 
+def ae_spec(spec: CodecSpec) -> Optional[Union[FCAESpec, ChunkedAESpec]]:
+    """The AE spec inside ``spec`` (unwrapping ``ComposedSpec`` and chain
+    interiors), or None for pointwise stacks: how the AE lifecycle finds
+    the shapes to build refit datasets with."""
+    if isinstance(spec, ComposedSpec):
+        return ae_spec(spec.inner)
+    if isinstance(spec, ChainSpec):
+        for st in spec.vector_stages:
+            if isinstance(st, (FCAESpec, ChunkedAESpec)):
+                return st
+        return None
+    if isinstance(spec, (FCAESpec, ChunkedAESpec)):
+        return spec
+    return None
+
+
 def ae_stage_params(spec: CodecSpec, params: Optional[Params]
                     ) -> Optional[Params]:
     """The AE stage's params entry inside a (possibly chained) spec — the
     object whose identity keys decoder slots in the grouped launch."""
     if isinstance(spec, ChainSpec):
-        for st, p in zip(spec.stages, _chain_params(spec, params)):
+        for st, p in zip(spec.vector_stages, _chain_params(spec, params)):
             if isinstance(st, (FCAESpec, ChunkedAESpec)):
                 return p
         return None
@@ -525,7 +650,7 @@ def ae_stage_input(spec: CodecSpec, params: Optional[Params],
         return flat
     ps = _chain_params(spec, params)
     x = flat
-    for i, st in enumerate(spec.stages):
+    for i, st in enumerate(spec.vector_stages):
         if isinstance(st, (FCAESpec, ChunkedAESpec)):
             return x
         ops = stage_ops(st)
@@ -537,12 +662,13 @@ def kernel_terminal_ae(spec: CodecSpec) -> Optional[ChunkedAESpec]:
     """The kernel-path chunked-AE stage when ``spec`` can take the fused
     decode→aggregate launch: a bare ``ChunkedAESpec(use_kernel=True)``, or
     a chain whose AE expansion is the *last* decode transform
-    (identity-only prefix, quantize-only suffix). None otherwise — e.g.
+    (identity-only prefix, quantize or k-means suffix). None otherwise —
+    e.g.
     sparsified chains, whose final decode transform is a scatter."""
     if isinstance(spec, ChunkedAESpec) and spec.use_kernel:
         return spec
     if isinstance(spec, ChainSpec):
-        vs = spec.stages
+        vs = spec.vector_stages
         idx = [i for i, s in enumerate(vs)
                if isinstance(s, (FCAESpec, ChunkedAESpec))]
         if len(idx) != 1:
@@ -553,7 +679,8 @@ def kernel_terminal_ae(spec: CodecSpec) -> Optional[ChunkedAESpec]:
             return None
         if any(not isinstance(s, IdentitySpec) for s in vs[:i]):
             return None
-        if any(not isinstance(s, QuantizeSpec) for s in vs[i + 1:]):
+        if any(not isinstance(s, (QuantizeSpec, KMeansSpec))
+               for s in vs[i + 1:]):
             return None
         return st
     return None
@@ -566,7 +693,7 @@ def kernel_chain_latents(spec: CodecSpec, params: Optional[Params],
     latent)`` after batched-inverting any pointwise suffix stages."""
     if isinstance(spec, ChunkedAESpec):
         return stacked["z"], params
-    vs = spec.stages
+    vs = spec.vector_stages
     ps = _chain_params(spec, params)
     i = next(j for j, s in enumerate(vs) if isinstance(s, ChunkedAESpec))
     if i == len(vs) - 1:
@@ -583,7 +710,7 @@ def _require_priceable(spec: CodecSpec, params: Optional[Params]) -> None:
     if isinstance(spec, ComposedSpec):
         _require_priceable(spec.inner, params)
     elif isinstance(spec, ChainSpec):
-        for st, p in zip(spec.stages, _chain_params(spec, params)):
+        for st, p in zip(spec.vector_stages, _chain_params(spec, params)):
             _require_priceable(st, p)
     elif isinstance(spec, (FCAESpec, ChunkedAESpec)) and params is None:
         raise ValueError(
@@ -601,7 +728,7 @@ def _payload_shapes(spec: CodecSpec, params: Optional[Params]
         q = _payload_shapes(composed_chain(spec), (params, None))
         return {"z_q": q[("s1", "q")], "z_scales": q[("s1", "scales")]}
     if isinstance(spec, ChainSpec):
-        vs = spec.stages
+        vs = spec.vector_stages
         out = {}
         for i, (st, p) in enumerate(zip(vs, _chain_params(spec, params))):
             ops = stage_ops(st)
@@ -628,6 +755,57 @@ def wire_bytes(spec: CodecSpec, params: Optional[Params] = None) -> int:
             n *= d
         total += n * dtype.itemsize
     return int(total)
+
+
+def is_shape_static(spec: CodecSpec) -> bool:
+    """True when every payload's real wire size is the :func:`wire_bytes`
+    price, i.e. the spec carries no entropy-coded stage."""
+    if is_partitioned(spec):
+        return all(is_shape_static(c) for _, _, c in spec.groups)
+    if isinstance(spec, ChainSpec):
+        return not any(isinstance(s, EntropySpec) for s in spec.stages)
+    return True
+
+
+def measured_bytes(spec: CodecSpec, payload: Payload) -> float:
+    """Measured wire size of one real payload, in bytes.
+
+    For shape-static specs this is ``tree_bytes(payload)``. For chains
+    ending in :class:`EntropySpec` every integer payload leaf (quantize
+    codes, k-means codes, top-k indices) is priced at ``min(raw, n·H/8 +
+    table_bytes_per_symbol·n_distinct)``, its empirical Shannon entropy
+    plus the code table, with the raw size for incompressible leaves;
+    float leaves ship uncoded. Symbols are counted on the payload's device
+    (``torch.unique``); the entropy is taken on the host in float64 with
+    the reference's numpy operations, leaves in the reference's order, so
+    the bytes equal the reference's."""
+    import numpy as np
+    from repro_torch.core.pytree import leaves
+
+    if is_partitioned(spec):
+        return float(sum(measured_bytes(c, payload[n])
+                         for n, _, c in spec.groups))
+    entropy = None
+    if isinstance(spec, ChainSpec) and isinstance(spec.stages[-1],
+                                                  EntropySpec):
+        entropy = spec.stages[-1]
+    total = 0.0
+    for leaf in leaves(payload):
+        if leaf.numel() == 0:
+            continue
+        raw = leaf.numel() * leaf.element_size()
+        if (entropy is not None and not leaf.is_floating_point()
+                and not leaf.is_complex() and leaf.dtype != torch.bool):
+            cnts = torch.unique(leaf, sorted=True,
+                                return_counts=True)[1].cpu().numpy()
+            p = cnts / leaf.numel()
+            H = float(-(p * np.log2(p)).sum())
+            coded = (leaf.numel() * H / 8.0
+                     + cnts.size * entropy.table_bytes_per_symbol)
+            total += min(raw, coded)
+        else:
+            total += raw
+    return float(total)
 
 
 # =====================================================================
@@ -763,8 +941,8 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
             params_batched=params_batched)
     if not params_batched:
         if (isinstance(spec, ChainSpec)
-                and isinstance(spec.stages[0], TopKSpec)
-                and len(spec.stages) > 1):
+                and isinstance(spec.vector_stages[0], TopKSpec)
+                and len(spec.vector_stages) > 1):
             vals = _chain_decode_batched(spec, params, stacked, upto=1)
             idx = stacked["s0"]["indices"]              # (C, k)
             wv = vals.float() * w[:, None]

@@ -1,7 +1,6 @@
 """Weight-update compressors: the collaborator→aggregator codec API (port of
-``repro.core.compressor`` for Identity, Quantize, TopK, FCAE, ChunkedAE,
-Composed, Chain and Partitioned; KMeans and the entropy-priced chain are
-not ported yet).
+``repro.core.compressor``: Identity, Quantize, TopK, KMeans, FCAE,
+ChunkedAE, Composed, Chain (optionally entropy-priced) and Partitioned).
 
 Each compressor is a thin host-side adapter over ``core/codec.py``: a
 static ``spec(n)`` plus its AE params; the math is ``codec.encode`` /
@@ -30,9 +29,11 @@ def tree_bytes(tree: Tree) -> int:
     return sum(x.numel() * x.element_size() for x in leaves(tree))
 
 
-def codec_stats(flat: torch.Tensor, payload: Tree) -> Dict[str, float]:
+def codec_stats(flat: torch.Tensor, payload: Tree,
+                spec: Optional[codec.CodecSpec] = None) -> Dict[str, float]:
     """The Eq.-4 byte accounting for one encoded update, in the reference's
-    keys. Every ported spec is shape-static, so the measured-bytes channel
+    keys. With ``spec`` the measured-bytes channel (DESIGN.md §13.3) is the
+    entropy-coded price for ``EntropySpec``-terminated chains; otherwise it
     equals the compressed bytes."""
     stats = {
         "original_bytes": float(flat.numel() * flat.element_size()),
@@ -41,6 +42,8 @@ def codec_stats(flat: torch.Tensor, payload: Tree) -> Dict[str, float]:
     stats["compression_ratio"] = (
         stats["original_bytes"] / max(stats["compressed_bytes"], 1.0))
     stats["measured_bytes"] = stats["compressed_bytes"]
+    if spec is not None and not codec.is_shape_static(spec):
+        stats["measured_bytes"] = float(codec.measured_bytes(spec, payload))
     return stats
 
 
@@ -101,7 +104,7 @@ class Compressor:
         flat, unravel = ravel(update)
         payload = self.encode(update)
         decoded = self.decode(payload, unravel)
-        return decoded, codec_stats(flat, payload)
+        return decoded, codec_stats(flat, payload, spec=self._spec)
 
 
 class IdentityCompressor(Compressor):
@@ -131,14 +134,40 @@ class TopKCompressor(Compressor):
 
 
 @dataclasses.dataclass
+class KMeansCompressor(Compressor):
+    """FedZip-style clustered quantization: a k-means codebook fit at
+    encode time ships with the codes. ``params`` is an optional warm-start
+    ``{"codebook": (k,)}`` that seeds the Lloyd iterations."""
+
+    k: int = 16
+    iters: int = 8
+    params: Any = None
+
+    def spec(self, n: int) -> codec.KMeansSpec:
+        return codec.KMeansSpec(size=n, k=self.k, iters=self.iters)
+
+    def codec_params(self):
+        return self.params
+
+    def set_codec_params(self, restored) -> None:
+        if restored is not None:
+            self.params = restored
+
+
+@dataclasses.dataclass
 class ChainCompressor(Compressor):
     """Composable codec stack (DESIGN.md §13): ``inner`` sub-compressors
     chained left to right, each stage's spec sized from the previous
-    stage's carry length. ``codec_params()`` is a per-stage tuple (None for
-    stateless stages), cached by identity so the server's shared-params
-    ``is`` check keeps grouping chain cohorts."""
+    stage's carry length. ``entropy_coded=True`` appends an
+    ``EntropySpec`` pricing stage: the measured-bytes channel reports the
+    entropy-coded size while the shape-static price stays dense.
+    ``codec_params()`` is a per-stage tuple (None for stateless stages),
+    cached by identity so the server's shared-params ``is`` check keeps
+    grouping chain cohorts."""
 
     inner: Any                              # Sequence[Compressor]
+    entropy_coded: bool = False
+    table_bytes_per_symbol: int = 4
 
     def __post_init__(self):
         self.inner = list(self.inner)
@@ -157,6 +186,9 @@ class ChainCompressor(Compressor):
                     raise ValueError(
                         f"{type(comp).__name__} is terminal-only and cannot "
                         f"precede {type(self.inner[i + 1]).__name__}")
+        if self.entropy_coded:
+            stages.append(codec.EntropySpec(
+                table_bytes_per_symbol=self.table_bytes_per_symbol))
         return codec.ChainSpec(tuple(stages))
 
     def codec_params(self):
@@ -291,6 +323,13 @@ class PartitionedCompressor(Compressor):
         for name, p in restored.items():
             if p is not None:
                 self.compressors[name].set_codec_params(p)
+
+    def ae_groups(self) -> Dict[str, Compressor]:
+        """The AE-backed sub-compressors, keyed by group name: what the
+        lifecycle buffers and refits."""
+        return {name: comp.ae_compressor()
+                for name, comp in self.compressors.items()
+                if comp.ae_compressor() is not None}
 
 
 def partitioned(comp: Compressor) -> Optional[PartitionedCompressor]:

@@ -1,7 +1,7 @@
 """Federated-learning orchestration with compressed update communication
-(port of ``repro.core.federated``; lifecycle, rate control, SoA client
-state and checkpointing are not ported yet). ``SyncFedAvg``,
-``SampledSync`` and ``AsyncBuffered`` drive it.
+(port of ``repro.core.federated``, with the AE lifecycle and checkpoint
+resume; rate control and struct-of-arrays client state are not ported
+yet). ``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` drive it.
 
 The paper's FL scheme (§1, §3, Fig. 3): a server ships a global model to
 collaborators; each trains locally for E epochs; the weight update (or the
@@ -14,12 +14,13 @@ the default.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.paper import ClassifierConfig
 from repro_torch.core.compressor import Compressor, IdentityCompressor
+from repro_torch.core.lifecycle import AELifecycle
 from repro_torch.core.scheduler import ClientState, RoundScheduler, SyncFedAvg
 from repro_torch.core.task import ClassifierTask, ClientTask
 from repro_torch.device import DeviceLike, resolve
@@ -55,9 +56,18 @@ class RoundRecord:
     bytes_up: float                    # collaborator→server this round
     bytes_up_raw: float                # uncompressed equivalent
     compression_ratio: float
-    bytes_down: float = 0.0            # server→collaborator model syncs
+    # measured-bytes channel (DESIGN.md §13.3): uplink priced from the
+    # encoded payloads; below ``bytes_up`` only for entropy-coded chains
+    bytes_up_measured: float = 0.0
+    # ``bytes_down`` is the global-model broadcast to each participant plus
+    # the decoder syncs the AE lifecycle shipped this round;
+    # ``bytes_decoder`` itemizes the decoder share, and ``ae_syncs`` lists
+    # the lanes that shipped one (client ids, or (client, group) pairs for
+    # partitioned runs) — savings.reconcile consumes both
+    bytes_down: float = 0.0
     bytes_down_raw: float = 0.0
-    bytes_decoder: float = 0.0         # decoder-sync share of bytes_down
+    bytes_decoder: float = 0.0
+    ae_syncs: Optional[List] = None
     participants: Optional[List[int]] = None
     staleness: Optional[List[int]] = None   # async only, per participant
     sim_time: float = 0.0              # async only: simulated clock
@@ -68,7 +78,9 @@ class FederatedRun:
     on ``device`` (CUDA unless the caller passes ``device="cpu"``; without
     a card it raises). Datasets move to the device once; the global model
     is drawn from a CPU generator seeded with ``fl_cfg.seed`` and moved, so
-    CPU and CUDA runs start from identical parameters."""
+    CPU and CUDA runs start from identical parameters. ``lifecycle`` (an
+    :class:`~repro_torch.core.lifecycle.AELifecycle`) buffers snapshots,
+    refits the clients' AEs and charges their decoder ships."""
 
     def __init__(
         self,
@@ -78,12 +90,14 @@ class FederatedRun:
         compressors: Optional[Sequence[Compressor]] = None,
         eval_data: Optional[Dict[str, torch.Tensor]] = None,
         scheduler: Optional[RoundScheduler] = None,
+        lifecycle: Optional[AELifecycle] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve(device)
         if isinstance(task, ClassifierConfig):
             task = ClassifierTask(task)
         self.task = task
+        task.check_config(fl_cfg)
         self.datasets = [{k: v.to(self.device) for k, v in d.items()}
                          for d in datasets]
         self.cfg = fl_cfg
@@ -98,13 +112,22 @@ class FederatedRun:
         self.global_params = task.init_params(gen, self.device)
         self.clients = [ClientState() for _ in range(n)]
         self.history: List[RoundRecord] = []
+        self.round_offset = 0              # set by load_state on resume
+        self.lifecycle = lifecycle
         self.scheduler = scheduler if scheduler is not None else SyncFedAvg()
         self.scheduler.bind(self)
 
-    def run(self) -> List[RoundRecord]:
-        start = len(self.history)
+    def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
+            ) -> List[RoundRecord]:
+        """Play ``cfg.n_rounds`` rounds. Resumable: within a process from
+        the history's length, across processes from ``load_state``'s round
+        offset."""
+        start = self.round_offset + len(self.history)
         for r in range(start, start + self.cfg.n_rounds):
-            self.history.append(self.scheduler.run_round(r))
+            rec = self.scheduler.run_round(r)
+            self.history.append(rec)
+            if progress:
+                progress(rec)
         return self.history
 
     def total_bytes(self) -> Dict[str, float]:
@@ -123,3 +146,94 @@ class FederatedRun:
         (``savings.reconcile``, DESIGN.md §8.3)."""
         from repro_torch.core.savings import reconcile
         return reconcile(model, self.history)
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the resumable run state in the reference's file
+        layout: round index, global params, every ``ClientState`` (residuals,
+        snapshot rings, lifecycle scalars, async dispatch snapshots), each
+        client's codec params (a lifecycle refit moves them) and the
+        scheduler's event-loop state."""
+        from repro_torch.checkpoint.checkpoint import save_federated_state
+        save_federated_state(
+            path, self.round_offset + len(self.history), self.global_params,
+            clients=self.clients,
+            codec_params=[c.codec_params() for c in self.compressors],
+            scheduler_state=self.scheduler.state_dict(),
+            extra={"task": self.task.checkpoint_key()})
+
+    def load_state(self, path: str) -> int:
+        """Restore a checkpoint (this package's or the reference's) into
+        this freshly constructed run, onto its device; later ``run()``
+        calls continue from the saved round. Returns the next round
+        index. A checkpoint of another task is refused before any state is
+        touched; rate-controller and struct-of-arrays checkpoints raise
+        (not ported yet)."""
+        from repro_torch.checkpoint.checkpoint import (_peek_meta,
+                                                       load_federated_state)
+        meta = _peek_meta(path)
+        saved_task = meta.get("task")
+        if saved_task is not None and saved_task != self.task.checkpoint_key():
+            raise ValueError(
+                f"task mismatch: checkpoint was saved by task "
+                f"{saved_task!r} but this run's task is "
+                f"{self.task.checkpoint_key()!r} — params cannot be "
+                "restored; rebuild the run with the matching task")
+        if meta.get("ratecontrol") is not None:
+            raise NotImplementedError(
+                "checkpoint holds rate-controller state; rate control is "
+                "not ported yet (ROADMAP Queue A item 9)")
+        rnd, params, meta = load_federated_state(
+            path, self.global_params,
+            like_codec_params=[c.codec_params() for c in self.compressors],
+            device=self.device)
+        self.global_params = params
+        if meta.get("client_states") is not None:
+            if len(meta["client_states"]) != len(self.clients):
+                raise ValueError(
+                    f"checkpoint holds {len(meta['client_states'])} "
+                    f"clients, the run has {len(self.clients)}")
+            self.clients = meta["client_states"]
+        for comp, restored in zip(self.compressors,
+                                  meta.get("codec_params") or []):
+            comp.set_codec_params(restored)
+        self.history = []
+        self.round_offset = rnd
+        self.scheduler.on_restore(meta.get("scheduler"))
+        return rnd
+
+
+# =====================================================================
+# paper §5.1 "validation model": set AE-reconstructed weights into a fresh
+# model and check the loss/accuracy curve matches the original training
+# =====================================================================
+def validation_model_curve(
+    clf_cfg: ClassifierConfig,
+    weight_vectors: torch.Tensor,          # (E, P) original snapshots
+    reconstruct: Callable[[torch.Tensor], torch.Tensor],
+    data: Dict[str, torch.Tensor],
+) -> Dict[str, List[float]]:
+    """For each training snapshot: evaluate the model with (a) original
+    and (b) AE-reconstructed weights, the paper's Figs. 5/7 overlay. Runs
+    on ``weight_vectors``' device."""
+    from repro_torch.core.prepass import evaluate
+    from repro_torch.core.pytree import ravel
+    from repro_torch.models.classifiers import init_classifier
+    dev = weight_vectors.device
+    template = init_classifier(torch.Generator().manual_seed(0), clf_cfg,
+                               dev)
+    flat0, unravel = ravel(template)
+    P = flat0.numel()
+    data = {k: v.to(dev) for k, v in data.items()}
+
+    out = {"original_acc": [], "predicted_acc": [],
+           "original_loss": [], "predicted_loss": []}
+    for i in range(weight_vectors.shape[0]):
+        w = weight_vectors[i][:P]
+        w_hat = reconstruct(weight_vectors[i])[:P]
+        m_orig = evaluate(unravel(w), clf_cfg, data)
+        m_pred = evaluate(unravel(w_hat), clf_cfg, data)
+        out["original_acc"].append(m_orig["accuracy"])
+        out["predicted_acc"].append(m_pred["accuracy"])
+        out["original_loss"].append(m_orig["loss"])
+        out["predicted_loss"].append(m_pred["loss"])
+    return out

@@ -9,8 +9,11 @@
   re-dispatched with the new model. :class:`LatencyModel` gives each
   (client, dispatch) its round-trip time.
 
-The AE-lifecycle and rate-control hooks and the schedulers' checkpoint
-state are not ported yet.
+After each round's aggregation every scheduler advances the AE lifecycle
+(:func:`_lifecycle_sync`, DESIGN.md §8): decoder ships are charged to the
+round's downlink. Each scheduler checkpoints through
+``state_dict``/``on_restore``; ``AsyncBuffered`` carries its whole event
+loop, in one shape for both engines. Rate control is not ported yet.
 
 Clients ship *encoded payloads*. The server stacks the round's cohort
 along a client axis and runs one ``codec.decode_and_aggregate`` call per
@@ -47,11 +50,30 @@ class ClientState:
     """Server-side bookkeeping for one collaborator: ``residual`` is its
     error-feedback state (DESIGN.md §6.3), ``version`` the global-model
     version it last received, ``dispatched`` the global params shipped at
-    dispatch (async only: the client trains against this snapshot)."""
+    dispatch (async only: the client trains against this snapshot).
+
+    The AE-lifecycle fields (DESIGN.md §8.2): ``snapshots`` is the bounded
+    ring of flat payload vectors the client's AE refits train on,
+    ``last_refresh`` the round its decoder last shipped (−1 = never; the
+    pre-pass decoder is charged on first participation), ``ae_baseline``
+    the post-refresh relative reconstruction error the drift trigger
+    compares against. Under per-layer partitions (DESIGN.md §10) they split
+    per group into ``part_snapshots``, ``part_last_refresh`` and
+    ``part_baseline``. All of it is run state and checkpoints with the
+    run."""
 
     residual: Optional[Tree] = None
     version: int = 0
     dispatched: Optional[Tree] = None
+    snapshots: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    last_refresh: int = -1
+    ae_baseline: Optional[float] = None
+    part_snapshots: Dict[str, List[torch.Tensor]] = \
+        dataclasses.field(default_factory=dict)
+    part_last_refresh: Dict[str, int] = \
+        dataclasses.field(default_factory=dict)
+    part_baseline: Dict[str, Optional[float]] = \
+        dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -96,10 +118,14 @@ def _encode_local(run, ci: int, local: Tree, global_params: Tree,
 
     comp = run.compressors[ci]
     flat, unravel = ravel(payload_tree)
+    if run.lifecycle is not None:
+        # snapshot exactly what the codec is about to see (post-EF): the
+        # refit distribution is the encode distribution (DESIGN.md §8.2)
+        run.lifecycle.observe(state, comp, flat)
     spec = comp.spec(flat.numel())
     params = comp.codec_params()
     payload = codec.encode(spec, params, flat)
-    stats = codec_stats(flat, payload)
+    stats = codec_stats(flat, payload, spec=spec)
     if cfg.error_feedback:
         decoded = unravel(codec.decode(spec, params, payload))
         state.residual = ef_residual(payload_tree, decoded)
@@ -172,6 +198,25 @@ def _server_aggregate(run, encoded: Sequence[EncodedUpdate],
     return apply_update(run.global_params, unravel(mean_flat), cfg.server_lr)
 
 
+def _lifecycle_sync(run, r: int, participants
+                    ) -> Tuple[float, Optional[list]]:
+    """Advance the AE lifecycle (DESIGN.md §8) after the round's server
+    aggregate. Returns (decoder-sync bytes to charge to ``bytes_down``,
+    synced lanes), or (0.0, None) without a lifecycle, so every scheduler
+    calls it unconditionally."""
+    if run.lifecycle is None:
+        return 0.0, None
+    return run.lifecycle.end_of_round(run, r, participants)
+
+
+def _measured_up(encoded: Sequence[EncodedUpdate]) -> float:
+    """Round uplink on the measured-bytes channel (DESIGN.md §13.3):
+    entropy-coded stacks price below the dense wire size, every other spec
+    measures its compressed bytes."""
+    return sum(e.stats.get("measured_bytes", e.stats["compressed_bytes"])
+               for e in encoded)
+
+
 def _finish_record(run, r: int, metrics, bytes_up, bytes_raw, ratios,
                    **extra):
     """Evaluate the (already-updated) global model and build a RoundRecord.
@@ -202,6 +247,16 @@ class RoundScheduler:
     def run_round(self, r: int):
         raise NotImplementedError
 
+    def state_dict(self) -> Optional[dict]:
+        """JSON-able scheduler state for ``save_federated_state`` (None =
+        stateless)."""
+        return None
+
+    def on_restore(self, state: Optional[dict] = None) -> None:
+        """Called by ``FederatedRun.load_state`` after the run's clients and
+        params are replaced, with what :meth:`state_dict` returned at save
+        time. The sync schedulers hold nothing to restore."""
+
 
 class SyncFedAvg(RoundScheduler):
     """Every collaborator trains every round; FedAvg over all updates through
@@ -217,12 +272,16 @@ class SyncFedAvg(RoundScheduler):
         run.global_params = _server_aggregate(
             run, encoded, [e.weight for e in encoded])
         n = len(run.datasets)
+        dec_bytes, syncs = _lifecycle_sync(run, r, range(n))
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
             sum(e.stats["original_bytes"] for e in encoded),
             [e.stats["compression_ratio"] for e in encoded],
-            bytes_down=model_bytes * n, bytes_down_raw=model_bytes * n,
+            bytes_up_measured=_measured_up(encoded),
+            bytes_down=model_bytes * n + dec_bytes,
+            bytes_down_raw=model_bytes * n + dec_bytes,
+            bytes_decoder=dec_bytes, ae_syncs=syncs,
             participants=list(range(n)))
 
 
@@ -281,12 +340,16 @@ class SampledSync(RoundScheduler):
         run.global_params = _server_aggregate(
             run, encoded, [e.weight for e in encoded])
         c = len(cohort)
+        dec_bytes, syncs = _lifecycle_sync(run, r, cohort)
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
             sum(e.stats["original_bytes"] for e in encoded),
             [e.stats["compression_ratio"] for e in encoded],
-            bytes_down=model_bytes * c, bytes_down_raw=model_bytes * c,
+            bytes_up_measured=_measured_up(encoded),
+            bytes_down=model_bytes * c + dec_bytes,
+            bytes_down_raw=model_bytes * c + dec_bytes,
+            bytes_decoder=dec_bytes, ae_syncs=syncs,
             participants=cohort)
 
 
@@ -346,7 +409,7 @@ class AsyncBuffered(RoundScheduler):
     order-exact against it (same ``(time, seq)`` contract, ``float64``
     times), so the two give bit-identical runs.
     ``distortion_power`` other than 0 needs rate control, which is not
-    ported yet, and raises."""
+    ported yet (ROADMAP Queue A item 9), and raises."""
 
     buffer_k: int = 2
     latency: LatencyModel = dataclasses.field(default_factory=LatencyModel)
@@ -365,14 +428,39 @@ class AsyncBuffered(RoundScheduler):
         self._reset()
 
     def state_dict(self) -> dict:
-        raise NotImplementedError(
-            "AsyncBuffered checkpoint state is not ported yet (ROADMAP "
-            "Queue A item 7)")
+        """The whole event loop, JSON-able: entries reference clients by
+        index, and the per-client ``dispatched`` snapshots ride the
+        checkpoint's client tree, so a resumed run continues the simulation
+        exactly (same arrivals, staleness and downlink bytes). Both engines
+        emit the same ``{"heap": [[t, seq, ci], ...]}`` shape (the vector
+        engine's finite-time rows), so either restores the other's
+        checkpoint."""
+        return {"heap": self._entries(), "seq": self._next_seq(),
+                "version": self._version,
+                "clock": self._clock, "pending_down": self._pending_down,
+                "to_redispatch": list(self._to_redispatch)}
 
     def on_restore(self, state: Optional[dict] = None) -> None:
-        raise NotImplementedError(
-            "AsyncBuffered checkpoint state is not ported yet (ROADMAP "
-            "Queue A item 7)")
+        if state is None:
+            # a checkpoint without scheduler state: restart the simulation,
+            # every restored client re-dispatched against the restored
+            # global model at version 0 (the broadcast charged again)
+            self._reset()
+            return
+        self._bcast_cache = None
+        if self.engine == "vector":
+            from repro_torch.core.arrival import ArrivalEngine
+            self._arrivals = ArrivalEngine.from_entries(
+                len(self.run.datasets), state["heap"], int(state["seq"]))
+        else:
+            self._heap = [(float(t), int(s), int(ci))
+                          for t, s, ci in state["heap"]]
+            heapq.heapify(self._heap)
+            self._seq = int(state["seq"])
+        self._version = int(state["version"])
+        self._clock = float(state["clock"])
+        self._pending_down = float(state["pending_down"])
+        self._to_redispatch = [int(ci) for ci in state["to_redispatch"]]
 
     def _reset(self) -> None:
         run = self.run
@@ -414,6 +502,15 @@ class AsyncBuffered(RoundScheduler):
     def _in_flight(self) -> int:
         return (self._arrivals.in_flight() if self.engine == "vector"
                 else len(self._heap))
+
+    def _next_seq(self) -> int:
+        return (self._arrivals.next_seq if self.engine == "vector"
+                else self._seq)
+
+    def _entries(self) -> List[List[float]]:
+        if self.engine == "vector":
+            return self._arrivals.entries()
+        return [[float(t), int(s), int(ci)] for t, s, ci in self._heap]
 
     def _broadcast_bytes(self) -> float:
         if self._bcast_cache is None or self._bcast_cache[0] != self._version:
@@ -457,10 +554,14 @@ class AsyncBuffered(RoundScheduler):
         for ci in arrived:
             run.clients[ci].dispatched = None
         self._to_redispatch = list(arrived)
+        dec_bytes, syncs = _lifecycle_sync(run, r, arrived)
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
             sum(e.stats["original_bytes"] for e in encoded),
             [e.stats["compression_ratio"] for e in encoded],
-            bytes_down=bytes_down, bytes_down_raw=bytes_down,
+            bytes_up_measured=_measured_up(encoded),
+            bytes_down=bytes_down + dec_bytes,
+            bytes_down_raw=bytes_down + dec_bytes,
+            bytes_decoder=dec_bytes, ae_syncs=syncs,
             participants=arrived, staleness=stales, sim_time=self._clock)

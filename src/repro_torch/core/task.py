@@ -57,6 +57,15 @@ class ClientTask:
         """FedAvg weight of a client's shard (sample count by default)."""
         return float(self.num_examples(data))
 
+    def check_config(self, cfg) -> None:
+        """Validate an ``FLConfig`` against this task (a construction-time
+        hook of ``FederatedRun``)."""
+
+    def checkpoint_key(self) -> str:
+        """Stable identity stored in checkpoint metadata; a load whose saved
+        key differs from the resuming run's task is refused."""
+        return self.name
+
 
 @dataclasses.dataclass
 class ClassifierTask(ClientTask):
@@ -108,3 +117,8 @@ class ClassifierTask(ClientTask):
 
     def num_examples(self, data) -> int:
         return int(data["x"].shape[0])
+
+    def checkpoint_key(self) -> str:
+        # the classifier's name pins the parameter tree a checkpoint must
+        # restore into
+        return f"classifier:{getattr(self.clf_cfg, 'name', 'clf')}"

@@ -44,6 +44,36 @@ def cifar_like(seed: int, n: int = 2048) -> Data:
                                     sep=8.0, noise=0.7)
 
 
+def to_grayscale(data: Data) -> Data:
+    """Paper §5.2: the second collaborator sees grayscale images (the
+    channel mean, replicated across the channels): the colour-imbalance
+    non-IID condition."""
+    x = data["x"]
+    assert x.ndim == 4, "grayscale imbalance needs HWC images"
+    # the channels summed in order, then times the float32 reciprocal of
+    # the count: XLA's form of the reference's ``jnp.mean``, bit for bit
+    c = x.shape[-1]
+    g = x[..., 0:1]
+    for i in range(1, c):
+        g = g + x[..., i:i + 1]
+    g = g * torch.tensor(1.0 / c, dtype=x.dtype, device=x.device)
+    return {"x": g.expand(x.shape).contiguous(), "y": data["y"]}
+
+
+def color_imbalance_split(seed: int, n_per_collab: int = 2048,
+                          n_eval: int = 256) -> Tuple[List[Data], Data]:
+    """Two CIFAR-like collaborators over one task (the same class
+    centers): collaborator 0 sees colour images, collaborator 1 the
+    grayscale version of a disjoint slice (paper §5.2). Returns
+    ``([c0, c1], eval)``."""
+    data = cifar_like(seed, 2 * n_per_collab + n_eval)
+    c0 = {k: v[:n_per_collab] for k, v in data.items()}
+    c1 = to_grayscale({k: v[n_per_collab:2 * n_per_collab]
+                       for k, v in data.items()})
+    evald = {k: v[2 * n_per_collab:] for k, v in data.items()}
+    return [c0, c1], evald
+
+
 def train_eval_split(data: Data, n_eval: int) -> Tuple[Data, Data]:
     """Split one dataset into train/eval; eval shares the generating seed
     (class centers) with train."""

@@ -196,7 +196,9 @@ def test_chain_validation():
         tc.ChainSpec((tc.TopKSpec(N, 10), tc.QuantizeSpec(11)))
     with pytest.raises(TypeError, match="atomic"):
         tc.ChainSpec((tc.ChainSpec((tc.IdentitySpec(N),)),))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(ValueError, match="terminal-only"):
+        tc.ChainSpec((tc.KMeansSpec(N), tc.IdentitySpec(N)))
+    with pytest.raises(TypeError, match="unknown codec stage"):
         tc.ChainSpec((tc.IdentitySpec(N), jc.KMeansSpec(N)))
     with pytest.raises(ValueError, match="autoencoder"):
         tc.wire_bytes(tc.ComposedSpec(tc.ChunkedAESpec(N, T_CH)))

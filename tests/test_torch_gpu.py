@@ -752,3 +752,137 @@ def test_async_engines_bit_identical_on_card():
                                   b.bytes_up, b.bytes_down)
         assert a.global_metrics == b.global_metrics
     assert torch.equal(ph, pv)
+
+
+# ---------------------------------------------- lifecycle and checkpoints
+def _lifecycle_run(device, n_rounds, engine=None):
+    """The MLP, 3 clients of 64 examples, the kernel-path chunked AE
+    (``ChunkedAEConfig(256, (32,), 8)``, 63 chunks) on one params object,
+    an ``AELifecycle`` refitting every round from round 1 (2 epochs), update
+    payload with error feedback; ``SyncFedAvg``, or ``AsyncBuffered`` with
+    ``engine``."""
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import (AELifecycle, AsyncBuffered,
+                                  ChunkedAECompressor, ChunkedAEConfig,
+                                  FederatedRun, FLConfig, LatencyModel,
+                                  init_chunked_ae)
+    from repro_torch.data.pipeline import (mnist_like, train_eval_split,
+                                           uniform_partition)
+    cfg = ChunkedAEConfig(256, (32,), 8)
+    ae = init_chunked_ae(torch.Generator().manual_seed(3), cfg, device)
+    ae["norm"] = {"mean": torch.zeros((), device=device),
+                  "std": torch.full((), 1e-3, device=device)}
+    train, ev = train_eval_split(mnist_like(0, 3 * 64 + 64), 64)
+    sched = (None if engine is None else AsyncBuffered(
+        buffer_k=2, engine=engine, latency=LatencyModel(jitter=0.3)))
+    return FederatedRun(
+        MNIST_CLASSIFIER, uniform_partition(0, train, 3),
+        FLConfig(n_rounds=n_rounds, local_epochs=1, payload="update",
+                 error_feedback=True),
+        compressors=[ChunkedAECompressor(ae, cfg, use_kernel=True)
+                     for _ in range(3)],
+        eval_data=ev, device=device, scheduler=sched,
+        lifecycle=AELifecycle(refresh_every=1, min_snapshots=1,
+                              refresh_epochs=2))
+
+
+def _state_leaves(run):
+    from repro_torch.core.pytree import leaves
+    return leaves([run.global_params,
+                   [[c.residual, c.dispatched, c.snapshots]
+                    for c in run.clients],
+                   [c.codec_params() for c in run.compressors]])
+
+
+@pytest.mark.gpu
+def test_lifecycle_refit_on_card_matches_cpu():
+    _card()
+    runs = {dev: _lifecycle_run(dev, 3) for dev in ("cuda", "cpu")}
+    hists = {dev: r.run() for dev, r in runs.items()}
+    for a, b in zip(hists["cuda"], hists["cpu"], strict=True):
+        assert (a.ae_syncs, a.bytes_decoder, a.bytes_down, a.bytes_up) == \
+            (b.ae_syncs, b.bytes_decoder, b.bytes_down, b.bytes_up)
+    assert hists["cuda"][1].ae_syncs == [0, 1, 2]
+    for x, y in zip(_state_leaves(runs["cuda"]), _state_leaves(runs["cpu"]),
+                    strict=True):
+        torch.testing.assert_close(x.cpu(), y, **BAND)
+    for a, b in zip(runs["cuda"].clients, runs["cpu"].clients):
+        np.testing.assert_allclose(a.ae_baseline, b.ae_baseline, **BAND)
+
+
+@pytest.mark.gpu
+def test_checkpoint_saved_on_card_loads_on_cpu_and_back(tmp_path):
+    """Two rounds on one device, saved, restored on the other: the state
+    restores exactly; the next round there matches the uninterrupted run
+    on the first device within the golden band."""
+    _card()
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        full = _lifecycle_run(src, 3)
+        full.run()
+        first = _lifecycle_run(src, 2)
+        first.run()
+        path = str(tmp_path / f"{src}.npz")
+        first.save_state(path)
+        resumed = _lifecycle_run(dst, 1)
+        assert resumed.load_state(path) == 2
+        for x, y in zip(_state_leaves(first), _state_leaves(resumed),
+                        strict=True):
+            assert y.device.type == dst and torch.equal(x.cpu(), y.cpu())
+        resumed.run()
+        a, b = full.history[2], resumed.history[0]
+        assert (a.ae_syncs, a.bytes_decoder, a.bytes_down) == \
+            (b.ae_syncs, b.bytes_decoder, b.bytes_down)
+        for x, y in zip(_state_leaves(full), _state_leaves(resumed),
+                        strict=True):
+            torch.testing.assert_close(y.cpu(), x.cpu(), **BAND)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("saver,loader", [("heap", "vector"),
+                                          ("vector", "heap")])
+def test_async_checkpoint_restores_into_the_other_engine_on_card(
+        saver, loader, tmp_path):
+    _card()
+    full = _lifecycle_run("cuda", 3, engine=loader)
+    full.run()
+    first = _lifecycle_run("cuda", 2, engine=saver)
+    first.run()
+    path = str(tmp_path / "async.npz")
+    first.save_state(path)
+    resumed = _lifecycle_run("cuda", 1, engine=loader)
+    resumed.load_state(path)
+    resumed.run()
+    a, b = full.history[2], resumed.history[0]
+    for k in ("participants", "staleness", "sim_time", "bytes_up",
+              "bytes_down", "bytes_decoder", "ae_syncs", "global_metrics"):
+        assert getattr(a, k) == getattr(b, k), k
+    for x, y in zip(_state_leaves(full), _state_leaves(resumed),
+                    strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(100_000, 16), (30_000, 300)])
+def test_kmeans_on_card_matches_cpu_and_repeats(n, k):
+    _card()
+    from repro_torch.core import (ChainCompressor, KMeansCompressor,
+                                  TopKCompressor, codec)
+    x = torch.randn((n,), generator=torch.Generator().manual_seed(k)) * 1e-2
+    spec = codec.KMeansSpec(n, k, 8)
+    cpu = codec.encode(spec, None, x)
+    card = [codec.encode(spec, None, x.cuda()) for _ in range(2)]
+    assert torch.equal(card[0]["codes"], card[1]["codes"])
+    assert torch.equal(card[0]["codebook"], card[1]["codebook"])
+    torch.testing.assert_close(card[0]["codebook"].cpu(), cpu["codebook"],
+                               **BAND)
+    err = float((card[0]["codebook"].cpu() - cpu["codebook"]).abs().max())
+    cb = torch.sort(cpu["codebook"])[0]
+    mids = (cb[1:] + cb[:-1]) / 2
+    near = ((x[:, None] - mids[None, :]).abs() <= 2 * err + 1e-9).any(1)
+    differ = card[0]["codes"].cpu() != cpu["codes"]
+    assert not bool((differ & ~near).any())
+    chain = ChainCompressor([TopKCompressor(0.01), KMeansCompressor()],
+                            entropy_coded=True)
+    cspec = chain.spec(n)
+    assert codec.measured_bytes(cspec, codec.encode(cspec, None, x.cuda())) \
+        == codec.measured_bytes(cspec, codec.encode(cspec, None, x))

@@ -337,7 +337,10 @@ def test_async_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="rate controller"):
         T.FederatedRun(MNIST_CLASSIFIER, dt, cfg, device="cpu",
                        scheduler=T.AsyncBuffered(distortion_power=1.0))
+    # the checkpoint state is ported: the event loop round-trips
     sched = T.AsyncBuffered()
     T.FederatedRun(MNIST_CLASSIFIER, dt, cfg, device="cpu", scheduler=sched)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        sched.state_dict()
+    state = sched.state_dict()
+    assert [ci for _, _, ci in state["heap"]] == [0, 1]
+    sched.on_restore(state)
+    assert sched.state_dict() == state

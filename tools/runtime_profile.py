@@ -17,6 +17,12 @@ plays one warm-up round of each, and then, for one more round:
   intervals) and idle share, and the ten kernels with the most device
   time.
 
+Then it builds run (k) (the AE lifecycle on the kernel path, CIFAR CNN, 8
+clients) and run (l) (the §5.2 federation with the full-width CIFAR FC
+AE), plays rounds 0–1 of each and traces round 2 (a cadence refit of
+every client) and round 3 (the first round decoded with the refit
+decoders) the same way.
+
 Needs a card; prints one JSON object and writes it to ``--out``.
 """
 from __future__ import annotations
@@ -125,6 +131,18 @@ def main() -> int:
     del run_i
     run_j = chip_smoke.run_async_mlp("cuda", rounds=1)[0]     # warm-up
     result["async_mlp_round"] = _traced_round(run_j, 1)
+    del run_j
+    run_k = chip_smoke.build_lifecycle_cnn("cuda")
+    chip_smoke.play(run_k, 2, "cuda")
+    result["lifecycle_cnn_refit_round"] = _traced_round(run_k, 2)
+    result["lifecycle_cnn_after_refit_round"] = _traced_round(run_k, 3)
+    del run_k
+    run_l = chip_smoke.build_color_imbalance(
+        chip_smoke.prepass_color_imbalance("cuda"), "cuda", 4)
+    chip_smoke.play(run_l, 2, "cuda")
+    result["color_imbalance_refit_round"] = _traced_round(run_l, 2)
+    result["color_imbalance_after_refit_round"] = _traced_round(run_l, 3)
+    del run_l
     text = json.dumps(result)
     print(text)
     out = ROOT / args.out
