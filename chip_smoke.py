@@ -119,7 +119,46 @@ Phases, each reported on its own lines:
 10. k-means and entropy — ``KMeansSpec(550,586, k=16, iters=8)`` on the
    card against the CPU (codebook in the golden band, codes equal away
    from midpoints, a second card call ``torch.equal``), and the measured
-   bytes of an entropy-coded TopK → k-means chain equal on both.
+   bytes of an entropy-coded TopK → k-means chain equal on both;
+11. the rate-control frontier — (m) ``benchmarks/tables.py:524-620`` at
+   its FULL sizes: the MNIST MLP, 4 Dirichlet(0.5) clients of
+   ``mnist_like(0, 1024)``, a 24-epoch pre-pass a client, ``fc_ae_ladder``
+   of latents (8, 32, 128) behind a 128-wide hidden layer, each rung's AE
+   trained 300 epochs on the card; 6 rounds x 2 local epochs, payload
+   "weights", under ``FixedRate`` at each rung, ``DistortionTarget(0.15)``,
+   ``ByteBudget`` and ``RDBudget`` at the matched budget 4 x 32 x 4 B, and
+   ``RDBudget`` under ``AsyncBuffered(buffer_k=2, distortion_power=1)``.
+   Each row runs on the card and on the CPU from the same ladder:
+   switches, rung occupancy, ``bytes_up`` and ``bytes_decoder`` exact
+   (where they differ, the probe values and the policy's thresholds at
+   that round are printed), loss, accuracy and parameters in the golden
+   band; accuracy, bytes, switches and λ printed a row. No kernel runs;
+12. a per-partition ladder on kernel 5 — (n) ``SyncFedAvg`` over the
+   CIFAR CNN, 8 clients of 64 images, 6 rounds x 1 epoch, payload
+   "weights", ``use_grouped_kernel=True``; ``by_layer_partition`` into
+   ``dense0`` (461,088 values: a kernel-path chunked AE (256, (32,)) at
+   latent 4, at latent 8, then q8; each AE fitted once on the card and
+   shared by all 8 clients, ``prefit``: latent 4 on the 256-chunks of a
+   pre-pass weights dataset's dense0 segments, latent 8 on those of what
+   the lanes send in a 2-round warm-up on the cheapest rungs) and ``rest``
+   (89,498 values: q4, q8), under ``RDBudget(cooldown=2, min_snapshots=2,
+   refit_epochs=5, refit_batch=4)`` at the budget halfway between the
+   all-cheapest and all-dearest plans. Per round its launches by kernel
+   and route, the buckets of each kernel-5 launch, the probes' launches
+   and errors, switches and bytes; kernel 5 must launch once a round
+   until the first switch-time refit, which must buy latent 8, ship the
+   refit decoders and move the refit lanes' bucket to the batched-params
+   route (every round's kernel-5 buckets are the lanes sharing a
+   decoder); a rerun and a resume (saved after round 3) ``torch.equal``;
+   a reduced copy (2 clients, 3 rounds) on the card and the CPU, the CPU
+   encoding the card's trained local models in place of its own:
+   payloads, global params a round, loss, accuracy and the controllers'
+   state in the golden band, the local models too but where both
+   devices' single Adam step is partial (a gradient at rounding level),
+   codes, decisions and bytes exact; beside it the free-running
+   trajectories' divergence, card against CPU and CPU against CPU from
+   initial params one ulp apart. The
+   kernels record carries the counts as ``launches_run_n``.
 
 Checkpoints go to ``build/chip_smoke/`` and are deleted after loading.
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -1239,6 +1278,747 @@ def check_kmeans() -> dict:
             "chain_wire_bytes": codec.wire_bytes(cspec)}
 
 
+# ------------------------------------------------------------ rate control
+MLP_PARAMS = 15_910
+# run (m): benchmarks/tables.py:524-620 at its FULL sizes
+RATE_LATENTS = (8, 32, 128)
+RATE_HIDDEN = (128,)       # as wide as the widest latent (tables.py:549)
+RATE_AE_EPOCHS = 300
+RATE_BUDGET = 4 * RATE_LATENTS[1] * 4.0     # the matched budget, 512 B
+RATE_REFIT = dict(min_snapshots=2, refit_epochs=20, refit_batch=4)
+# run (n): the CIFAR CNN's dense0 (461,088 values) on two shared chunked-AE
+# rungs then q8, the other 89,498 values on q4 then q8
+CNN_RATE_LATENTS = (4, 8)
+CNN_RATE_CHUNK = 256
+CNN_RATE_HIDDEN = (32,)
+CNN_RATE_RD = dict(cooldown=2, min_snapshots=2, refit_epochs=5,
+                   refit_batch=4)
+
+
+def prepass_rate_ladder(device: str):
+    """Run (m)'s ladder (``benchmarks/tables.py:524-620``, FULL): a
+    Dirichlet(0.5) split of ``mnist_like(0, 1024)`` (128 held out) over 4
+    clients (at least 16 each); per client a 24-epoch pre-pass from the
+    run's own initial params (``FLConfig().seed``), then one FC AE a rung
+    (latent 8, 32, 128 behind a 128-wide hidden layer) trained 300 epochs
+    on that client's weights dataset. Returns (datasets, eval data,
+    params[client][rung], (first, last) AE loss a rung)."""
+    import torch
+    from repro_torch.configs.paper import AEConfig, MNIST_CLASSIFIER
+    from repro_torch.core import FLConfig, run_prepass, train_autoencoder
+    from repro_torch.core.task import ClassifierTask
+    from repro_torch.data.pipeline import (dirichlet_partition, mnist_like,
+                                           train_eval_split)
+    train, ev = train_eval_split(mnist_like(0, 1024), 128)
+    data = dirichlet_partition(0, train, 4, alpha=0.5, min_per_client=16)
+    init0 = ClassifierTask(MNIST_CLASSIFIER).init_params(
+        torch.Generator().manual_seed(FLConfig().seed), device)
+    params, losses = [], []
+    for ci in range(4):
+        out = run_prepass(
+            torch.Generator().manual_seed(10 + ci), MNIST_CLASSIFIER,
+            AEConfig(MLP_PARAMS, RATE_HIDDEN, RATE_LATENTS[0]), data[ci],
+            prepass_epochs=24, ae_epochs=1, init_params=init0,
+            device=device)
+        row = []
+        for latent in RATE_LATENTS:
+            p, h = train_autoencoder(
+                torch.Generator().manual_seed(100 + ci),
+                AEConfig(MLP_PARAMS, RATE_HIDDEN, latent),
+                out["weights_dataset"], epochs=RATE_AE_EPOCHS)
+            row.append(p)
+            losses.append((h["loss"][0], h["loss"][-1]))
+        params.append(row)
+    return data, ev, params, losses
+
+
+def rate_policies():
+    """Run (m)'s rows: each fixed rung, then the adaptive policies at the
+    benchmark's settings, and RDBudget under distortion-weighted async
+    staleness. ``(name, controller from a ladder, scheduler or None)``."""
+    from repro_torch.core import (AsyncBuffered, ByteBudget,
+                                  DistortionTarget, FixedRate, RDBudget)
+    rows = [(f"fixed_r{k}",
+             lambda lad, k=k: FixedRate(ladder=lad, initial_rung=k), None)
+            for k in range(len(RATE_LATENTS))]
+    rows += [
+        ("distortion_target", lambda lad: DistortionTarget(
+            ladder=lad, target=0.15, cooldown=2, **RATE_REFIT), None),
+        ("byte_budget", lambda lad: ByteBudget(
+            ladder=lad, budget=RATE_BUDGET, **RATE_REFIT), None),
+        ("rd_budget", lambda lad: RDBudget(
+            ladder=lad, budget=RATE_BUDGET, cooldown=2, **RATE_REFIT),
+         None),
+        ("rd_budget_async", lambda lad: RDBudget(
+            ladder=lad, budget=RATE_BUDGET, cooldown=2, **RATE_REFIT),
+         lambda: AsyncBuffered(buffer_k=2, distortion_power=1.0))]
+    return rows
+
+
+def build_rate_run(prepass, make_rc, make_sched, device: str):
+    """A run (m) row on ``device``: the MNIST MLP over the pre-pass's
+    split, 6 rounds x 2 local epochs, payload "weights", the controller over
+    ``fc_ae_ladder`` seeded with the pre-pass's AEs (moved to ``device``)."""
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core import FederatedRun, FLConfig, fc_ae_ladder
+    from repro_torch.core.pytree import tree_map
+    data, ev, params, _ = prepass
+    ladder = fc_ae_ladder(
+        4, MLP_PARAMS, latent_dims=RATE_LATENTS, hidden=RATE_HIDDEN,
+        params=[[tree_map(lambda t: t.to(device), p) for p in row]
+                for row in params], device=device)
+    rc = make_rc(ladder)
+    return FederatedRun(
+        MNIST_CLASSIFIER, data,
+        FLConfig(n_rounds=6, local_epochs=2, payload="weights", seed=0),
+        eval_data=ev, ratecontrol=rc, device=device,
+        scheduler=make_sched() if make_sched is not None else None)
+
+
+def _thresholds(rc, r: int) -> dict:
+    """What a policy compared its probes with at round ``r``."""
+    out = {"policy": rc.name}
+    for k in ("target", "margin", "budget", "cooldown"):
+        if hasattr(rc, k):
+            out[k] = getattr(rc, k)
+    if hasattr(rc, "target"):
+        out["margin_x_target"] = rc.margin * rc.target
+    if hasattr(rc, "lambda_trace"):
+        out["lambda"] = dict(rc.lambda_trace).get(r)
+    return out
+
+
+class ProbeSpy:
+    """Records each batched probe (``RateController._probe``): its
+    controller, round, partition group, lanes, ``(rung, lane)`` error
+    matrix and the kernel launches it made. A context manager that puts
+    the method back."""
+
+    def __enter__(self):
+        from repro_torch.core.ratecontrol import RateController
+        from repro_torch.kernels import _lib
+        self.cls, self.real, self.calls = (RateController,
+                                           RateController._probe, [])
+        real = self.real
+
+        def spy(rc, specs, cols, flats, group, lanes):
+            before = sum(_lib.counts().values())
+            errs = real(rc, specs, cols, flats, group, lanes)
+            self.calls.append(dict(
+                rc=rc, round=rc.run.round_offset + len(rc.run.history),
+                group=group, lanes=list(lanes), errs=errs,
+                launches=sum(_lib.counts().values()) - before))
+            return errs
+        RateController._probe = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._probe = self.real
+
+    def of(self, rc) -> list:
+        return [p for p in self.calls if p["rc"] is rc]
+
+
+def check_rate_decisions(tag: str, card, cpu, probes: ProbeSpy) -> None:
+    """Card against CPU for one controller run: switches, rung occupancy,
+    participants, ``bytes_up`` and ``bytes_decoder`` exact. At the first
+    round whose switches differ, print both sides' probe values (from
+    ``probes``, which watched both runs) and the policy's thresholds, then
+    fail."""
+    import numpy as np
+    rc_g, rc_c = card.ratecontrol, cpu.ratecontrol
+    for a, b in zip(card.history, cpu.history, strict=True):
+        if a.spec_switches != b.spec_switches:
+            for side, rc in (("cuda", rc_g), ("cpu", rc_c)):
+                for p in probes.of(rc):
+                    if p["round"] == a.round:
+                        log(f"{tag} r{a.round} {side} probe group "
+                            f"{p['group']} lanes {p['lanes']}: "
+                            + json.dumps(np.asarray(p["errs"]).tolist()))
+            log(f"{tag} r{a.round} thresholds "
+                + json.dumps(_thresholds(rc_g, a.round)))
+            raise AssertionError(
+                f"{tag}: round {a.round} switches differ card "
+                f"{a.spec_switches} cpu {b.spec_switches}")
+        for k in ("bytes_up", "bytes_up_raw", "bytes_decoder", "ae_syncs",
+                  "participants", "staleness"):
+            require(getattr(a, k) == getattr(b, k),
+                    f"{tag}: round {a.round} {k} differ")
+    if rc_g._partitioned:
+        require(all(np.array_equal(rc_g._prung[n], rc_c._prung[n])
+                    for n in rc_g._prung), f"{tag}: occupancy differs")
+    else:
+        require(np.array_equal(rc_g._rung, rc_c._rung),
+                f"{tag}: occupancy differs")
+
+
+def cnn_rate_data(n_clients: int):
+    """Run (n)'s shards: ``cifar_like(0, 64 n + 256)``, 256 held out,
+    ``n`` clients of 64 images."""
+    from repro_torch.data.pipeline import (cifar_like, train_eval_split,
+                                           uniform_partition)
+    train, ev = train_eval_split(cifar_like(0, n_clients * 64 + 256), 256)
+    return uniform_partition(0, train, n_clients), ev
+
+
+def cnn_partition():
+    """``by_layer_partition`` of the CIFAR CNN into ``dense0`` (461,088
+    values, one contiguous run) and ``rest`` (89,498 values over twelve
+    slices: the convs before it and the dense layers after)."""
+    import torch
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import by_layer_partition
+    from repro_torch.models.classifiers import init_classifier
+    tmpl = init_classifier(torch.Generator().manual_seed(0),
+                           CIFAR_CLASSIFIER, "cpu")
+    return by_layer_partition(
+        tmpl, key_fn=lambda path: ("dense0" if path.startswith("dense0/")
+                                   else "rest"))
+
+
+class EncodeSpy:
+    """Wraps ``scheduler._encode_local`` (a client's payload selection and
+    encode after its local training). Keeps each call's trained local
+    model, flat, in ``own``, the global params it trained from in
+    ``start`` and its payload in ``payloads``, all under ``(round,
+    client)``; given ``replay`` (another run's ``own``), encodes that local
+    model in place of the run's own. A context manager that puts the
+    function back."""
+
+    def __init__(self, replay=None):
+        self.replay, self.own, self.start, self.payloads = replay, {}, {}, {}
+
+    def __enter__(self):
+        from repro_torch.core import scheduler as mod
+        from repro_torch.core.pytree import ravel
+        self.mod, self.real = mod, mod._encode_local
+
+        def spy(run, ci, local, global_params, state, metrics):
+            key = (run.round_offset + len(run.history), ci)
+            flat, unravel = ravel(local)
+            self.own[key] = flat.detach().clone()
+            self.start[key] = ravel(global_params)[0].detach().clone()
+            if self.replay is not None:
+                local = unravel(self.replay[key].to(flat.device))
+            enc = self.real(run, ci, local, global_params, state, metrics)
+            self.payloads[key] = enc.payload
+            return enc
+        mod._encode_local = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._encode_local = self.real
+
+
+def prefit_cnn_rungs(device: str, prepass_epochs: int = 8,
+                     fit_epochs: int = 30, warmup_rounds: int = 2):
+    """Run (n)'s two AE rungs, each fitted once and shared by every client
+    (one ``ChunkedAEConfig(256, (32,), latent)`` AE a rung, batch 256), on
+    every 256-chunk of dense0 segments as the rows (as the lifecycle's
+    ``_refit_dataset`` builds them for a chunked lane). The latent-4 rung's
+    segments: a pre-pass (``local_train`` from the run's initial CIFAR CNN
+    params over run (n)'s 512 images, a weights snapshot an epoch). The
+    latent-8 rung's: what run (n)'s 8 lanes send in the last round of a
+    ``warmup_rounds`` warm-up of run (n) with every lane on its cheapest
+    rung — the traffic that run (n)'s first plan probes, since no lane can
+    move before it holds ``min_snapshots=2``. (Round 0 sends the random
+    initial weights plus one step, which no AE compresses; a rung fitted
+    on them codes later rounds no better than latent 4, and is never
+    bought.) Returns (configs, params, (first, last) loss a rung)."""
+    import torch
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import ChunkedAEConfig, partition, local_train
+    from repro_torch.core import train_autoencoder
+    from repro_torch.core.autoencoder import chunk_vector
+    from repro_torch.core.task import ClassifierTask
+    shards, _ = cnn_rate_data(8)
+    data = {k: torch.cat([s[k] for s in shards]).to(device)
+            for k in shards[0]}
+    init0 = ClassifierTask(CIFAR_CLASSIFIER).init_params(
+        torch.Generator().manual_seed(0), device)
+    _, snaps, _ = local_train(init0, CIFAR_CLASSIFIER, data,
+                              epochs=prepass_epochs, seed=0,
+                              snapshot_every_epoch=True)
+    dense0 = cnn_partition().slices_of("dense0")
+    cfgs, aes, losses = [], [], []
+
+    def fit(i, flats):
+        segs = partition.gather(dense0, torch.stack(flats))
+        rows = torch.cat([chunk_vector(s, CNN_RATE_CHUNK)[0] for s in segs])
+        cfg = ChunkedAEConfig(chunk_size=CNN_RATE_CHUNK,
+                              hidden=CNN_RATE_HIDDEN,
+                              latent_chunk=CNN_RATE_LATENTS[i])
+        p, h = train_autoencoder(torch.Generator().manual_seed(60 + i),
+                                 cfg.as_fc(), rows, epochs=fit_epochs,
+                                 batch_size=256)
+        cfgs.append(cfg)
+        aes.append(p)
+        losses.append((h["loss"][0], h["loss"][-1]))
+    fit(0, snaps)
+    with EncodeSpy() as warm:
+        build_rate_cnn((cfgs, aes, losses), device, rounds=warmup_rounds,
+                       fixed=True).run()
+    fit(1, [v for (r, _), v in warm.own.items() if r == warmup_rounds - 1])
+    return cfgs, aes, losses
+
+
+def cnn_rate_costs(pm, cfgs, aes) -> dict:
+    """Wire bytes a client of each rung of each group."""
+    from repro_torch.core import codec
+    out = {}
+    for name, rungs in cnn_rate_rungs(pm, cfgs, aes, "cpu").items():
+        n = pm.group_size(name)
+        comps = [f(0, n) for f in rungs]
+        out[name] = [codec.wire_bytes(c.spec(n), c.codec_params())
+                     for c in comps]
+    return out
+
+
+def cnn_rate_rungs(pm, cfgs, aes, device: str) -> dict:
+    """Rung factories: dense0 on each shared AE of ``aes`` (the latent-4,
+    then the latent-8; kernel path, marked ``prefit``), then q8; rest on q4
+    then q8."""
+    from repro_torch.core import ChunkedAECompressor, QuantizeCompressor
+    from repro_torch.core.pytree import tree_map
+    shared = [tree_map(lambda t: t.to(device), p) for p in aes]
+
+    def ae_rung(i):
+        def make(ci, n):
+            comp = ChunkedAECompressor(shared[i], cfgs[i], use_kernel=True)
+            comp.prefit = True
+            return comp
+        return make
+    return {"dense0": [ae_rung(i) for i in range(len(aes))]
+            + [lambda ci, n: QuantizeCompressor(bits=8)],
+            "rest": [lambda ci, n: QuantizeCompressor(bits=4),
+                     lambda ci, n: QuantizeCompressor(bits=8)]}
+
+
+def build_rate_cnn(rungs_fit, device: str, n_clients: int = 8,
+                   rounds: int = 6, fixed: bool = False):
+    """Run (n): ``SyncFedAvg`` over the CIFAR CNN at full width, ``n``
+    clients of 64 images, 1 local epoch, payload "weights", the grouped
+    server round (``use_grouped_kernel=True``), a per-partition ladder
+    (:func:`cnn_rate_rungs`) under ``RDBudget(cooldown=2, min_snapshots=2,
+    refit_epochs=5, refit_batch=4)`` with the budget halfway between the
+    all-cheapest and the all-dearest plan of the cohort; ``fixed`` holds
+    every lane on its cheapest rung instead (``FixedRate``)."""
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core import (FederatedRun, FixedRate, FLConfig,
+                                  RDBudget, partition_ladder)
+    cfgs, aes, _ = rungs_fit
+    pm = cnn_partition()
+    costs = cnn_rate_costs(pm, cfgs, aes)
+    budget = n_clients * (sum(c[0] for c in costs.values())
+                          + sum(c[-1] for c in costs.values())) / 2
+    data, ev = cnn_rate_data(n_clients)
+    ladder = partition_ladder(n_clients, pm,
+                              cnn_rate_rungs(pm, cfgs, aes, device))
+    rc = (FixedRate(ladder=ladder, partition=pm) if fixed else
+          RDBudget(ladder=ladder, partition=pm, budget=budget,
+                   **CNN_RATE_RD))
+    return FederatedRun(
+        CIFAR_CLASSIFIER, data,
+        FLConfig(n_rounds=rounds, local_epochs=1, payload="weights",
+                 use_grouped_kernel=True, seed=0),
+        eval_data=ev, ratecontrol=rc, device=device)
+
+
+class GroupedSpy:
+    """Records each grouped decode→aggregate launch's buckets ``(C_b,
+    M_b)``, K, N and decoder slots (``partition._grouped_round`` calls
+    ``grouped_fused_decode_agg_decoders`` once a launch). A context
+    manager that puts the function back."""
+
+    def __enter__(self):
+        from repro_torch.kernels import fused_decode_agg as mod
+        self.mod, self.real = mod, mod.grouped_fused_decode_agg_decoders
+        self.calls = []
+
+        def spy(hs, ws, decoders, dec_idx, *a, **kw):
+            self.calls.append(dict(
+                buckets=[list(h.shape[:2]) for h in hs],
+                K=int(hs[0].shape[-1]), N=int(decoders[0][0].shape[-1]),
+                dec_idx=list(dec_idx)))
+            return self.real(hs, ws, decoders, dec_idx, *a, **kw)
+        mod.grouped_fused_decode_agg_decoders = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_fused_decode_agg_decoders = self.real
+
+
+def _max(x) -> float:
+    return float(x.max()) if x.numel() else 0.0
+
+
+def rate_cnn_replay(fit, n_clients: int = 2, rounds: int = 3) -> tuple:
+    """Run (n)'s reduced copy on the card and on the CPU, the CPU run
+    encoding the card's trained local model of each round and client in
+    place of its own (:class:`EncodeSpy`), so a code boundary that the
+    two devices' local training straddles by rounding cannot fork the
+    trajectories (:func:`rate_cnn_witness` shows that it does). Held: each
+    local model the CPU trains against the card's in the golden band,
+    except where both devices' single Adam step is partial (smaller than
+    0.99 lr: a gradient under 99 times Adam's eps, at rounding level,
+    whose size and sign the rounding decides; Adam's normalization turns
+    it into a step of up to lr either way); each payload's floats, the
+    global params and the loss and accuracy after every round, the
+    controllers' probed distortions and ladder params (switch-time refits
+    included) in the golden band; every payload's integer codes, the
+    switches, occupancy, bytes and the rest of the controller state
+    exact. Returns what it measured and both runs' final flat params."""
+    import math
+    import torch
+    from repro_torch.core.pytree import leaves, ravel
+    tag = f"rate (n) reduced ({n_clients} clients, {rounds} rounds)"
+    runs, spies, params = {}, {}, {}
+    with ProbeSpy() as probes:
+        for dev in ("cuda", "cpu"):
+            run = build_rate_cnn(fit, dev, n_clients, rounds)
+            replay = spies["cuda"].own if dev == "cpu" else None
+            params[dev] = []
+            with EncodeSpy(replay) as spies[dev]:
+                for r in range(rounds):
+                    run.history.append(run.scheduler.run_round(r))
+                    params[dev].append(ravel(run.global_params)[0].cpu())
+            runs[dev] = run
+    g, c = runs["cuda"], runs["cpu"]
+    check_rate_decisions(tag, g, c, probes)
+    lr = g.cfg.lr
+    require(all(g.cfg.local_epochs * math.ceil(
+        len(next(iter(d.values()))) / g.cfg.batch_size) == 1
+        for d in g.datasets), f"{tag}: a local model must be one Adam step")
+
+    def held(what, got, want) -> float:
+        try:
+            return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
+        except AssertionError as e:
+            raise AssertionError(f"{tag}: {what}: {e}") from None
+    rep = dict(local_full_steps=0.0, local_partial_steps=0,
+               local_partial_out_of_band=0, local_partial_max_abs_err=0.0,
+               payload=0.0, codes=0, params=[], distortion=0.0, ladder=0.0)
+    for key in sorted(spies["cuda"].own):
+        og, oc = spies["cuda"].own[key].cpu(), spies["cpu"].own[key]
+        ug = og - spies["cuda"].start[key].cpu()
+        uc = oc - spies["cpu"].start[key]
+        partial = (ug.abs() < 0.99 * lr) & (uc.abs() < 0.99 * lr)
+        d = (og - oc).abs()
+        out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * oc.abs()
+        require(not bool((out & ~partial).any()),
+                f"{tag}: local model {key}: {int((out & ~partial).sum())} "
+                "params out of the band where a device took a full Adam "
+                f"step, max {_max(d[out & ~partial])}")
+        rep["local_full_steps"] = max(rep["local_full_steps"],
+                                      _max(d[~partial]))
+        rep["local_partial_steps"] += int(
+            (partial & ((ug != 0) | (uc != 0))).sum())
+        rep["local_partial_out_of_band"] += int((out & partial).sum())
+        rep["local_partial_max_abs_err"] = max(
+            rep["local_partial_max_abs_err"], _max(d[partial]))
+        for a, b in zip(leaves(spies["cuda"].payloads[key]),
+                        leaves(spies["cpu"].payloads[key]), strict=True):
+            if a.dtype.is_floating_point:
+                rep["payload"] = max(rep["payload"],
+                                     held(f"payload {key}", a, b))
+            else:
+                require(torch.equal(a.cpu(), b),
+                        f"{tag}: payload codes {key} differ")
+                rep["codes"] += a.numel()
+    for r, (pg, pc) in enumerate(zip(params["cuda"], params["cpu"])):
+        rep["params"].append(held(f"round {r} global params", pg, pc))
+    for a, b in zip(g.history, c.history, strict=True):
+        for k in ("loss", "accuracy"):
+            held(f"round {a.round} {k}", torch.tensor(a.global_metrics[k]),
+                 torch.tensor(b.global_metrics[k]))
+    mg, mc = g.ratecontrol.state_meta(), c.ratecontrol.state_meta()
+    dg, dc = mg.pop("distortion"), mc.pop("distortion")
+    require(mg == mc and dg.keys() == dc.keys(),
+            f"{tag}: controller state differs")
+    rep["distortion"] = held("probed distortions",
+                             torch.tensor(list(dg.values())),
+                             torch.tensor(list(dc.values())))
+    for a, b in zip(leaves(g.ratecontrol.state_tree()),
+                    leaves(c.ratecontrol.state_tree()), strict=True):
+        rep["ladder"] = max(rep["ladder"], held("ladder params", a, b))
+    rep["switches"] = [r.spec_switches for r in g.history]
+    return rep, params["cuda"][-1], params["cpu"][-1]
+
+
+def rate_cnn_witness(fit, card_final, n_clients: int = 2,
+                     rounds: int = 3) -> dict:
+    """Why :func:`rate_cnn_replay` replays the card's local models: run
+    (n)'s reduced copy runs free on the CPU twice, once from initial params
+    nudged up by one ulp. Returns per group the parameters out of the
+    golden band and the largest difference, for the card's free run
+    (``card_final``, the replay's card side) against the free CPU run, and
+    for the two free CPU runs."""
+    import torch
+    from repro_torch.core.pytree import ravel, tree_map
+    finals = []
+    for nudge in (False, True):
+        run = build_rate_cnn(fit, "cpu", n_clients, rounds)
+        if nudge:
+            run.global_params = tree_map(
+                lambda t: torch.nextafter(t, torch.full_like(t, torch.inf)),
+                run.global_params)
+        run.run()
+        finals.append(ravel(run.global_params)[0])
+    pm = cnn_partition()
+    idx = {name: torch.cat([torch.arange(o, o + n)
+                            for o, n in pm.slices_of(name)])
+           for name in pm.names}
+
+    def apart(a, b) -> dict:
+        d = (a - b).abs()
+        out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * b.abs()
+        return {name: dict(out_of_band=int(out[i].sum()),
+                           max_abs_err=float(d[i].max()))
+                for name, i in idx.items()}
+    return {"card_free_vs_cpu_free": apart(card_final, finals[0]),
+            "cpu_free_vs_cpu_one_ulp": apart(finals[0], finals[1])}
+
+
+def controller_state_equal(tag: str, a, b) -> None:
+    import torch
+    from repro_torch.core.pytree import leaves
+    require(a.state_meta() == b.state_meta(),
+            f"{tag}: controller state differs")
+    require(all(torch.equal(x, y) for x, y in zip(
+        leaves(a.state_tree()), leaves(b.state_tree()), strict=True)),
+        f"{tag}: controller ladder params differ")
+
+
+def lane_bytes_check(tag: str, run, costs: dict) -> list:
+    """Replay the records' switches from the all-rung-0 start: each
+    round's ``bytes_up`` must be the wire cost of the rungs its clients
+    sat on; returns the dense0 rung occupancy of each round."""
+    occ = {name: [0] * len(run.clients) for name in costs}
+    per_round = []
+    for rec in run.history:
+        want = sum(costs[name][occ[name][ci]]
+                   for name in costs for ci in rec.participants)
+        require(rec.bytes_up == want,
+                f"{tag} r{rec.round}: bytes_up {rec.bytes_up} != {want}")
+        per_round.append(list(occ["dense0"]))
+        for (ci, name), old, new in rec.spec_switches:
+            require(occ[name][ci] == old, f"{tag}: switch from {old}")
+            occ[name][ci] = new
+    return per_round
+
+
+def run_rate_frontier() -> None:
+    """Phase 11, run (m): the pre-pass and rung fits on the card, then each
+    of :func:`rate_policies` on the card and on the CPU from the same
+    ladder, held with :func:`check_rate_decisions` and
+    :func:`check_cuda_vs_cpu`; one line a policy."""
+    import gc
+    import torch
+    from repro_torch.kernels import _lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre_m = prepass_rate_ladder("cuda")
+    torch.cuda.synchronize()
+    prepass_m_s = time.perf_counter() - t0
+    require(all(last < first for first, last in pre_m[3]),
+            "run (m): a rung AE fit did not descend")
+    log(f"rate (m) pre-pass of 4 clients and 12 rung AEs ({RATE_LATENTS}, "
+        f"hidden {RATE_HIDDEN}, {RATE_AE_EPOCHS} epochs) on the card: "
+        f"{prepass_m_s!r} s; AE loss (first, last) {pre_m[3]!r}")
+    _lib.reset_launches()
+    for name, make_rc, make_sched in rate_policies():
+        res = {}
+        with ProbeSpy() as probes:
+            for dev in ("cuda", "cpu"):
+                run = build_rate_run(pre_m, make_rc, make_sched, dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run.run()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                res[dev] = (run, time.perf_counter() - t0)
+        (g, g_s), (c, c_s) = res["cuda"], res["cpu"]
+        check_rate_decisions(f"rate (m) {name}", g, c, probes)
+        err = check_cuda_vs_cpu(f"rate (m) {name}", g, g.history, c,
+                                c.history)
+        rc = g.ratecontrol
+        tot = g.total_bytes()
+        log("rate (m) " + json.dumps(dict(
+            policy=name, accuracy=g.history[-1].global_metrics["accuracy"],
+            bytes_up=tot["bytes_up"], bytes_decoder=tot["bytes_decoder"],
+            switches=sum(len(r.spec_switches or []) for r in g.history),
+            switches_by_round=[r.spec_switches for r in g.history],
+            occupancy=[rc.rung_of(ci) for ci in range(4)],
+            probe_dispatches=rc.probe_dispatches,
+            probe_launches=sum(p["launches"] for p in probes.of(rc)),
+            lambda_trace=getattr(rc, "lambda_trace", None),
+            card_s=g_s, cpu_s=c_s, params_max_abs_err_vs_cpu=err)))
+        del res, g, c
+    log(f"rate (m) cuda == cpu for all {len(rate_policies())} policies: "
+        "switches, occupancy, bytes_up, bytes_decoder exact; loss/accuracy/"
+        "params within atol=2e-5 rtol=2e-4; kernel launches "
+        f"{_lib.counts()} (the FC AEs are cuBLAS matrix products)")
+    del pre_m
+
+
+def ae_buckets(run, name: str = "dense0") -> tuple:
+    """How the next grouped round will route ``name``'s AE lanes: the
+    sizes of the buckets (lanes on one AE rung) whose lanes share one
+    params object, which join the kernel-5 launch, and of those whose
+    lanes hold their own, which take the batched-params route."""
+    buckets = {}
+    for ci, comp in enumerate(run.compressors):
+        sub = comp.compressors[name]
+        if sub.ae_compressor() is not None:
+            buckets.setdefault(sub.cfg.latent_chunk, []).append(sub.params)
+    shared = sorted(len(b) for b in buckets.values()
+                    if all(p is b[0] for p in b))
+    own = sorted(len(b) for b in buckets.values()
+                 if not all(p is b[0] for p in b))
+    return shared, own
+
+
+def run_rate_cnn(launches: dict) -> dict:
+    """Phase 12, run (n): the shared AE rungs fitted on the card, 6 rounds
+    of :func:`build_rate_cnn` on the card (per round its launches, routes,
+    kernel-5 buckets, probes, switches, refits and decoder ships), a rerun
+    and a resume held to ``torch.equal``, the reduced copy on the card and
+    the CPU (:func:`rate_cnn_replay`, :func:`rate_cnn_witness`). Adds run
+    (n)'s counts to ``launches``; returns its ``fused_dense`` launches by
+    route."""
+    import gc
+    import torch
+    from repro_torch.core.autoencoder import decoder_sync_bytes
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import fused_dense as fd_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    fit_n = prefit_cnn_rungs("cuda")
+    torch.cuda.synchronize()
+    fit_n_s = time.perf_counter() - t0
+    require(all(last < first for first, last in fit_n[2]),
+            "run (n): a rung AE fit did not descend")
+    pm_n = cnn_partition()
+    costs_n = cnn_rate_costs(pm_n, fit_n[0], fit_n[1])
+    ship_n = [decoder_sync_bytes(p) for p in fit_n[1]]
+    _lib.reset_launches()
+    fd_mod.ROUTE_LAUNCHES.clear()
+    plays_n = []
+    with CohortSpy() as spy_n, GroupedSpy() as gspy, ProbeSpy() as probes:
+        run_n = build_rate_cnn(fit_n, "cuda")
+        for _ in range(6):
+            g0, want = len(gspy.calls), ae_buckets(run_n)
+            plays_n += play(run_n, 1, "cuda", spy_n)
+            plays_n[-1].update(grouped=gspy.calls[g0:], routing=want)
+    torch.cuda.synchronize()
+    counts_n = _lib.counts()
+    routes_n = dict(fd_mod.ROUTE_LAUNCHES)
+    rc_n, hist_n = run_n.ratecontrol, run_n.history
+    for k in ("quantize_blocks_2d", "dequantize_blocks_2d", "fused_dense",
+              "grouped_fused_decode_agg"):
+        require(counts_n.get(k, 0) > 0, f"run (n) never launched {k}")
+        launches[k + "_run_n"] = counts_n[k]
+    occ_n = lane_bytes_check("run (n)", run_n, costs_n)
+    require(any(len(set(o)) > 1 for o in occ_n),
+            "run (n): no round mixed dense0 rungs")
+    n_ae = len(fit_n[1])
+    for rec in hist_n:
+        moved = [(lane, new) for lane, _, new in rec.spec_switches
+                 if lane[1] == "dense0" and new < n_ae]
+        want = sorted(([(ci, "dense0") for ci in range(8)]
+                       if rec.round == 0 else []) + [ln for ln, _ in moved])
+        require(rec.ae_syncs == want and rec.bytes_decoder
+                == 8 * ship_n[0] * (rec.round == 0)
+                + sum(ship_n[new] for _, new in moved),
+                f"run (n) r{rec.round}: decoder ships {rec.ae_syncs} "
+                f"{rec.bytes_decoder} are not round 0's 8 initial ships "
+                "and one a switch onto an AE rung")
+    refit_rounds = [p["round"] for p in plays_n if p["refits"]]
+    require(refit_rounds, "run (n): no switch-time refit")
+    first_refit = refit_rounds[0]
+    require(any(new == 1 for r in hist_n[first_refit:first_refit + 1]
+                for (_, name), _, new in r.spec_switches
+                if name == "dense0"),
+            "run (n): the first refit round bought no latent-8 lane")
+    for p in plays_n:
+        got = sorted(b[0] for c in p["grouped"] for b in c["buckets"])
+        require(got == p["routing"][0],
+                f"run (n) round {p['round']}: kernel-5 buckets {got}, "
+                f"lanes sharing a decoder {p['routing'][0]}")
+        if p["round"] <= first_refit:
+            require(p["launches"].get("grouped_fused_decode_agg", 0) == 1,
+                    f"run (n) round {p['round']}: kernel 5 must launch "
+                    "once while the lanes share the decoders")
+    require(any(p["routing"][1] for p in plays_n[first_refit + 1:]),
+            "run (n): no refit lane's bucket took the batched-params route")
+    require(any([8, 1802] in c["buckets"] for p in plays_n
+                for c in p["grouped"]),
+            "run (n): the 8-client latent-4 bucket never launched")
+    probe_launches = sum(p["launches"] for p in probes.of(rc_n))
+    log(f"rate (n) RDBudget({CNN_RATE_RD}, budget "
+        f"{rc_n.budget!r}) over the CIFAR CNN ({CIFAR_PARAMS} params), 8 "
+        f"clients, partitions {[(n, pm_n.group_size(n)) for n in pm_n.names]}"
+        f", wire bytes a rung {costs_n}, decoder ship {ship_n}; rungs fitted "
+        f"on the card in {fit_n_s!r} s, AE loss (first, last) {fit_n[2]!r}; "
+        f"launches {counts_n}, fused_dense by route {routes_n}; probes "
+        f"{rc_n.probe_dispatches}, {probe_launches} kernel launches; first "
+        f"switch-time refit at round {first_refit}")
+    for p, rec, occ in zip(plays_n, hist_n, occ_n):
+        probed = [(q["group"], q["launches"], q["errs"].round(6).tolist())
+                  for q in probes.of(rc_n) if q["round"] == rec.round]
+        log(f"rate (n) r{rec.round}: {p['s']!r} s (host clock), dense0 rungs "
+            f"{occ}, launches {p['launches']}, fused_dense by route "
+            f"{p['routes']}, kernel-5 launches {p['grouped']}, AE buckets "
+            f"(shared, own params) {p['routing']}, probes (group, launches, "
+            f"errors) {probed}, switches {rec.spec_switches}, ae_syncs "
+            f"{rec.ae_syncs}, bytes_up {rec.bytes_up!r}, bytes_decoder "
+            f"{rec.bytes_decoder!r}, refits {p['refits']}, lambda "
+            f"{dict(rc_n.lambda_trace).get(rec.round)!r}, loss "
+            f"{rec.global_metrics['loss']!r}")
+    run_n2 = build_rate_cnn(fit_n, "cuda")
+    play(run_n2, 6, "cuda")
+    check_resume("run (n) rerun", run_n, run_n2, 0)
+    controller_state_equal("run (n) rerun", rc_n, run_n2.ratecontrol)
+    del run_n2
+    res_n, plays_nr, nbytes_n, save_n, load_n = resume_via_checkpoint(
+        "run_n", lambda n: build_rate_cnn(fit_n, "cuda", rounds=n), 4, 2,
+        "cuda")
+    check_resume("run (n) resume", run_n, res_n, 4)
+    controller_state_equal("run (n) resume", rc_n, res_n.ratecontrol)
+    k5_nr = [p["launches"].get("grouped_fused_decode_agg", 0)
+             for p in plays_nr]
+    log(f"rate (n) saved after round 3 ({nbytes_n} B, {save_n!r} s), "
+        f"loaded into a fresh run ({load_n!r} s), rounds 4-5 "
+        f"({[p['s'] for p in plays_nr]!r} s, kernel-5 launches "
+        f"{k5_nr}): params, codec params, snapshot rings, controller "
+        "state and "
+        "records torch.equal / equal to the uninterrupted run (which a "
+        "rerun reproduced bit for bit)")
+    del res_n, run_n
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep, card_final, _ = rate_cnn_replay(fit_n)
+    log("rate (n) reduced (2 clients, 3 rounds) on the card and the CPU, "
+        "the CPU encoding the card's local models: switches, occupancy, "
+        "bytes, controller state and payload codes exact; payload floats, "
+        "global params a round, loss, accuracy, probed distortions and "
+        "ladder params within atol=2e-5 rtol=2e-4, local models too but "
+        "where both devices' Adam step is partial (< 0.99 lr) "
+        + json.dumps(rep))
+    log("rate (n) reduced, free-running trajectories (parameters out of "
+        "the band, largest difference, by group) "
+        + json.dumps(rate_cnn_witness(fit_n, card_final)))
+    del fit_n
+    torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    return routes_n
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -1356,8 +2136,26 @@ def main() -> int:
                 + [check_fused_dense(1080, 8, 512, "relu", torch.float32,
                                      37, 50),
                    check_decode_agg(8, 135, 512, 4096, 38, 20)])
+    # run (n): a client's chunked-AE encode of dense0 (1,802 chunks of 256
+    # -> 32 -> 4), the server's hidden layer over 8 x 1,802 latent chunks
+    # and its grouped launch (one bucket of 8 clients on one decoder, K 32,
+    # N 256), the probe's folded encode and decode over the 8 lanes' 14,416
+    # chunks, and the q8 rung of dense0 (1,802 blocks)
+    rate_n = (list(check_quantize(1802, 8, 41, 20).values())
+              + [check_fused_dense(1802, 256, 32, "relu", torch.float32,
+                                   42, 50),
+                 check_fused_dense(1802, 32, 4, "relu", torch.float32, 43,
+                                   50),
+                 check_fused_dense(14_416, 4, 32, "relu", torch.float32, 44,
+                                   20),
+                 check_fused_dense(14_416, 256, 32, "relu", torch.float32,
+                                   45, 20),
+                 check_fused_dense(14_416, 32, 256, "linear", torch.float32,
+                                   46, 20),
+                 check_grouped_decode_agg([(8, 1802)], 32, 256, [0], 47,
+                                          20)])
     for r in (fd[1:] + grouped + cohort + client
-              + [slice_rows["flash_attention"]] + flash + runtime):
+              + [slice_rows["flash_attention"]] + flash + runtime + rate_n):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -1825,7 +2623,13 @@ def main() -> int:
     log("kmeans KMeansSpec(550586, k=16, iters=8) card vs cpu: "
         + json.dumps(check_kmeans()))
 
-    # --------------------------------------------------------- 11. report
+    # -------------------------------- 11. the rate-control frontier (m)
+    run_rate_frontier()
+
+    # -------------------- 12. a per-partition ladder on kernel 5 (n)
+    routes_n = run_rate_cnn(launches)
+
+    # --------------------------------------------------------- 13. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -1843,11 +2647,12 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
-                 for x in "hijk" if f"{name}_run_{x}" in launches}
+                 for x in "hijkn" if f"{name}_run_{x}" in launches}
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,
-                         launches_by_route_run_k=routes_k)
+                         launches_by_route_run_k=routes_k,
+                         launches_by_route_run_n=routes_n)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
                             **extra,

@@ -103,6 +103,28 @@ def load_pytree(path: str, like: Tree, device: DeviceLike = None
         return _rebuild(like, iter(restored)), meta
 
 
+def _reshare(like: Tree, got: Tree, memo: dict) -> Tree:
+    """``got`` (restored into ``like``'s structure) with sharing put back:
+    where one subtree object of ``like`` stands at several places (one AE
+    params object that several clients' codecs hold) and the restored
+    copies are equal, they become one object again, so the server's
+    shared-params routes (one decoder for the bucket) take the same path
+    after a load as before the save. Unequal copies stay apart."""
+    if isinstance(like, dict):
+        out = {k: _reshare(like[k], got[k], memo) for k in like}
+    elif isinstance(like, (list, tuple)):
+        out = type(like)(_reshare(a, b, memo) for a, b in zip(like, got))
+    else:
+        return got
+    from repro_torch.core.pytree import leaves
+    prev = memo.setdefault(id(like), out)
+    if prev is not out and all(
+            torch.equal(a, b) for a, b in zip(leaves(prev), leaves(out),
+                                               strict=True)):
+        return prev
+    return out
+
+
 def _like(shape, dtype: str) -> torch.Tensor:
     """A shape-and-dtype template that holds no memory."""
     return torch.empty(tuple(shape), dtype=getattr(torch, dtype),
@@ -120,15 +142,14 @@ def save_federated_state(path: str, round_idx: int, global_params: Tree,
     (error-feedback residuals, snapshot rings and lifecycle scalars, async
     ``dispatched`` snapshots), each client's codec params (a lifecycle
     refit moves them) and ``scheduler_state`` (``RoundScheduler.
-    state_dict()``). Arrays go into the npz tree; what rebuilds them
-    (which clients carry a residual, ring shapes, scalar fields) rides in
-    the JSON metadata, key for key as the reference writes it. Rate
-    controller state and struct-of-arrays client state are not ported
-    yet and raise."""
-    if ratecontrol is not None:
-        raise NotImplementedError(
-            "rate-controller checkpoint state is not ported yet (ROADMAP "
-            "Queue A item 9)")
+    state_dict()``). ``ratecontrol`` is a rate controller's
+    ``(state_meta(), state_tree())``: rung occupancy, switch rounds, fitted
+    flags and cached distortions in the JSON metadata, every ladder rung's
+    codec params in the ``ratecontrol`` section of the tree. Arrays go into
+    the npz tree; what rebuilds them (which clients carry a residual, ring
+    shapes, scalar fields) rides in the JSON metadata, key for key as the
+    reference writes it. Struct-of-arrays client state is not ported yet
+    and raises."""
     if clients_soa is not None:
         raise NotImplementedError(
             "struct-of-arrays client state is not ported yet (ROADMAP "
@@ -136,10 +157,13 @@ def save_federated_state(path: str, round_idx: int, global_params: Tree,
     tree: dict = {"global": global_params}
     cmeta = None
     codec_meta = None
+    rc_meta = None
     if codec_params is not None:
         tree["codecs"] = [{"params": p} if p is not None else {}
                           for p in codec_params]
         codec_meta = [p is not None for p in codec_params]
+    if ratecontrol is not None:
+        rc_meta, tree["ratecontrol"] = ratecontrol
     if clients is not None:
         ctree, cmeta = [], []
         for st in clients:
@@ -181,7 +205,7 @@ def save_federated_state(path: str, round_idx: int, global_params: Tree,
     save_pytree(path, tree,
                 metadata={"round": round_idx, "clients": cmeta,
                           "clients_soa": None,
-                          "codecs": codec_meta, "ratecontrol": None,
+                          "codecs": codec_meta, "ratecontrol": rc_meta,
                           "scheduler": scheduler_state, **(extra or {})})
 
 
@@ -194,6 +218,7 @@ def _peek_meta(path: str) -> dict:
 
 def load_federated_state(path: str, like_params: Tree,
                          like_codec_params: Optional[list] = None,
+                         like_ratecontrol: Optional[Tree] = None,
                          device: DeviceLike = None
                          ) -> Tuple[int, Tree, dict]:
     """Restore ``save_federated_state`` (either package's) onto ``device``
@@ -201,9 +226,22 @@ def load_federated_state(path: str, like_params: Tree,
     meta): ``meta["client_states"]`` holds the rebuilt ``ClientState``
     list when client state was saved; ``meta["codec_params"]`` the
     restored per-client codec params when they were saved and
-    ``like_codec_params`` gives their structures; ``meta["scheduler"]``
-    the scheduler's ``state_dict()``. A struct-of-arrays checkpoint raises
-    (not ported yet)."""
+    ``like_codec_params`` gives their structures; ``meta["ratecontrol"]``
+    the controller's JSON state and ``meta["ratecontrol_tree"]`` its ladder
+    params when they were saved and ``like_ratecontrol`` (a freshly bound
+    controller's ``state_tree()``) gives their structure;
+    ``meta["scheduler"]`` the scheduler's ``state_dict()``. A
+    struct-of-arrays checkpoint raises (not ported yet).
+
+    One deviation from the reference, whose load gives every client its
+    own copy of the codec params: equal copies of one params object that
+    several clients shared are one object again (:func:`_reshare`), so a
+    resumed run's shared-AE buckets stay on the shared-decoder server
+    route (the fused decode→aggregate; kernel 5 on the grouped round)
+    where the reference's resume takes the batched-params route. The two
+    routes agree in the golden band
+    (``tests/test_torch_checkpoint.py::
+    test_jax_checkpoint_resumes_shared_ae_on_shared_route``)."""
     from repro_torch.core.pytree import leaves
     dev = (resolve(device) if device is not None
            else leaves(like_params)[0].device)
@@ -222,6 +260,8 @@ def load_federated_state(path: str, like_params: Tree,
         like["codecs"] = [
             {"params": lp} if has else {}
             for has, lp in zip(codec_meta, like_codec_params)]
+    if meta.get("ratecontrol") is not None and like_ratecontrol is not None:
+        like["ratecontrol"] = like_ratecontrol
     cmeta = meta.get("clients")
     if cmeta is not None:
         clike = []
@@ -242,9 +282,13 @@ def load_federated_state(path: str, like_params: Tree,
         like["clients"] = clike
     tree, meta = load_pytree(path, like, dev)
     meta = dict(meta or {})
+    memo: dict = {}
     if "codecs" in like:
-        meta["codec_params"] = [entry.get("params")
-                                for entry in tree["codecs"]]
+        codecs = _reshare(like["codecs"], tree["codecs"], memo)
+        meta["codec_params"] = [entry.get("params") for entry in codecs]
+    if "ratecontrol" in like:
+        meta["ratecontrol_tree"] = _reshare(like["ratecontrol"],
+                                            tree["ratecontrol"], memo)
     if cmeta is not None:
         from repro_torch.core.scheduler import ClientState
         states = []

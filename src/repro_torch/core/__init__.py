@@ -2,6 +2,7 @@
 communication for federated learning (port of ``repro.core``)."""
 from repro_torch.core.aggregate import (  # noqa: F401
     apply_update,
+    distortion_weights,
     normalize_weights,
     staleness_weights,
     weighted_mean_stacked,
@@ -64,6 +65,15 @@ from repro_torch.core.partition import (  # noqa: F401
 )
 from repro_torch.core import partition  # noqa: F401
 from repro_torch.core.lifecycle import AELifecycle  # noqa: F401
+from repro_torch.core.ratecontrol import (  # noqa: F401
+    ByteBudget,
+    DistortionTarget,
+    FixedRate,
+    RateController,
+    RDBudget,
+    fc_ae_ladder,
+    partition_ladder,
+)
 from repro_torch.core.compressor import (  # noqa: F401
     ChainCompressor,
     ChunkedAECompressor,

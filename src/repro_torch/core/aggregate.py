@@ -1,9 +1,9 @@
 """FedAvg aggregation over decoded collaborator updates (port of the parts
-of ``repro.core.aggregate`` the synchronous and buffered-async paths use;
-``distortion_weights`` waits for rate control)."""
+of ``repro.core.aggregate`` the synchronous and buffered-async paths use,
+with the async buffer's staleness and distortion discounts)."""
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
@@ -54,3 +54,18 @@ def staleness_weights(base_weights: Sequence[float],
         raise ValueError("one staleness per weight")
     return [w * float(1 + s) ** (-power)
             for w, s in zip(base_weights, staleness)]
+
+
+def distortion_weights(base_weights: Sequence[float],
+                       distortions: Sequence[Optional[float]],
+                       power: float = 1.0) -> List[float]:
+    """Distortion discount for the async buffer (DESIGN.md §15.5): an
+    update that rode a lossier codec is weighted by ``(1 + e_i) ** -power``,
+    ``e_i`` the client's probed current-rung relative reconstruction error
+    (``RateController.distortion_of``). ``None`` (not probed yet, or no
+    controller) leaves the weight as it is. Host floats, as the reference
+    computes them, so both packages give the same weights."""
+    if len(base_weights) != len(distortions):
+        raise ValueError("one distortion per weight")
+    return [w if e is None else w * float(1 + e) ** (-power)
+            for w, e in zip(base_weights, distortions)]

@@ -221,10 +221,13 @@ class ChainCompressor(Compressor):
 
 @dataclasses.dataclass
 class FCAECompressor(Compressor):
-    """Paper-faithful full FC AE: latent = the entire update's encoding."""
+    """Paper-faithful full FC AE: latent = the entire update's encoding.
+    ``prefit`` (not a field) marks params that came from a fit, so a rate
+    controller trusts this rung's probe from round 0."""
 
     params: Any
     cfg: AEConfig
+    prefit = False
 
     def spec(self, n: int) -> codec.FCAESpec:
         return codec.FCAESpec(size=n, cfg=self.cfg)
@@ -240,11 +243,13 @@ class FCAECompressor(Compressor):
 class ChunkedAECompressor(Compressor):
     """Shared-chunk AE. ``use_kernel=None`` (the default) takes the kernel
     path wherever CUDA is available; ``use_kernel`` is the one switch
-    (``kernels.ops.use_kernel_default``)."""
+    (``kernels.ops.use_kernel_default``). ``prefit`` as for
+    :class:`FCAECompressor`."""
 
     params: Any
     cfg: ae.ChunkedAEConfig
     use_kernel: Optional[bool] = None
+    prefit = False
 
     def spec(self, n: int) -> codec.ChunkedAESpec:
         from repro_torch.kernels.ops import use_kernel_default

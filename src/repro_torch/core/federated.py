@@ -1,7 +1,7 @@
 """Federated-learning orchestration with compressed update communication
-(port of ``repro.core.federated``, with the AE lifecycle and checkpoint
-resume; rate control and struct-of-arrays client state are not ported
-yet). ``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` drive it.
+(port of ``repro.core.federated``, with the AE lifecycle, rate control and
+checkpoint resume; struct-of-arrays client state is not ported yet).
+``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` drive it.
 
 The paper's FL scheme (§1, §3, Fig. 3): a server ships a global model to
 collaborators; each trains locally for E epochs; the weight update (or the
@@ -71,6 +71,11 @@ class RoundRecord:
     participants: Optional[List[int]] = None
     staleness: Optional[List[int]] = None   # async only, per participant
     sim_time: float = 0.0              # async only: simulated clock
+    # rate control (DESIGN.md §9): the policy that drove this round and
+    # its ladder moves, each (client or (client, group), from, to),
+    # effective next round; None without a controller
+    controller: Optional[str] = None
+    spec_switches: Optional[List] = None
 
 
 class FederatedRun:
@@ -80,7 +85,9 @@ class FederatedRun:
     is drawn from a CPU generator seeded with ``fl_cfg.seed`` and moved, so
     CPU and CUDA runs start from identical parameters. ``lifecycle`` (an
     :class:`~repro_torch.core.lifecycle.AELifecycle`) buffers snapshots,
-    refits the clients' AEs and charges their decoder ships."""
+    refits the clients' AEs and charges their decoder ships;
+    ``ratecontrol`` (a :class:`~repro_torch.core.ratecontrol.
+    RateController`) moves clients along a ladder of compressors."""
 
     def __init__(
         self,
@@ -91,6 +98,7 @@ class FederatedRun:
         eval_data: Optional[Dict[str, torch.Tensor]] = None,
         scheduler: Optional[RoundScheduler] = None,
         lifecycle: Optional[AELifecycle] = None,
+        ratecontrol=None,
         device: DeviceLike = None,
     ):
         self.device = resolve(device)
@@ -114,6 +122,12 @@ class FederatedRun:
         self.history: List[RoundRecord] = []
         self.round_offset = 0              # set by load_state on resume
         self.lifecycle = lifecycle
+        # the controller binds before the scheduler: its ladder installs
+        # each client's initial rung, which the scheduler's first dispatch
+        # must see (DESIGN.md §9.1)
+        self.ratecontrol = ratecontrol
+        if ratecontrol is not None:
+            ratecontrol.bind(self)
         self.scheduler = scheduler if scheduler is not None else SyncFedAvg()
         self.scheduler.bind(self)
 
@@ -152,12 +166,19 @@ class FederatedRun:
         layout: round index, global params, every ``ClientState`` (residuals,
         snapshot rings, lifecycle scalars, async dispatch snapshots), each
         client's codec params (a lifecycle refit moves them) and the
-        scheduler's event-loop state."""
+        scheduler's event-loop state. Under a rate controller the codec
+        params ride its ladder tree (every rung's params, with the rung
+        occupancy in the metadata) instead of the flat ``codecs``
+        section."""
         from repro_torch.checkpoint.checkpoint import save_federated_state
+        rc = self.ratecontrol
         save_federated_state(
             path, self.round_offset + len(self.history), self.global_params,
             clients=self.clients,
-            codec_params=[c.codec_params() for c in self.compressors],
+            codec_params=(None if rc is not None else
+                          [c.codec_params() for c in self.compressors]),
+            ratecontrol=((rc.state_meta(), rc.state_tree())
+                         if rc is not None else None),
             scheduler_state=self.scheduler.state_dict(),
             extra={"task": self.task.checkpoint_key()})
 
@@ -165,9 +186,9 @@ class FederatedRun:
         """Restore a checkpoint (this package's or the reference's) into
         this freshly constructed run, onto its device; later ``run()``
         calls continue from the saved round. Returns the next round
-        index. A checkpoint of another task is refused before any state is
-        touched; rate-controller and struct-of-arrays checkpoints raise
-        (not ported yet)."""
+        index. A checkpoint of another task, or one whose rate-controller
+        presence differs from this run's, is refused before any state is
+        touched; a struct-of-arrays checkpoint raises (not ported yet)."""
         from repro_torch.checkpoint.checkpoint import (_peek_meta,
                                                        load_federated_state)
         meta = _peek_meta(path)
@@ -178,13 +199,24 @@ class FederatedRun:
                 f"{saved_task!r} but this run's task is "
                 f"{self.task.checkpoint_key()!r} — params cannot be "
                 "restored; rebuild the run with the matching task")
-        if meta.get("ratecontrol") is not None:
-            raise NotImplementedError(
-                "checkpoint holds rate-controller state; rate control is "
-                "not ported yet (ROADMAP Queue A item 9)")
+        rc = self.ratecontrol
+        # codec params ride the controller's ladder tree when one is
+        # attached and the flat ``codecs`` section otherwise: a mismatch
+        # would leave every compressor at its construction-time params
+        saved_rc = meta.get("ratecontrol") is not None
+        if (rc is not None) != saved_rc:
+            raise ValueError(
+                "rate-controller mismatch: checkpoint was saved "
+                f"{'with' if saved_rc else 'without'} a RateController but "
+                f"this run was constructed "
+                f"{'with' if rc is not None else 'without'} one — codec "
+                "params cannot be restored; rebuild the run to match the "
+                "checkpoint")
         rnd, params, meta = load_federated_state(
             path, self.global_params,
-            like_codec_params=[c.codec_params() for c in self.compressors],
+            like_codec_params=(None if rc is not None else
+                               [c.codec_params() for c in self.compressors]),
+            like_ratecontrol=(rc.state_tree() if rc is not None else None),
             device=self.device)
         self.global_params = params
         if meta.get("client_states") is not None:
@@ -196,6 +228,8 @@ class FederatedRun:
         for comp, restored in zip(self.compressors,
                                   meta.get("codec_params") or []):
             comp.set_codec_params(restored)
+        if rc is not None:
+            rc.load_state(meta["ratecontrol"], meta["ratecontrol_tree"])
         self.history = []
         self.round_offset = rnd
         self.scheduler.on_restore(meta.get("scheduler"))

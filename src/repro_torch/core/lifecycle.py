@@ -22,7 +22,9 @@ decoder traffic is the ``Cost`` term of the savings ratio (Eq. 5/6).
 * **decoder-sync accounting**: every shipped decoder (the pre-pass decoder
   on first participation, then one a refresh) is charged to the round's
   ``bytes_down`` and itemized in ``bytes_decoder`` / ``ae_syncs``, which
-  ``savings.reconcile`` checks against Eq. 4–6.
+  ``savings.reconcile`` checks against Eq. 4–6;
+* a refresh refit tells the run's rate controller (``note_refit``) that
+  the lane's active rung is fitted.
 """
 from __future__ import annotations
 
@@ -193,8 +195,13 @@ class AELifecycle:
                                     st.snapshots, st.last_refresh,
                                     st.ae_baseline):
                 todo.append(ci)
+        rc = getattr(run, "ratecontrol", None)
         for lane, new_params in self._refit(run, r, todo):
             self._lane_comp(run, lane).params = new_params
+            if rc is not None:
+                # the active rung's probe is honest from here on: the rate
+                # policies gate unfit rungs on it (DESIGN.md §15.2)
+                rc.note_refit(lane)
             if isinstance(lane, tuple):
                 ci, name = lane
                 st = run.clients[ci]

@@ -10,10 +10,11 @@
   (client, dispatch) its round-trip time.
 
 After each round's aggregation every scheduler advances the AE lifecycle
-(:func:`_lifecycle_sync`, DESIGN.md §8): decoder ships are charged to the
-round's downlink. Each scheduler checkpoints through
-``state_dict``/``on_restore``; ``AsyncBuffered`` carries its whole event
-loop, in one shape for both engines. Rate control is not ported yet.
+and then the rate controller (:func:`_lifecycle_sync`, DESIGN.md §8–§9):
+decoder ships are charged to the round's downlink, rung switches land in
+the record. Each scheduler checkpoints through ``state_dict``/
+``on_restore``; ``AsyncBuffered`` carries its whole event loop, in one
+shape for both engines.
 
 Clients ship *encoded payloads*. The server stacks the round's cohort
 along a client axis and runs one ``codec.decode_and_aggregate`` call per
@@ -36,8 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.aggregate import (apply_update, normalize_weights,
-                                        staleness_weights)
+from repro_torch.core.aggregate import (apply_update, distortion_weights,
+                                        normalize_weights, staleness_weights)
 from repro_torch.core.compressor import (codec_stats, ef_compensate,
                                          ef_residual, tree_bytes)
 from repro_torch.core.pytree import ravel, stack, tree_map
@@ -122,6 +123,11 @@ def _encode_local(run, ci: int, local: Tree, global_params: Tree,
         # snapshot exactly what the codec is about to see (post-EF): the
         # refit distribution is the encode distribution (DESIGN.md §8.2)
         run.lifecycle.observe(state, comp, flat)
+    rc = getattr(run, "ratecontrol", None)
+    if rc is not None:
+        # the controller's distortion decisions need the same input,
+        # including lanes the lifecycle does not buffer (DESIGN.md §9.1)
+        rc.observe(run, state, comp, flat)
     spec = comp.spec(flat.numel())
     params = comp.codec_params()
     payload = codec.encode(spec, params, flat)
@@ -199,14 +205,29 @@ def _server_aggregate(run, encoded: Sequence[EncodedUpdate],
 
 
 def _lifecycle_sync(run, r: int, participants
-                    ) -> Tuple[float, Optional[list]]:
-    """Advance the AE lifecycle (DESIGN.md §8) after the round's server
-    aggregate. Returns (decoder-sync bytes to charge to ``bytes_down``,
-    synced lanes), or (0.0, None) without a lifecycle, so every scheduler
-    calls it unconditionally."""
-    if run.lifecycle is None:
-        return 0.0, None
-    return run.lifecycle.end_of_round(run, r, participants)
+                    ) -> Tuple[float, Optional[list], Optional[list]]:
+    """Advance the AE lifecycle (DESIGN.md §8) and then the rate controller
+    (DESIGN.md §9) after the round's server aggregate: the decoder that
+    served this round is charged before the controller switches a client
+    off it. Returns (decoder-sync bytes to charge to ``bytes_down``, synced
+    lanes, rung switches), (0.0, None, None) when neither is attached."""
+    dec_bytes, syncs = 0.0, None
+    if run.lifecycle is not None:
+        dec_bytes, syncs = run.lifecycle.end_of_round(run, r, participants)
+    switches = None
+    rc = getattr(run, "ratecontrol", None)
+    if rc is not None:
+        rc_bytes, rc_syncs, switches = rc.end_of_round(run, r, participants)
+        dec_bytes += rc_bytes
+        # a multiset of ships: an initial ship and a switch re-ship in one
+        # round count twice (Eq. 5's NumDecoders, savings.reconcile)
+        syncs = sorted((syncs or []) + rc_syncs)
+    return dec_bytes, syncs, switches
+
+
+def _controller_name(run) -> Optional[str]:
+    rc = getattr(run, "ratecontrol", None)
+    return rc.name if rc is not None else None
 
 
 def _measured_up(encoded: Sequence[EncodedUpdate]) -> float:
@@ -272,7 +293,7 @@ class SyncFedAvg(RoundScheduler):
         run.global_params = _server_aggregate(
             run, encoded, [e.weight for e in encoded])
         n = len(run.datasets)
-        dec_bytes, syncs = _lifecycle_sync(run, r, range(n))
+        dec_bytes, syncs, switches = _lifecycle_sync(run, r, range(n))
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
@@ -282,6 +303,7 @@ class SyncFedAvg(RoundScheduler):
             bytes_down=model_bytes * n + dec_bytes,
             bytes_down_raw=model_bytes * n + dec_bytes,
             bytes_decoder=dec_bytes, ae_syncs=syncs,
+            spec_switches=switches, controller=_controller_name(run),
             participants=list(range(n)))
 
 
@@ -340,7 +362,7 @@ class SampledSync(RoundScheduler):
         run.global_params = _server_aggregate(
             run, encoded, [e.weight for e in encoded])
         c = len(cohort)
-        dec_bytes, syncs = _lifecycle_sync(run, r, cohort)
+        dec_bytes, syncs, switches = _lifecycle_sync(run, r, cohort)
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
@@ -350,6 +372,7 @@ class SampledSync(RoundScheduler):
             bytes_down=model_bytes * c + dec_bytes,
             bytes_down_raw=model_bytes * c + dec_bytes,
             bytes_decoder=dec_bytes, ae_syncs=syncs,
+            spec_switches=switches, controller=_controller_name(run),
             participants=cohort)
 
 
@@ -408,8 +431,12 @@ class AsyncBuffered(RoundScheduler):
     struct-of-arrays :class:`~repro_torch.core.arrival.ArrivalEngine`,
     order-exact against it (same ``(time, seq)`` contract, ``float64``
     times), so the two give bit-identical runs.
-    ``distortion_power`` other than 0 needs rate control, which is not
-    ported yet (ROADMAP Queue A item 9), and raises."""
+
+    ``distortion_power`` (DESIGN.md §15.5) further discounts each drained
+    update by ``(1 + e_i) ** -distortion_power``, ``e_i`` the client's
+    probed current-rung error (``RateController.distortion_of``); 0 (the
+    default) leaves the weights as they were, and so does a client not
+    probed yet or a run without a controller."""
 
     buffer_k: int = 2
     latency: LatencyModel = dataclasses.field(default_factory=LatencyModel)
@@ -420,10 +447,6 @@ class AsyncBuffered(RoundScheduler):
     def bind(self, run) -> None:
         if self.engine not in ("heap", "vector"):
             raise ValueError(f"unknown AsyncBuffered engine {self.engine!r}")
-        if self.distortion_power:
-            raise NotImplementedError(
-                "distortion-weighted staleness needs a rate controller, "
-                "which is not ported yet (ROADMAP Queue A item 9)")
         super().bind(run)
         self._reset()
 
@@ -549,12 +572,19 @@ class AsyncBuffered(RoundScheduler):
 
         weights = staleness_weights([e.weight for e in encoded], stales,
                                     self.staleness_power)
+        if self.distortion_power:
+            rc = getattr(run, "ratecontrol", None)
+            weights = distortion_weights(
+                weights,
+                [rc.distortion_of(ci) if rc is not None else None
+                 for ci in arrived],
+                self.distortion_power)
         run.global_params = _server_aggregate(run, encoded, weights)
         self._version += 1
         for ci in arrived:
             run.clients[ci].dispatched = None
         self._to_redispatch = list(arrived)
-        dec_bytes, syncs = _lifecycle_sync(run, r, arrived)
+        dec_bytes, syncs, switches = _lifecycle_sync(run, r, arrived)
         return _finish_record(
             run, r, [e.metrics for e in encoded],
             sum(e.stats["compressed_bytes"] for e in encoded),
@@ -564,4 +594,5 @@ class AsyncBuffered(RoundScheduler):
             bytes_down=bytes_down + dec_bytes,
             bytes_down_raw=bytes_down + dec_bytes,
             bytes_decoder=dec_bytes, ae_syncs=syncs,
+            spec_switches=switches, controller=_controller_name(run),
             participants=arrived, staleness=stales, sim_time=self._clock)

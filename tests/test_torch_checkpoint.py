@@ -6,11 +6,18 @@
 * interchange: a checkpoint the JAX package saves of a 3-client q8 + error
   feedback MLP run loads in the port, whose next round matches the JAX
   run's next round, and the reverse;
-* the resume matrix (modelled on ``tests/test_resume_matrix.py``, no rate
-  control): ``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` (heap and
-  vector engines) × flat and partitioned codecs, with an AE lifecycle
-  attached: the resumed run ``torch.equal`` to the uninterrupted one, its
-  bytes equal to the reference's resumed run;
+* the resume matrix (modelled on ``tests/test_resume_matrix.py``):
+  ``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` (heap and vector
+  engines) × flat and partitioned codecs, with an AE lifecycle attached;
+  and its controller rows, the three schedulers × ``DistortionTarget`` /
+  ``ByteBudget`` / ``RDBudget`` × flat and per-partition ladders at the
+  reference's own ladders and settings: the resumed run ``torch.equal`` to
+  the uninterrupted one, its bytes and switches equal to the reference's
+  resumed run;
+* controller checkpoints interchange: one the JAX package saves resumes in
+  the port to the reference's own resumed trajectory, and the reverse,
+  flat (an FC-AE ladder) and per-partition (a shared chunked-AE rung);
+  after a load, clients that shared one AE params object share it again;
 * an async checkpoint restored into the other engine;
 * refusals: a checkpoint of another task, and struct-of-arrays state.
 
@@ -36,6 +43,7 @@ from repro.models.classifiers import init_classifier  # noqa: E402
 
 from repro_torch import core as T  # noqa: E402
 from repro_torch.checkpoint import checkpoint as tck  # noqa: E402
+from repro_torch.configs.paper import AEConfig as TAEConfig  # noqa: E402
 from repro_torch.configs.paper import ClassifierConfig  # noqa: E402
 from repro_torch.configs.paper import MNIST_CLASSIFIER  # noqa: E402
 from repro_torch.core.pytree import from_jax_params, leaves, ravel  # noqa: E402
@@ -353,3 +361,286 @@ def test_load_refuses_another_task_and_soa_state(tmp_path):
     jrun.save_state(soa)
     with pytest.raises(NotImplementedError, match="item 10"):
         _torch_q8(1).load_state(soa)
+
+
+# ------------------------------------------------------------ controllers
+def _flat_ladder(pkg):
+    return [[pkg.QuantizeCompressor(bits=4), pkg.QuantizeCompressor(bits=8),
+             pkg.IdentityCompressor()] for _ in range(N_CLIENTS)]
+
+
+def _part_pm(pkg):
+    return pkg.by_layer_partition(
+        init_classifier(jax.random.PRNGKey(0), J_MLP) if pkg is J
+        else from_jax_params(P0, "cpu"))
+
+
+def _part_ladder(pkg):
+    pm = _part_pm(pkg)
+    rungs = {name: [lambda ci, n: pkg.QuantizeCompressor(bits=4),
+                    lambda ci, n: pkg.QuantizeCompressor(bits=8),
+                    lambda ci, n: pkg.IdentityCompressor()]
+             for name in pm.names}
+    return pkg.partition_ladder(N_CLIENTS, pm, rungs), pm
+
+
+def _controller(pkg, kind, layout):
+    """``tests/test_resume_matrix.py``'s controllers, in either package."""
+    if layout == "partitioned":
+        ladder, pm = _part_ladder(pkg)
+    else:
+        ladder, pm = _flat_ladder(pkg), None
+    if kind == "distortion":
+        return pkg.DistortionTarget(ladder=ladder, partition=pm, target=5e-9,
+                                    margin=1e-3, min_snapshots=1, cooldown=1)
+    cls = pkg.RDBudget if kind == "rd" else pkg.ByteBudget
+    return cls(ladder=ladder, partition=pm, budget=float("inf"),
+               min_snapshots=1)
+
+
+def _mk_rc(pkg, sched, kind, layout, n_rounds):
+    cfg = dict(n_rounds=n_rounds, local_epochs=1, batch_size=16,
+               payload="update")
+    d, ev = _data(jpipe if pkg is J else tpipe)
+    rc = _controller(pkg, kind, layout)
+    if pkg is J:
+        return J.FederatedRun(J_MLP, d, J.FLConfig(**cfg), eval_data=ev,
+                              scheduler=_scheduler(J, sched), ratecontrol=rc)
+    return T.FederatedRun(_JaxInitTask(MNIST_CLASSIFIER, P0), d,
+                          T.FLConfig(**cfg), eval_data=ev,
+                          scheduler=_scheduler(T, sched), ratecontrol=rc,
+                          device="cpu")
+
+
+def _controllers_equal(a, b):
+    assert a.state_meta() == b.state_meta()
+    for x, y in zip(leaves(a.state_tree()), leaves(b.state_tree()),
+                    strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("layout", ["flat", "partitioned"])
+@pytest.mark.parametrize("rc", ["distortion", "bytebudget", "rd"])
+@pytest.mark.parametrize("sched", ["sync", "sampled", "async"])
+def test_resume_matrix_with_controller(sched, rc, layout, tmp_path):
+    """2 rounds uninterrupted against 1 round, save, load into a fresh run,
+    1 more round: parameters, client state and the controller's state
+    ``torch.equal``, records equal (switches included); the records equal
+    the reference's own resumed run, bytes exact."""
+    full = _mk_rc(T, sched, rc, layout, 2)
+    full.run()
+    first = _mk_rc(T, sched, rc, layout, 1)
+    first.run()
+    path = str(tmp_path / "ckpt.npz")
+    first.save_state(path)
+    resumed = _mk_rc(T, sched, rc, layout, 1)
+    assert resumed.load_state(path) == 1
+    hist = resumed.run()
+    assert torch.equal(ravel(full.global_params)[0],
+                       ravel(resumed.global_params)[0])
+    _records_equal(full.history[1], hist[0])
+    assert hist[0].spec_switches == full.history[1].spec_switches
+    _states_equal(full.clients, resumed.clients)
+    _controllers_equal(full.ratecontrol, resumed.ratecontrol)
+    assert any(r.spec_switches for r in full.history), "nothing switched"
+
+    ref_first = _mk_rc(J, sched, rc, layout, 1)
+    ref_first.run()
+    ref_path = str(tmp_path / "ref.npz")
+    ref_first.save_state(ref_path)
+    ref = _mk_rc(J, sched, rc, layout, 1)
+    ref.load_state(ref_path)
+    ref.run()
+    _records_equal(ref.history[0], hist[0], exact_metrics=False)
+    assert hist[0].spec_switches == ref.history[0].spec_switches
+    assert hist[0].controller == ref.history[0].controller
+
+
+def _interchange_run(pkg, layout, n_rounds, ladders):
+    """Flat: a fresh-init FC-AE ladder (the reference's params) under
+    ``DistortionTarget``; per-partition: dense0 on a chunked AE shared by
+    every client, then q8; dense1 on q4, q8. Refits at 0 epochs, so both
+    packages' trajectories can be compared."""
+    cfg = dict(n_rounds=n_rounds, local_epochs=1, batch_size=16,
+               payload="weights" if layout == "flat" else "update")
+    d, ev = _data(jpipe if pkg is J else tpipe)
+    lj, lt = ladders
+    kw = dict(min_snapshots=1, refit_epochs=0, refit_batch=2)
+    if layout == "flat":
+        rc = pkg.DistortionTarget(ladder=lj if pkg is J else lt,
+                                  target=1e-12, **kw)
+    else:
+        rc = pkg.RDBudget(ladder=lj if pkg is J else lt,
+                          partition=_part_pm(pkg), budget=float("inf"), **kw)
+    if pkg is J:
+        return J.FederatedRun(J_MLP, d, J.FLConfig(**cfg), eval_data=ev,
+                              ratecontrol=rc)
+    return T.FederatedRun(_JaxInitTask(MNIST_CLASSIFIER, P0), d,
+                          T.FLConfig(**cfg), eval_data=ev, ratecontrol=rc,
+                          device="cpu")
+
+
+def _interchange_ladders(layout):
+    """A fresh pair of ladders (the JAX one and its port copy)."""
+    if layout == "flat":
+        lj = J.fc_ae_ladder(N_CLIENTS, 15_910, latent_dims=(8, 32),
+                            hidden=(16,))
+        lt = [[T.FCAECompressor(from_jax_params(_np(c.params), "cpu"),
+                                TAEConfig(input_dim=15_910,
+                                          encoder_hidden=(16,),
+                                          latent_dim=c.cfg.latent_dim))
+               for c in row] for row in lj]
+        return lj, lt
+    pj, pt = _ae_pair()
+    cj, ct = J.ChunkedAEConfig(**CH), T.ChunkedAEConfig(**CH)
+
+    def ladder(pkg, params, cfg):
+        pm = _part_pm(pkg)
+
+        def ae(ci, n):
+            comp = pkg.ChunkedAECompressor(params, cfg, False)
+            comp.prefit = True
+            return comp
+        return pkg.partition_ladder(N_CLIENTS, pm, {
+            "dense0": [ae, lambda ci, n: pkg.QuantizeCompressor(bits=8)],
+            "dense1": [lambda ci, n: pkg.QuantizeCompressor(bits=4),
+                       lambda ci, n: pkg.QuantizeCompressor(bits=8)]})
+    return ladder(J, pj, cj), ladder(T, pt, ct)
+
+
+@pytest.mark.parametrize("layout", ["flat", "partitioned"])
+def test_controller_checkpoint_interchange(layout, tmp_path):
+    """A JAX controller checkpoint after round 0 resumes in the port to the
+    reference's own resumed round 1, and the reverse: one file layout
+    (keys, dtype tags, metadata), switches and bytes exact, loss and
+    parameters in the golden band; the port's restored controller state
+    equals the saver's."""
+    saved = {}
+    for pkg in (J, T):
+        first = _interchange_run(pkg, layout, 1, _interchange_ladders(layout))
+        first.run()
+        saved[pkg] = str(tmp_path / f"{pkg.__name__}.npz")
+        first.save_state(saved[pkg])
+        if pkg is J:
+            meta_j = first.ratecontrol.state_meta()
+        assert any(first.history[0].spec_switches), "nothing switched"
+    aj, dj, mj = _npz(saved[J])
+    at, dt_, mt = _npz(saved[T])
+    assert list(at) == list(aj) and dt_ == dj and mt.keys() == mj.keys()
+    assert mt["ratecontrol"].keys() == mj["ratecontrol"].keys()
+    assert mt["ratecontrol"]["rung"] == mj["ratecontrol"]["rung"]
+    assert mt["ratecontrol"]["fitted"] == mj["ratecontrol"]["fitted"]
+    assert any(k.startswith("ratecontrol/") for k in at)
+    for path in saved.values():
+        res = {}
+        for pkg in (J, T):
+            run = _interchange_run(pkg, layout, 1,
+                                   _interchange_ladders(layout))
+            assert run.load_state(path) == 1
+            run.run()
+            res[pkg] = run
+        rj, rt = res[J], res[T]
+        _records_equal(rj.history[0], rt.history[0], exact_metrics=False)
+        assert rt.history[0].spec_switches == rj.history[0].spec_switches
+        np.testing.assert_allclose(rt.history[0].global_metrics["loss"],
+                                   rj.history[0].global_metrics["loss"],
+                                   **BAND)
+        np.testing.assert_allclose(
+            ravel(rt.global_params)[0].numpy(),
+            np.asarray(ravel_pytree(rj.global_params)[0]), **BAND)
+        if path == saved[J]:
+            loaded = _interchange_run(T, layout, 1,
+                                      _interchange_ladders(layout))
+            loaded.load_state(path)
+            assert loaded.ratecontrol.state_meta() == meta_j
+
+
+def test_load_restores_shared_ae_params():
+    """Clients that shared one AE params object before the save share one
+    after the load (their restored values are equal), so the server's
+    shared-decoder route is taken after a resume as before it; a rung that
+    a refit gave its own params keeps them."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        first = _interchange_run(T, "partitioned", 1,
+                                 _interchange_ladders("partitioned"))
+        first.run()
+        first.save_state(path)
+        res = _interchange_run(T, "partitioned", 1,
+                               _interchange_ladders("partitioned"))
+        res.load_state(path)
+    rungs = [res.ratecontrol._pcomps[ci]["dense0"][0].codec_params()
+             for ci in range(N_CLIENTS)]
+    assert all(p is rungs[0] for p in rungs)
+    before = [first.ratecontrol._pcomps[ci]["dense0"][0].codec_params()
+              for ci in range(N_CLIENTS)]
+    assert all(p is before[0] for p in before)
+
+
+def _shared_ae_run(pkg, n_rounds):
+    """dense0 on one chunked AE shared by every client (kernel path in the
+    port), dense1 on q8, ``FixedRate`` holding every lane there."""
+    pj, pt = _ae_pair()
+    cfg = pkg.ChunkedAEConfig(**CH)
+    params = pj if pkg is J else pt
+
+    def ae(ci, n):
+        comp = pkg.ChunkedAECompressor(params, cfg, pkg is T)
+        comp.prefit = True
+        return comp
+    pm = _part_pm(pkg)
+    rc = pkg.FixedRate(ladder=pkg.partition_ladder(N_CLIENTS, pm, {
+        "dense0": [ae],
+        "dense1": [lambda ci, n: pkg.QuantizeCompressor(bits=8)]}),
+        partition=pm)
+    cfg_fl = dict(n_rounds=n_rounds, local_epochs=1, batch_size=16,
+                  payload="update")
+    d, ev = _data(jpipe if pkg is J else tpipe)
+    if pkg is J:
+        return J.FederatedRun(J_MLP, d, J.FLConfig(**cfg_fl), eval_data=ev,
+                              ratecontrol=rc)
+    return T.FederatedRun(_JaxInitTask(MNIST_CLASSIFIER, P0), d,
+                          T.FLConfig(**cfg_fl), eval_data=ev, ratecontrol=rc,
+                          device="cpu")
+
+
+def test_jax_checkpoint_resumes_shared_ae_on_shared_route(tmp_path,
+                                                          monkeypatch):
+    """A JAX checkpoint of lanes sharing one chunked AE resumes in the
+    port with the sharing put back: round 1 reduces dense0 once over the
+    bucket on the shared-decoder route (the fused decode→aggregate), where
+    the reference's own resume restores a copy a client and takes the
+    batched-params route; bytes exact, loss and parameters in the golden
+    band against the reference's resumed round."""
+    from repro_torch.core import codec as tcodec
+    first = _shared_ae_run(J, 1)
+    first.run()
+    path = str(tmp_path / "jax.npz")
+    first.save_state(path)
+    ref = _shared_ae_run(J, 1)
+    ref.load_state(path)
+    ref_dec = [ref.ratecontrol._pcomps[ci]["dense0"][0].params
+               for ci in range(N_CLIENTS)]
+    assert all(p is not ref_dec[0] for p in ref_dec[1:])
+    ref.run()
+    routes, real = [], tcodec.decode_and_aggregate
+
+    def spy(spec, params, *a, params_batched=False, **k):
+        if isinstance(spec, T.ChunkedAESpec):
+            routes.append(params_batched)
+        return real(spec, params, *a, params_batched=params_batched, **k)
+    monkeypatch.setattr(tcodec, "decode_and_aggregate", spy)
+    res = _shared_ae_run(T, 1)
+    assert res.load_state(path) == 1
+    dec = [res.ratecontrol._pcomps[ci]["dense0"][0].params
+           for ci in range(N_CLIENTS)]
+    assert all(p is dec[0] for p in dec)
+    res.run()
+    assert routes == [False]                 # one call, shared params
+    _records_equal(ref.history[0], res.history[0], exact_metrics=False)
+    np.testing.assert_allclose(res.history[0].global_metrics["loss"],
+                               ref.history[0].global_metrics["loss"], **BAND)
+    np.testing.assert_allclose(
+        ravel(res.global_params)[0].numpy(),
+        np.asarray(ravel_pytree(ref.global_params)[0]), **BAND)

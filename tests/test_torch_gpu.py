@@ -886,3 +886,144 @@ def test_kmeans_on_card_matches_cpu_and_repeats(n, k):
     cspec = chain.spec(n)
     assert codec.measured_bytes(cspec, codec.encode(cspec, None, x.cuda())) \
         == codec.measured_bytes(cspec, codec.encode(cspec, None, x))
+
+
+# ------------------------------------------------------------ rate control
+def _chip_smoke():
+    """``chip_smoke.py`` as a module, for run (n)'s constructors."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _probe_ladder(dev):
+    """An FC AE a client (vmapped), a kernel-path chunked AE shared by
+    clients 0 and 1 and another for client 2 (folded rows, one call per
+    params object), q4 off the block size (folded blocks)."""
+    from repro_torch import core as T
+    from repro_torch.configs.paper import AEConfig
+    ccfg = T.ChunkedAEConfig(chunk_size=256, hidden=(32,), latent_chunk=4)
+    fcfg = AEConfig(input_dim=15_910, encoder_hidden=(16,), latent_dim=8)
+    chunked = []
+    for seed in (1, 2):
+        p = T.init_chunked_ae(torch.Generator().manual_seed(seed), ccfg, dev)
+        p["norm"] = {"mean": torch.zeros((), device=dev),
+                     "std": torch.full((), 1e-3, device=dev)}
+        chunked.append(p)
+    return [[T.FCAECompressor(T.init_fc_ae(
+        torch.Generator().manual_seed(10 + ci), fcfg, dev), fcfg),
+        T.ChunkedAECompressor(chunked[ci // 2], ccfg, use_kernel=True),
+        T.QuantizeCompressor(bits=4, block=100)] for ci in range(3)]
+
+
+@pytest.mark.gpu
+def test_rate_probe_on_card_matches_per_lane_oracle():
+    """The batched probe on the card: one q4 quantize and dequantize for
+    the three lanes, four ``fused_dense`` launches for each chunked-AE
+    params object (never the plain version); every entry against the
+    lane's own probe at rtol 1e-5, and the CPU's matrix in the band."""
+    _card()
+    from repro_torch import core as T
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.data import pipeline as tpipe
+    snaps = (np.random.RandomState(0).randn(3, 15_910) * 1e-3).astype(
+        np.float32)
+    mats = {}
+    for dev in ("cuda", "cpu"):
+        train, ev = tpipe.train_eval_split(tpipe.mnist_like(0, 256), 64)
+        rc = T.RateController(ladder=_probe_ladder(dev), min_snapshots=1)
+        run = T.FederatedRun(MNIST_CLASSIFIER,
+                             tpipe.uniform_partition(0, train, 3),
+                             T.FLConfig(n_rounds=1), eval_data=ev,
+                             ratecontrol=rc, device=dev)
+        for ci in range(3):
+            run.clients[ci].snapshots = [torch.from_numpy(snaps[ci]).to(dev)]
+        before = _lib.counts()
+        mats[dev] = rc._probe_all(run, [0, 1, 2])
+        delta = {k: v - before.get(k, 0) for k, v in _lib.counts().items()
+                 if v - before.get(k, 0)}
+        if dev == "cuda":
+            card_rc, card_run, card_delta = rc, run, delta
+    assert card_delta == {"fused_dense": 8, "quantize_blocks_2d": 1,
+                          "dequantize_blocks_2d": 1}
+    assert card_rc.probe_dispatches == 1
+    errs = mats["cuda"]
+    for k in range(3):
+        for ci in range(3):
+            want = card_rc._rung_err(card_run, ci, k,
+                                     card_run.clients[ci].snapshots[-1])
+            np.testing.assert_allclose(errs[k, ci], want, rtol=1e-5,
+                                       atol=1e-12)
+    np.testing.assert_allclose(errs, mats["cpu"], **BAND)
+
+
+@pytest.mark.gpu
+def test_rate_cnn_reduced_card_vs_cpu():
+    """Run (n)'s reduced copy (``chip_smoke.rate_cnn_replay``: 2 clients,
+    3 rounds, the CIFAR CNN's per-partition ladder under RDBudget, shared
+    AE rungs fitted on the card) on the card and the CPU, the CPU encoding
+    the card's trained local models: codes, switches, occupancy and bytes
+    exact, payloads, global params, loss, accuracy and the controller
+    state in the golden band, the local models too but where both
+    devices' Adam step is partial; the card's grouped round launched
+    kernel 5."""
+    _card()
+    cs = _chip_smoke()
+    torch.backends.cudnn.deterministic = True
+    try:
+        fit = cs.prefit_cnn_rungs("cuda", prepass_epochs=4, fit_epochs=10)
+        before = _lib.counts()
+        cs.rate_cnn_replay(fit)
+        after = _lib.counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert after.get("grouped_fused_decode_agg", 0) > \
+        before.get("grouped_fused_decode_agg", 0)
+
+
+@pytest.mark.gpu
+def test_async_distortion_power_card_vs_cpu():
+    """``AsyncBuffered(distortion_power=1)`` under a DistortionTarget
+    ladder on the card and the CPU: arrivals, staleness, switches and
+    bytes exact; the probed distortions and parameters in the band."""
+    _card()
+    from repro_torch import core as T
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core.pytree import ravel
+    from repro_torch.data import pipeline as tpipe
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        train, ev = tpipe.train_eval_split(tpipe.mnist_like(0, 320), 64)
+        rc = T.DistortionTarget(
+            ladder=[[T.QuantizeCompressor(bits=4),
+                     T.QuantizeCompressor(bits=8), T.IdentityCompressor()]
+                    for _ in range(4)],
+            target=1e-3, margin=1e-3, min_snapshots=1)
+        run = T.FederatedRun(
+            MNIST_CLASSIFIER, tpipe.uniform_partition(0, train, 4),
+            T.FLConfig(n_rounds=4, local_epochs=1, batch_size=16,
+                       payload="update"),
+            eval_data=ev, ratecontrol=rc, device=dev,
+            scheduler=T.AsyncBuffered(
+                buffer_k=2, distortion_power=1.0,
+                latency=T.LatencyModel(jitter=0.3, straggler_frac=0.25)))
+        run.run()
+        runs[dev] = run
+    g, c = runs["cuda"], runs["cpu"]
+    for a, b in zip(g.history, c.history, strict=True):
+        for k in ("participants", "staleness", "sim_time", "spec_switches",
+                  "bytes_up", "bytes_down", "bytes_decoder"):
+            assert getattr(a, k) == getattr(b, k), k
+    for ci in range(4):
+        da, db = (g.ratecontrol.distortion_of(ci),
+                  c.ratecontrol.distortion_of(ci))
+        assert (da is None) == (db is None)
+        if da is not None:
+            np.testing.assert_allclose(da, db, **BAND)
+    torch.testing.assert_close(ravel(g.global_params)[0].cpu(),
+                               ravel(c.global_params)[0], **BAND)

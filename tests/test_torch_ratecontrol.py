@@ -1,0 +1,979 @@
+"""The port's adaptive rate control (``core/ratecontrol.py``, with
+``aggregate.distortion_weights``, the lifecycle's ``note_refit`` hook, the
+schedulers' controller plane and ``FederatedRun(ratecontrol=)``) against
+a live JAX run: one counterpart for each case of
+``tests/test_ratecontrol.py``, plus the batched probe on the kernel-path
+chunked AE, ``AsyncBuffered(distortion_power)`` and the ladder constructors.
+
+Both packages get the same numpy data, the reference's initial model
+params and the reference's AE params (``from_jax_params``; fresh-init
+rungs keep their unfit flag). The counterparts train 4 local batches a
+round (``batch_size=16``) where the reference takes one: after a single
+Adam step every moved parameter has moved by the learning rate, so a q4
+or q8 probe of the update measures rounding (~1e-9) and a drift ranking
+would follow it; targets are placed between the q8 and q4 errors of that
+regime. Refits cannot replay ``jax.random``: trajectories with switch-time
+refits run at ``refit_epochs=0`` against JAX (a warm-started refit then
+returns its init in both), and at epochs > 0 the refit rung is held
+against the port's own cohort fit from the lane seeds.
+
+Bytes, switches, rung occupancy, syncs and probe counts exact; floats in
+the golden band ``atol=2e-5, rtol=2e-4``; the mixed-rung server round
+against the sequential oracle at the reference's ``atol=1e-6,
+rtol=1e-5``. One exception, stated where it applies: in the four cases
+that pass ``flips=QUANT_FLIPS`` (each left one parameter out of the band
+on the CPU, noted beside the call), at most ``QUANT_FLIPS`` parameters
+may leave the band, by less than ``QUANT_FLIP_ABS``. The two packages'
+local updates agree to rounding, not bit for bit, so an input within
+rounding of a quantizer's code boundary takes the neighbouring code in
+one of them (one level of its block's scale) — the reference's XLA also
+divides by the scale as a reciprocal multiply (``ROADMAP.md`` Queue C
+item 2). Losses, accuracies and every other parameter stay in the band.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.flatten_util import ravel_pytree  # noqa: E402
+
+from repro import core as J  # noqa: E402
+from repro.configs.paper import AEConfig as JAEConfig  # noqa: E402
+from repro.configs.paper import MNIST_CLASSIFIER as J_MLP  # noqa: E402
+from repro.core import ratecontrol as jrc  # noqa: E402
+from repro.core import scheduler as jsched  # noqa: E402
+from repro.data import pipeline as jpipe  # noqa: E402
+from repro.models.classifiers import init_classifier  # noqa: E402
+
+from repro_torch import core as T  # noqa: E402
+from repro_torch.configs.paper import AEConfig as TAEConfig  # noqa: E402
+from repro_torch.configs.paper import MNIST_CLASSIFIER  # noqa: E402
+from repro_torch.core import ratecontrol as trc  # noqa: E402
+from repro_torch.core import scheduler as tsched  # noqa: E402
+from repro_torch.core.pytree import (from_jax_params, leaves,  # noqa: E402
+                                     ravel)
+from repro_torch.core.task import ClassifierTask  # noqa: E402
+from repro_torch.data import pipeline as tpipe  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+
+BAND = dict(atol=2e-5, rtol=2e-4)
+QUANT_FLIPS = 2          # parameters a quantizer's code flip may move ...
+QUANT_FLIP_ABS = 1e-3    # ... by less than this (one q4 level of an update)
+P = 15_910                               # MNIST classifier param count
+P0 = jax.tree_util.tree_map(
+    np.array, init_classifier(jax.random.PRNGKey(0), J_MLP))
+
+
+class _JaxInitTask(ClassifierTask):
+    """The port's classifier task started from the JAX package's params."""
+
+    def __init__(self, clf_cfg, params_np):
+        super().__init__(clf_cfg)
+        self.params_np = params_np
+
+    def init_params(self, gen, device):
+        return from_jax_params(self.params_np, device)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.array, tree)
+
+
+# ----------------------------------------------------------- harness
+def _fed(pkg, n_clients, n=256, n_eval=64):
+    dp = jpipe if pkg is J else tpipe
+    train, ev = dp.train_eval_split(dp.mnist_like(0, n), n_eval)
+    return dp.uniform_partition(0, train, n_clients), ev
+
+
+def _run(pkg, n_clients, rc=None, n=256, n_eval=64, **kw):
+    """A ``FederatedRun`` of the MLP in ``pkg`` (JAX or the port on the
+    CPU); ``kw`` splits into FLConfig fields and run arguments."""
+    run_kw = {k: kw.pop(k) for k in ("compressors", "scheduler",
+                                     "lifecycle") if k in kw}
+    cfg = dict(n_rounds=1, local_epochs=1, batch_size=16, payload="update")
+    cfg.update(kw)
+    data, ev = _fed(pkg, n_clients, n, n_eval)
+    if pkg is J:
+        return J.FederatedRun(J_MLP, data, J.FLConfig(**cfg), eval_data=ev,
+                              ratecontrol=rc, **run_kw)
+    return T.FederatedRun(_JaxInitTask(MNIST_CLASSIFIER, P0), data,
+                          T.FLConfig(**cfg), eval_data=ev, ratecontrol=rc,
+                          device="cpu", **run_kw)
+
+
+def _port_comp(jc, memo):
+    """The port's compressor for a JAX one, AE params carried across (one
+    port params object per JAX params object) and ``prefit`` kept."""
+    if isinstance(jc, J.QuantizeCompressor):
+        return T.QuantizeCompressor(bits=jc.bits, block=jc.block)
+    if isinstance(jc, J.IdentityCompressor):
+        return T.IdentityCompressor()
+    if isinstance(jc, J.ComposedCompressor):
+        return T.ComposedCompressor(_port_comp(jc.inner, memo), bits=jc.bits,
+                                    block=jc.block)
+    key = id(jc.params)
+    if key not in memo:
+        memo[key] = from_jax_params(_np(jc.params), "cpu")
+    if isinstance(jc, J.FCAECompressor):
+        tc = T.FCAECompressor(memo[key],
+                              TAEConfig(**dataclasses.asdict(jc.cfg)))
+    else:
+        tc = T.ChunkedAECompressor(
+            memo[key], T.ChunkedAEConfig(**dataclasses.asdict(jc.cfg)),
+            use_kernel=jc.use_kernel)
+    tc.prefit = bool(getattr(jc, "prefit", False))
+    return tc
+
+
+def _port_ladder(jladder):
+    memo = {}
+    if isinstance(jladder[0], dict):
+        return [{name: [_port_comp(c, memo) for c in rungs]
+                 for name, rungs in row.items()} for row in jladder]
+    return [[_port_comp(c, memo) for c in row] for row in jladder]
+
+
+def _pointwise_ladder(pkg, n_clients):
+    """q4 → q8 → identity: ascending uplink, descending distortion."""
+    return [[pkg.QuantizeCompressor(bits=4), pkg.QuantizeCompressor(bits=8),
+             pkg.IdentityCompressor()] for _ in range(n_clients)]
+
+
+def _ae_ladder(n_clients, latents=(8, 32), hidden=(16,), seed=0):
+    """The reference's fresh-init FC-AE ladder and the port's copy."""
+    lj = J.fc_ae_ladder(n_clients, P, latent_dims=latents, hidden=hidden,
+                        seed=seed)
+    return lj, _port_ladder(lj)
+
+
+def _pair(make_rc, n_clients, **kw):
+    """The same controller over the same federation in both packages:
+    ``make_rc(pkg)`` builds the controller, both runs play."""
+    runs = {}
+    for pkg in (J, T):
+        rc = make_rc(pkg)
+        run = _run(pkg, n_clients, rc, **dict(kw))
+        run.run()
+        runs[pkg] = (run, rc)
+    return runs
+
+
+def _params_close(rj, rt, flips=0):
+    """Global params in the golden band, ``flips`` of them allowed out of
+    it by less than ``QUANT_FLIP_ABS`` (a quantizer code flip, see the
+    module docstring)."""
+    a = ravel(rt.global_params)[0].numpy()
+    b = np.asarray(ravel_pytree(rj.global_params)[0])
+    diff = np.abs(a - b)
+    out = diff > BAND["atol"] + BAND["rtol"] * np.abs(b)
+    print(f"params out of the band: {out.sum()} (limit {flips}), largest "
+          f"{diff[out].max() if out.any() else 0.0}")
+    assert out.sum() <= flips and (diff[out] < QUANT_FLIP_ABS).all(), (
+        f"{out.sum()} params out of the band, max {diff.max()}")
+
+
+def _records_equal(rj, rt, params=True, metrics=True, flips=0):
+    """Records' bytes, syncs, switches, arrivals exact; losses and
+    accuracies in the band; the final params too, ``flips`` of them
+    allowed a quantizer code flip (the cases that pass ``QUANT_FLIPS``)."""
+    for a, b in zip(rj.history, rt.history, strict=True):
+        for k in ("round", "bytes_up", "bytes_up_raw", "bytes_down",
+                  "bytes_decoder", "ae_syncs", "participants",
+                  "spec_switches", "controller", "staleness", "sim_time"):
+            assert getattr(b, k) == getattr(a, k), (a.round, k)
+        if metrics:
+            for k in ("loss", "accuracy"):
+                np.testing.assert_allclose(b.global_metrics[k],
+                                           a.global_metrics[k], **BAND)
+    if params:
+        _params_close(rj, rt, flips)
+
+
+def _occupancy(rc, n):
+    return [rc.rung_of(ci) for ci in range(n)]
+
+
+# ------------------------------------------------------- wire-byte pricing
+def test_wire_bytes_matches_real_encodes():
+    """The planner's static price equals the observed payload bytes for
+    every codec family, and the reference's price."""
+    n = 1000
+    rng = np.random.RandomState(0)
+    flat = rng.randn(n).astype(np.float32)
+    cfg = dict(input_dim=1024, encoder_hidden=(32,), latent_dim=8)
+    pj = J.init_fc_ae(jax.random.PRNGKey(1), JAEConfig(**cfg))
+    comps_j = [J.IdentityCompressor(), J.QuantizeCompressor(bits=8),
+               J.QuantizeCompressor(bits=4), J.TopKCompressor(fraction=0.05),
+               J.FCAECompressor(pj, JAEConfig(**cfg))]
+    comps_j.append(J.ComposedCompressor(comps_j[-1], bits=8))
+    memo = {}
+    comps_t = [T.TopKCompressor(fraction=0.05) if isinstance(
+        c, J.TopKCompressor) else _port_comp(c, memo) for c in comps_j]
+    for cj, ct in zip(comps_j, comps_t, strict=True):
+        spec = ct.spec(n)
+        planned = T.wire_bytes(spec, ct.codec_params())
+        observed = T.tree_bytes(T.codec.encode(spec, ct.codec_params(),
+                                               torch.from_numpy(flat)))
+        assert planned == observed == J.wire_bytes(cj.spec(n),
+                                                   cj.codec_params())
+
+
+# --------------------------------------------------- FixedRate equivalence
+def test_fixed_rate_preserves_trajectory_exactly():
+    """FixedRate changes nothing in the port (params ``torch.equal``,
+    metrics and bytes equal to a controller-less run), and its records
+    equal the reference's."""
+    kw = dict(n_rounds=2, payload="update", error_feedback=True)
+
+    def q8(pkg):
+        return [pkg.QuantizeCompressor(bits=8) for _ in range(3)]
+    base = _run(T, 3, None, compressors=q8(T), **kw)
+    base.run()
+    fixed = _run(T, 3, T.FixedRate(), compressors=q8(T), **kw)
+    fixed.run()
+    assert torch.equal(ravel(base.global_params)[0],
+                       ravel(fixed.global_params)[0])
+    for a, b in zip(base.history, fixed.history, strict=True):
+        assert a.global_metrics == b.global_metrics
+        assert (a.bytes_up, a.bytes_down) == (b.bytes_up, b.bytes_down)
+        assert a.controller is None and b.controller == "fixed"
+        assert a.spec_switches is None and b.spec_switches == []
+    ref = _run(J, 3, J.FixedRate(), compressors=q8(J), **kw)
+    ref.run()
+    _records_equal(ref, fixed, flips=QUANT_FLIPS)     # 1 seen, 2.2745e-04
+
+
+def test_fixed_rate_ae_ladder_charges_initial_decoders_only():
+    lj, lt = _ae_ladder(2)
+    runs = _pair(lambda pkg: pkg.FixedRate(
+        ladder=lj if pkg is J else lt, initial_rung=1), 2, n_rounds=3,
+        payload="weights")
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    per_sync = T.decoder_sync_bytes(lt[0][1].params)
+    assert rt.history[0].ae_syncs == [0, 1]
+    assert rt.history[0].bytes_decoder == 2 * per_sync
+    for rec in rt.history[1:]:
+        assert rec.bytes_decoder == 0.0 and rec.ae_syncs == []
+    assert _occupancy(ct, 2) == _occupancy(cj, 2) == [1, 1]
+
+
+# ----------------------------------------------- DistortionTarget walking
+def test_distortion_target_walks_up_and_holds():
+    runs = _pair(lambda pkg: pkg.DistortionTarget(
+        ladder=_pointwise_ladder(pkg, 3), target=1e-3, margin=1e-3,
+        min_snapshots=1, cooldown=1), 3, n_rounds=3)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    assert sorted(rt.history[0].spec_switches) == [(0, 0, 1), (1, 0, 1),
+                                                   (2, 0, 1)]
+    assert all(rec.spec_switches == [] for rec in rt.history[1:])
+    assert _occupancy(ct, 3) == _occupancy(cj, 3) == [1, 1, 1]
+    assert all(rec.bytes_decoder == 0.0 for rec in rt.history)
+    assert rt.history[1].bytes_up > rt.history[0].bytes_up
+
+
+def test_distortion_target_steps_down_with_hysteresis():
+    runs = _pair(lambda pkg: pkg.DistortionTarget(
+        ladder=_pointwise_ladder(pkg, 2), target=0.5, margin=0.9,
+        min_snapshots=1, cooldown=1, initial_rung=2), 2, n_rounds=3)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt, flips=QUANT_FLIPS)        # 1 seen, 2.2155e-05
+    assert sorted(rt.history[0].spec_switches) == [(0, 2, 1), (1, 2, 1)]
+    assert sorted(rt.history[1].spec_switches) == [(0, 1, 0), (1, 1, 0)]
+    assert _occupancy(ct, 2) == [0, 0]
+
+
+def test_distortion_target_cooldown_limits_switch_rate():
+    runs = _pair(lambda pkg: pkg.DistortionTarget(
+        ladder=_pointwise_ladder(pkg, 2), target=0.5, margin=0.9,
+        min_snapshots=1, cooldown=10, initial_rung=2), 2, n_rounds=3)
+    (rj, _), (rt, _) = runs[J], runs[T]
+    _records_equal(rj, rt, flips=QUANT_FLIPS)        # 1 seen, 2.2155e-05
+    assert len(rt.history[0].spec_switches) == 2
+    assert all(rec.spec_switches == [] for rec in rt.history[1:])
+
+
+# --------------------------------------------------- ByteBudget allocation
+def test_byte_budget_respects_budget_and_floor():
+    costs = [T.wire_bytes(c.spec(P)) for c in _pointwise_ladder(T, 1)[0]]
+    for budget, want in ((costs[0] * 4 - 1, [0, 0, 0, 0]),
+                         (float("inf"), [2, 2, 2, 2])):
+        runs = _pair(lambda pkg: pkg.ByteBudget(
+            ladder=_pointwise_ladder(pkg, 4), budget=budget,
+            min_snapshots=1), 4, n_rounds=2)
+        (rj, cj), (rt, ct) = runs[J], runs[T]
+        _records_equal(rj, rt, flips=QUANT_FLIPS)    # 1 seen, 1.0726e-04
+        assert _occupancy(ct, 4) == _occupancy(cj, 4) == want
+
+
+def test_byte_budget_spends_marginal_bytes_on_largest_drift():
+    costs = [T.wire_bytes(c.spec(P)) for c in _pointwise_ladder(T, 1)[0]]
+    budget = 2 * costs[1] + 2 * costs[0]
+    runs = _pair(lambda pkg: pkg.ByteBudget(
+        ladder=_pointwise_ladder(pkg, 4), budget=budget, min_snapshots=1),
+        4)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    scores = {ci: ct._rung_err(rt, ci, 0, rt.clients[ci].snapshots[-1])
+              for ci in range(4)}
+    want = sorted(sorted(scores, key=lambda ci: -scores[ci])[:2])
+    got = sorted(ci for ci in range(4) if ct.rung_of(ci) == 1)
+    assert got == want
+    assert _occupancy(ct, 4) == _occupancy(cj, 4)
+    assert sum(ct.wire_cost(ct.rung_of(ci)) for ci in range(4)) <= budget
+    for ci in range(4):
+        np.testing.assert_allclose(
+            scores[ci], cj._rung_err(rj, ci, 0, rj.clients[ci].snapshots[-1]),
+            **BAND)
+
+
+# ---------------------------------- heterogeneous cohorts: group-by-spec
+def _encoded_for(pkg, comp, flat, weight):
+    mod = jsched if pkg is J else tsched
+    spec = comp.spec(flat.shape[0])
+    params = comp.codec_params()
+    return mod.EncodedUpdate(payload=pkg.codec.encode(spec, params, flat),
+                             spec=spec, params=params, weight=weight,
+                             stats={}, metrics={})
+
+
+def _mixed_comps():
+    """q8, q4, two FC AEs of one spec (different params), a wider FC AE and
+    a kernel-path chunked AE: the reference's params, both packages."""
+    c8 = JAEConfig(input_dim=P, encoder_hidden=(16,), latent_dim=8)
+    c32 = JAEConfig(input_dim=P, encoder_hidden=(16,), latent_dim=32)
+    ccfg = J.ChunkedAEConfig(chunk_size=2048, hidden=(16,), latent_chunk=4)
+    comps_j = [
+        J.QuantizeCompressor(bits=8), J.QuantizeCompressor(bits=4),
+        J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(1), c8), c8),
+        J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(2), c8), c8),
+        J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(3), c32), c32),
+        J.ChunkedAECompressor(J.init_chunked_ae(jax.random.PRNGKey(4),
+                                                ccfg), ccfg, use_kernel=True)]
+    memo = {}
+    return comps_j, [_port_comp(c, memo) for c in comps_j]
+
+
+@pytest.mark.parametrize("payload", ["update", "weights"])
+def test_heterogeneous_cohort_matches_sequential_oracle(payload,
+                                                        monkeypatch):
+    """A cohort mixing rungs is grouped by spec, one fused call a group (5
+    for 6 clients), and matches the port's sequential per-client decode +
+    weighted mean at the reference's ``atol=1e-6, rtol=1e-5``, and the
+    reference's grouped result in the golden band."""
+    comps_j, comps_t = _mixed_comps()
+    run_t = _run(T, 4, None, n=320, payload=payload)
+    run_j = _run(J, 4, None, n=320, payload=payload)
+    g_t, unravel = ravel(run_t.global_params)
+    g_j = ravel_pytree(run_j.global_params)[0]
+    weights = [float(10 * (i + 1)) for i in range(len(comps_t))]
+    enc_t = [_encoded_for(T, c, g_t * (1.0 + 0.01 * (i + 1)), w)
+             for i, (c, w) in enumerate(zip(comps_t, weights))]
+    enc_j = [_encoded_for(J, c, g_j * (1.0 + 0.01 * (i + 1)), w)
+             for i, (c, w) in enumerate(zip(comps_j, weights))]
+    calls = {"fused": 0}
+    real = T.codec.decode_and_aggregate
+    monkeypatch.setattr(
+        tsched.codec, "decode_and_aggregate",
+        lambda *a, **k: (calls.__setitem__("fused", calls["fused"] + 1),
+                         real(*a, **k))[1])
+    got = tsched._server_aggregate(run_t, enc_t, weights)
+    assert calls["fused"] == 5
+    rows = [T.codec.decode(e.spec, e.params, e.payload) for e in enc_t]
+    if payload == "weights":
+        rows = [r - g_t for r in rows]
+    w = torch.tensor(T.normalize_weights(weights))
+    mean = unravel(sum(wi * r for wi, r in zip(w, rows)))
+    want = T.apply_update(run_t.global_params, mean, 1.0)
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                   rtol=1e-5)
+    ref = jsched._server_aggregate(run_j, enc_j, weights)
+    np.testing.assert_allclose(ravel(got)[0].numpy(),
+                               np.asarray(ravel_pytree(ref)[0]), **BAND)
+
+
+def test_mid_walk_rounds_aggregate_heterogeneous_rungs(monkeypatch):
+    """Client 0 alone switches at round 0: the next rounds mix q8 and q4
+    (two fused calls each), in both packages alike."""
+    def switch_one(pkg):
+        base = jrc.RateController if pkg is J else trc.RateController
+
+        class SwitchOne(base):
+            name = "switch_one"
+
+            def plan(self, run, r, participants):
+                return {0: 1} if r == 0 else {}
+        return SwitchOne(ladder=_pointwise_ladder(pkg, 3), min_snapshots=1)
+
+    calls = {"fused": 0}
+    real = T.codec.decode_and_aggregate
+    monkeypatch.setattr(
+        tsched.codec, "decode_and_aggregate",
+        lambda *a, **k: (calls.__setitem__("fused", calls["fused"] + 1),
+                         real(*a, **k))[1])
+    runs = _pair(switch_one, 3, n_rounds=3)
+    (rj, _), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    assert rt.history[0].spec_switches == [(0, 0, 1)]
+    assert _occupancy(ct, 3) == [1, 0, 0]
+    assert calls["fused"] == 5
+    assert all(np.isfinite(r.global_metrics["loss"]) for r in rt.history)
+
+
+# --------------------------------- switch-time refits + decoder accounting
+def _refit_ladder_pair(refit_epochs, lifecycle=False):
+    lj, lt = _ae_ladder(2)
+    before = [jax.tree_util.tree_map(jnp.copy, lj[ci][1].params)
+              for ci in range(2)]
+    runs = {}
+    for pkg, ladder in ((J, lj), (T, lt)):
+        rc = pkg.DistortionTarget(ladder=ladder, target=1e-12,
+                                  min_snapshots=1, refit_epochs=refit_epochs,
+                                  refit_batch=2)
+        lc = (pkg.AELifecycle(refresh_every=100, min_snapshots=1,
+                              refresh_epochs=refit_epochs, batch_size=2)
+              if lifecycle else None)
+        run = _run(pkg, 2, rc, n_rounds=2, payload="weights", lifecycle=lc)
+        run.run()
+        runs[pkg] = (run, rc)
+    return runs, lj, lt, before
+
+
+@pytest.mark.parametrize("refit_epochs", [0, 2])
+def test_ae_rung_switch_refits_and_ships_decoder(refit_epochs):
+    """Round 0 ships both initial rung-0 decoders and, after the switch,
+    both rung-1 decoders (a multiset of four ships), at the reference's
+    bytes. At 0 epochs the whole trajectory is held against JAX; at 2 the
+    rung-1 params moved, to exactly the port's cohort fit on the lanes'
+    round-0 rows from the lane seeds."""
+    runs, lj, lt, before = _refit_ladder_pair(refit_epochs)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt, params=refit_epochs == 0)
+    h = rt.history
+    assert h[0].ae_syncs == [0, 0, 1, 1]
+    assert h[0].spec_switches == [(0, 0, 1), (1, 0, 1)]
+    per0 = T.decoder_sync_bytes(lt[0][0].params)
+    per1 = T.decoder_sync_bytes(lt[0][1].params)
+    assert h[0].bytes_decoder == 2 * per0 + 2 * per1
+    for ci in range(2):
+        assert ct.rung_of(ci) == cj.rung_of(ci) == 1
+        st = rt.clients[ci]
+        assert st.last_refresh == rj.clients[ci].last_refresh == 0
+        assert st.ae_baseline is not None and np.isfinite(st.ae_baseline)
+    if refit_epochs == 0:
+        for ci in range(2):
+            np.testing.assert_allclose(rt.clients[ci].ae_baseline,
+                                       rj.clients[ci].ae_baseline, **BAND)
+        return
+    rows = torch.stack([rt.clients[ci].snapshots[0][None]
+                        for ci in range(2)])
+    init = T.pytree.stack([from_jax_params(_np(before[ci]), "cpu")
+                           for ci in range(2)])
+    want, _ = T.train_autoencoder_cohort(
+        [torch.Generator().manual_seed(ci) for ci in range(2)],
+        lt[0][1].cfg, rows, init=init, epochs=refit_epochs, batch_size=2,
+        lr=3e-3, val_fraction=0.2, refit_normalizer=False)
+    for ci in range(2):
+        got = leaves(lt[ci][1].params)
+        assert any(not torch.allclose(a, b) for a, b in zip(
+            got, leaves(from_jax_params(_np(before[ci]), "cpu"))))
+        for a, b in zip(got, leaves(want), strict=True):
+            assert torch.equal(a, b[ci])
+
+
+def test_switch_reconciles_with_savings_model():
+    lj, lt = _ae_ladder(2, latents=(16, 32), hidden=(16,))
+    reports = {}
+    for pkg, ladder in ((J, lj), (T, lt)):
+        rc = pkg.DistortionTarget(ladder=ladder, target=1e-12,
+                                  min_snapshots=1, refit_epochs=0,
+                                  refit_batch=2)
+        run = _run(pkg, 2, rc, n_rounds=2, payload="weights")
+        run.run()
+        mean_ae = (pkg.ae_param_count(ladder[0][0].params)
+                   + pkg.ae_param_count(ladder[0][1].params)) // 2
+        reports[pkg] = run.savings_report(pkg.SavingsModel(
+            original_size=P, compressed_size=16, autoencoder_size=mean_ae,
+            n_decoders=2))
+        assert sum(len(r.ae_syncs or []) for r in run.history) == 4
+    assert reports[T] == reports[J]
+    assert reports[T]["decoder_syncs"] == 4
+    assert reports[T]["decoder_rel_err"] < 0.05
+    assert reports[T]["savings_rel_err"] < 0.05
+
+
+def test_controller_composes_with_lifecycle():
+    """The lifecycle owns the initial ships, the controller the switch
+    ships; both charge one record (a union of syncs), as the reference."""
+    runs, lj, lt, _ = _refit_ladder_pair(0, lifecycle=True)
+    (rj, _), (rt, _) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    per0 = T.decoder_sync_bytes(lt[0][0].params)
+    per1 = T.decoder_sync_bytes(lt[0][1].params)
+    assert rt.history[0].ae_syncs == [0, 0, 1, 1]
+    assert rt.history[0].bytes_decoder == 2 * per0 + 2 * per1
+
+
+def test_lifecycle_refresh_marks_the_active_rung_fitted():
+    """``note_refit``: a lifecycle cadence refit on a fresh-init AE rung
+    sets that rung's fitted flag, in both packages."""
+    lj, lt = _ae_ladder(2)
+    flags = {}
+    for pkg, ladder in ((J, lj), (T, lt)):
+        rc = pkg.FixedRate(ladder=ladder)
+        lc = pkg.AELifecycle(refresh_every=1, min_snapshots=1,
+                             refresh_epochs=0, batch_size=2)
+        run = _run(pkg, 2, rc, n_rounds=2, payload="weights", lifecycle=lc)
+        assert not rc._fitted.any()
+        run.run()
+        flags[pkg] = rc._fitted.tolist()
+    assert flags[T] == flags[J] == [[True, False], [True, False]]
+
+
+# -------------------------------------------------- checkpointing / resume
+def test_rate_control_checkpoint_bitexact_resume(tmp_path):
+    """1 round, save, load into a fresh run, 1 round: ``torch.equal`` to
+    the 2-round run, records equal, the refit rung-1 params restored."""
+    def mk(n_rounds):
+        _, lt = _ae_ladder(2)
+        rc = T.DistortionTarget(ladder=lt, target=1e-12, min_snapshots=1,
+                                refit_epochs=2, refit_batch=2)
+        return _run(T, 2, rc, n_rounds=n_rounds, payload="weights"), rc
+
+    full, _ = mk(2)
+    full.run()
+    first, rc_first = mk(1)
+    first.run()
+    assert list(rc_first._rung) == [1, 1]
+    path = str(tmp_path / "rc.npz")
+    first.save_state(path)
+    resumed, rc_res = mk(1)
+    assert list(rc_res._rung) == [0, 0]
+    assert resumed.load_state(path) == 1
+    assert list(rc_res._rung) == [1, 1]
+    for ci in range(2):
+        assert resumed.compressors[ci] is rc_res._comps[ci][1]
+        for a, b in zip(leaves(resumed.compressors[ci].params),
+                        leaves(first.compressors[ci].params), strict=True):
+            assert torch.equal(a, b)
+    resumed.run()
+    assert torch.equal(ravel(full.global_params)[0],
+                       ravel(resumed.global_params)[0])
+    for a, b in zip(full.history[1:], resumed.history, strict=True):
+        assert (a.round, a.spec_switches, a.bytes_decoder, a.bytes_up,
+                a.global_metrics) == (b.round, b.spec_switches,
+                                      b.bytes_decoder, b.bytes_up,
+                                      b.global_metrics)
+
+
+def test_byte_budget_prices_cooldown_clients_into_the_plan():
+    costs = [T.wire_bytes(c.spec(P)) for c in _pointwise_ladder(T, 1)[0]]
+    moves = {}
+    for pkg in (J, T):
+        rc = pkg.ByteBudget(ladder=_pointwise_ladder(pkg, 2),
+                            budget=costs[2] + costs[1], cooldown=5,
+                            min_snapshots=1)
+        run = _run(pkg, 2, rc)
+        run.run()
+        rc._rung = np.array([2, 0])
+        rc._last_switch = np.array([1, -(10 ** 9)])
+        moves[pkg] = rc.plan(run, 2, [0, 1])
+    assert moves[T] == moves[J] == {1: 1}
+
+
+def test_fixed_rate_never_buffers_snapshots():
+    run = _run(T, 2, T.FixedRate(ladder=_pointwise_ladder(T, 2)),
+               n_rounds=2)
+    run.run()
+    assert all(c.snapshots == [] for c in run.clients)
+
+
+def test_load_state_refuses_controller_presence_mismatch(tmp_path):
+    def q8():
+        return [T.QuantizeCompressor(bits=8) for _ in range(2)]
+    plain = _run(T, 2, None, compressors=q8())
+    plain.run()
+    path = str(tmp_path / "plain.npz")
+    plain.save_state(path)
+    with_rc = _run(T, 2, T.FixedRate(ladder=_pointwise_ladder(T, 2)))
+    with pytest.raises(ValueError, match="rate-controller mismatch"):
+        with_rc.load_state(path)
+    rc_run = _run(T, 2, T.FixedRate(ladder=_pointwise_ladder(T, 2)))
+    rc_run.run()
+    path2 = str(tmp_path / "rc.npz")
+    rc_run.save_state(path2)
+    plain2 = _run(T, 2, None, compressors=q8())
+    before = ravel(plain2.global_params)[0].clone()
+    with pytest.raises(ValueError, match="rate-controller mismatch"):
+        plain2.load_state(path2)
+    assert torch.equal(ravel(plain2.global_params)[0], before)
+
+
+def test_ladder_with_mismatched_rung_specs_is_rejected():
+    ladder = _pointwise_ladder(T, 2)
+    ladder[1][0] = T.QuantizeCompressor(bits=8)
+    with pytest.raises(AssertionError, match="spec differs"):
+        _run(T, 2, T.FixedRate(ladder=ladder))
+
+
+# ------------------------------------- batched probing (DESIGN.md §15.1)
+def test_batched_probe_matches_single_probe_oracle():
+    """The batched ``(rung, lane)`` matrix equals the per-lane oracle at
+    the reference's tolerance and the reference's matrix in the golden
+    band; the current-rung row is cached for the async discount."""
+    runs = _pair(lambda pkg: pkg.DistortionTarget(
+        ladder=_pointwise_ladder(pkg, 3), target=1e-3, margin=1e-3,
+        min_snapshots=1, cooldown=1), 3)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    lanes = [0, 1, 2]
+    before = _lib.counts()
+    errs = ct._probe_all(rt, lanes)
+    assert _lib.counts() == before         # the CPU runs the plain versions
+    assert errs.shape == (3, 3)
+    for k in range(3):
+        for j, ci in enumerate(lanes):
+            want = ct._rung_err(rt, ci, k, rt.clients[ci].snapshots[-1])
+            np.testing.assert_allclose(errs[k, j], want, rtol=1e-6,
+                                       atol=1e-12)
+    np.testing.assert_allclose(errs, cj._probe_all(rj, lanes), **BAND)
+    for ci in lanes:
+        assert ct.distortion_of(ci) == float(errs[int(ct._rung[ci]), ci])
+
+
+def _probe_ladder(pkg):
+    """Rungs for the probe: q4 off the block size, a kernel-path chunked AE
+    shared by clients 0 and 1 (client 2 on its own params), and an FC AE a
+    client — fold, per-lane fold and vmap in one matrix."""
+    ccfg = pkg.ChunkedAEConfig(chunk_size=256, hidden=(16,), latent_chunk=4)
+    fcfg = (JAEConfig if pkg is J else TAEConfig)(
+        input_dim=P + 90, encoder_hidden=(16,), latent_dim=8)
+    ladder = []
+    shared = None
+    for ci in range(3):
+        pc = J.init_chunked_ae(jax.random.PRNGKey(40 + min(ci, 2) // 2),
+                               J.ChunkedAEConfig(**dataclasses.asdict(ccfg)))
+        pc = dict(pc, norm={"mean": jnp.float32(0.0),
+                            "std": jnp.float32(1e-3)})
+        pf = J.init_fc_ae(jax.random.PRNGKey(50 + ci),
+                          JAEConfig(**dataclasses.asdict(fcfg)))
+        if pkg is T:
+            pc, pf = from_jax_params(_np(pc), "cpu"), \
+                from_jax_params(_np(pf), "cpu")
+        if ci < 2:
+            shared = shared if shared is not None else pc
+            pc = shared
+        ladder.append([pkg.FCAECompressor(pf, fcfg),
+                       pkg.ChunkedAECompressor(pc, ccfg, use_kernel=True),
+                       pkg.QuantizeCompressor(bits=4, block=100)])
+    return ladder
+
+
+def test_batched_probe_folds_chunked_and_fc_rungs():
+    """Lanes sharing a chunked AE's params are folded into one call's
+    rows, a lane with its own params runs alone, FC AEs run batched: the
+    matrix equals the per-lane oracle at the reference's tolerance, and the
+    reference's vmapped matrix on the same params in the golden band."""
+    rng = np.random.RandomState(3)
+    snaps = (rng.randn(3, P) * 1e-3).astype(np.float32)
+    mats = {}
+    for pkg in (J, T):
+        rc = pkg.RateController(ladder=_probe_ladder(pkg), min_snapshots=1)
+        run = _run(pkg, 3, rc)
+        for ci in range(3):
+            run.clients[ci].snapshots = [
+                jnp.asarray(snaps[ci]) if pkg is J
+                else torch.from_numpy(snaps[ci])]
+        mats[pkg] = (rc._probe_all(run, [0, 1, 2]), rc, run)
+    errs, rc, run = mats[T]
+    for k in range(3):
+        for ci in range(3):
+            want = rc._rung_err(run, ci, k, run.clients[ci].snapshots[-1])
+            np.testing.assert_allclose(errs[k, ci], want, rtol=1e-6,
+                                       atol=1e-12)
+    np.testing.assert_allclose(errs, mats[J][0], **BAND)
+    assert rc.probe_dispatches == 1
+
+
+@pytest.mark.parametrize("kind", ["distortion", "bytebudget", "rd"])
+def test_plan_probes_in_one_dispatch_per_round(kind, monkeypatch):
+    def boom(*a, **k):                    # pragma: no cover - must not run
+        raise AssertionError("per-lane blocking probe called during plan")
+
+    monkeypatch.setattr(trc.RateController, "_rung_err", boom)
+    monkeypatch.setattr(trc.RateController, "_lane_rung_err", boom)
+    rounds, probe = [], trc.RateController._probe
+
+    def spy(self, *a, **k):
+        rounds.append(len(self.run.history))     # the round being planned
+        return probe(self, *a, **k)
+    monkeypatch.setattr(trc.RateController, "_probe", spy)
+
+    def mk(pkg):
+        lad = _pointwise_ladder(pkg, 3)
+        return {"distortion": lambda: pkg.DistortionTarget(
+                    ladder=lad, target=1e-3, margin=1e-3, min_snapshots=1,
+                    cooldown=1),
+                "bytebudget": lambda: pkg.ByteBudget(
+                    ladder=lad, budget=float("inf"), min_snapshots=1),
+                "rd": lambda: pkg.RDBudget(
+                    ladder=lad, budget=float("inf"), min_snapshots=1),
+                }[kind]()
+    runs = _pair(mk, 3, n_rounds=3)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    assert ct.probe_dispatches == cj.probe_dispatches == 3
+    assert rounds == [0, 1, 2]
+
+
+def _part_pm(pkg):
+    tmpl = (init_classifier(jax.random.PRNGKey(0), J_MLP) if pkg is J
+            else from_jax_params(P0, "cpu"))
+    return pkg.by_layer_partition(tmpl)
+
+
+def test_partitioned_plan_probes_one_dispatch_per_group(monkeypatch):
+    def boom(*a, **k):                    # pragma: no cover - must not run
+        raise AssertionError("per-lane blocking probe called during plan")
+
+    monkeypatch.setattr(trc.RateController, "_rung_err", boom)
+    monkeypatch.setattr(trc.RateController, "_lane_rung_err", boom)
+
+    def mk(pkg):
+        pm = _part_pm(pkg)
+        rungs = {name: [lambda ci, n: pkg.QuantizeCompressor(bits=4),
+                        lambda ci, n: pkg.QuantizeCompressor(bits=8),
+                        lambda ci, n: pkg.IdentityCompressor()]
+                 for name in pm.names}
+        return pkg.RDBudget(ladder=pkg.partition_ladder(2, pm, rungs),
+                            partition=pm, budget=float("inf"),
+                            min_snapshots=1)
+    runs = _pair(mk, 2, n_rounds=2)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    assert ct.probe_dispatches == cj.probe_dispatches == 2 * 2
+    assert ct.lambda_trace[0][0] == 0 and len(ct.lambda_trace) == 2
+    for (rj_, lj), (rt_, lt_) in zip(cj.lambda_trace, ct.lambda_trace):
+        assert rt_ == rj_ and (lj is None) == (lt_ is None)
+        if lj is not None:
+            np.testing.assert_allclose(lt_, lj, **BAND)
+    for ci in range(2):
+        np.testing.assert_allclose(ct.distortion_of(ci),
+                                   cj.distortion_of(ci), **BAND)
+
+
+# --------------------------- decoder flapping hysteresis (DESIGN.md §15.4)
+def _flapping(pkg, hi, lo, **kw):
+    base = jrc.ByteBudget if pkg is J else trc.ByteBudget
+
+    class _FlappingBudget(base):
+        """A budget alternating between room for the AE rung (even
+        rounds) and the all-q4 floor (odd rounds)."""
+
+        def plan(self, run, r, participants):
+            self.budget = hi if r % 2 == 0 else lo
+            return super().plan(run, r, participants)
+    return _FlappingBudget(**kw)
+
+
+def _flap_run(hysteresis, n_rounds=6):
+    """q4 → big-latent FC AE → identity, in both packages."""
+    cfg = JAEConfig(input_dim=P, encoder_hidden=(16,), latent_dim=2560)
+    lj = [[J.QuantizeCompressor(bits=4),
+           J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(7 + ci), cfg),
+                            cfg), J.IdentityCompressor()] for ci in range(2)]
+    lt = _port_ladder(lj)
+    costs = [T.wire_bytes(lt[0][k].spec(P), lt[0][k].codec_params())
+             for k in range(3)]
+    assert costs[0] < costs[1] < costs[2]
+    out = {}
+    for pkg, ladder in ((J, lj), (T, lt)):
+        rc = _flapping(pkg, 2 * costs[1], 2 * costs[0], ladder=ladder,
+                       min_snapshots=1, switch_hysteresis=hysteresis,
+                       refit_epochs=1, refit_batch=2)
+        run = _run(pkg, 2, rc, n_rounds=n_rounds)
+        run.run()
+        out[pkg] = run
+    return out, T.decoder_sync_bytes(lt[0][1].params)
+
+
+def test_byte_budget_hysteresis_pins_decoder_bytes_under_flapping():
+    # refits at 1 epoch differ between the packages, so only decisions
+    # and bytes are held against the reference here
+    runs, per_ship = _flap_run(hysteresis=0)
+    _records_equal(runs[J], runs[T], params=False, metrics=False)
+    assert sum(len(r.ae_syncs) for r in runs[T].history) == 6
+    assert sum(r.bytes_decoder for r in runs[T].history) == 6 * per_ship
+    runs, per_ship = _flap_run(hysteresis=2)
+    _records_equal(runs[J], runs[T], params=False, metrics=False)
+    hist = runs[T].history
+    assert sum(len(r.ae_syncs) for r in hist) == 4
+    assert sum(r.bytes_decoder for r in hist) == 4 * per_ship
+    for rec in hist:
+        if rec.round % 2 == 1:
+            assert rec.spec_switches == [] or all(
+                s[2] == 0 for s in rec.spec_switches)
+
+
+# ------------------------------- unfit-rung gating (DESIGN.md §15.2)
+def test_byte_budget_unfit_current_rung_cannot_win_bytes():
+    cfg = JAEConfig(input_dim=P, encoder_hidden=(16,), latent_dim=32)
+    lj = [[J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(20 + ci), cfg),
+                            cfg),
+           J.QuantizeCompressor(bits=8), J.IdentityCompressor()]
+          for ci in range(2)]
+    lj[0][0].prefit = True
+    lt = _port_ladder(lj)
+    assert lt[0][0].prefit and not lt[1][0].prefit
+    costs = [T.wire_bytes(lt[0][k].spec(P), lt[0][k].codec_params())
+             for k in range(3)]
+    runs = {}
+    for pkg, ladder in ((J, lj), (T, lt)):
+        rc = pkg.ByteBudget(ladder=ladder, budget=costs[0] + costs[1],
+                            min_snapshots=1, refit_epochs=1, refit_batch=2)
+        run = _run(pkg, 2, rc)
+        run.run()
+        runs[pkg] = (run, rc)
+    _records_equal(runs[J][0], runs[T][0])
+    assert _occupancy(runs[T][1], 2) == _occupancy(runs[J][1], 2) == [1, 0]
+
+
+def test_distortion_target_step_down_requires_fitted_neighbor():
+    cfg = JAEConfig(input_dim=P, encoder_hidden=(16,), latent_dim=32)
+    lj = [[J.FCAECompressor(J.init_fc_ae(jax.random.PRNGKey(30), cfg), cfg),
+           J.QuantizeCompressor(bits=8)]]
+    rc = T.DistortionTarget(ladder=_port_ladder(lj), target=0.5, margin=0.9,
+                            min_snapshots=1, cooldown=1, initial_rung=1)
+    run = _run(T, 1, rc)
+    run.run()
+    assert run.history[0].spec_switches == []
+    rc._probe_all = lambda run, lanes: np.full((2, len(lanes)), 1e-12)
+    assert rc.plan(run, 5, [0]) == {}
+    rc._fitted[0, 0] = True
+    assert rc.plan(run, 5, [0]) == {0: 0}
+
+
+def test_rd_budget_holds_unfit_lanes_then_moves_when_seeded():
+    def mk(pkg, ladder, prefit):
+        if prefit:
+            for row in ladder:
+                for comp in row:
+                    comp.prefit = True
+        rc = pkg.RDBudget(ladder=ladder, budget=float("inf"),
+                          min_snapshots=1, refit_epochs=0, refit_batch=2)
+        run = _run(pkg, 2, rc, n_rounds=2)
+        if prefit:
+            rc._probe_all = lambda run, lanes: np.array(
+                [[0.5] * len(lanes), [0.1] * len(lanes)])
+        run.run()
+        return run, rc
+
+    for prefit in (False, True):
+        lj, lt = _ae_ladder(2)
+        (rj, cj), (rt, ct) = mk(J, lj, prefit), mk(T, lt, prefit)
+        _records_equal(rj, rt)
+        assert ct.lambda_trace == cj.lambda_trace
+        if not prefit:
+            assert all(rec.spec_switches == [] for rec in rt.history)
+            assert _occupancy(ct, 2) == [0, 0]
+            assert ct.last_lambda is None
+            assert rt.history[1].bytes_decoder == 0.0
+        else:
+            assert _occupancy(ct, 2) == [1, 1]
+            assert sorted(rt.history[0].spec_switches) == [(0, 0, 1),
+                                                           (1, 0, 1)]
+
+
+def test_controller_with_sampled_scheduler_switches_participants_only():
+    runs = {}
+    for pkg in (J, T):
+        rc = pkg.DistortionTarget(ladder=_pointwise_ladder(pkg, 4),
+                                  target=1e-3, margin=1e-3, min_snapshots=1)
+        run = _run(pkg, 4, rc, scheduler=pkg.SampledSync(cohort=2))
+        run.run()
+        runs[pkg] = (run, rc)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    rec = rt.history[0]
+    assert {s[0] for s in rec.spec_switches} <= set(rec.participants)
+    for ci in set(range(4)) - set(rec.participants):
+        assert ct.rung_of(ci) == 0
+    assert _occupancy(ct, 4) == _occupancy(cj, 4)
+
+
+# ------------------------------ distortion-weighted staleness (§15.5)
+def test_distortion_weights_equal_reference():
+    rng = np.random.RandomState(5)
+    for power in (0.0, 0.5, 1.0, 2.0):
+        w = [float(x) for x in rng.rand(6) * 10]
+        d = [None if i % 3 == 0 else float(rng.rand()) for i in range(6)]
+        assert T.distortion_weights(w, d, power) == \
+            J.distortion_weights(w, d, power)
+    with pytest.raises(ValueError):
+        T.distortion_weights([1.0], [None, None])
+
+
+def test_async_distortion_power_matches_reference():
+    """``AsyncBuffered(distortion_power=1)`` under a DistortionTarget
+    ladder: arrivals, staleness, switches and bytes equal, parameters in
+    the golden band; without a controller the discount is a no-op."""
+    runs = {}
+    for pkg in (J, T):
+        rc = pkg.DistortionTarget(ladder=_pointwise_ladder(pkg, 4),
+                                  target=1e-3, margin=1e-3, min_snapshots=1)
+        sched = pkg.AsyncBuffered(
+            buffer_k=2, distortion_power=1.0,
+            latency=pkg.LatencyModel(jitter=0.3, straggler_frac=0.25))
+        run = _run(pkg, 4, rc, scheduler=sched, n_rounds=4)
+        run.run()
+        runs[pkg] = (run, rc)
+    (rj, cj), (rt, ct) = runs[J], runs[T]
+    _records_equal(rj, rt)
+    assert any(r.staleness and max(r.staleness) > 0 for r in rt.history)
+    probed = [ci for ci in range(4) if ct.distortion_of(ci) is not None]
+    assert probed == [ci for ci in range(4)
+                      if cj.distortion_of(ci) is not None] and probed
+    plain = {}
+    for power in (0.0, 1.0):
+        run = _run(T, 4, None, n_rounds=2, scheduler=T.AsyncBuffered(
+            buffer_k=2, distortion_power=power,
+            latency=T.LatencyModel(jitter=0.3)))
+        run.run()
+        plain[power] = ravel(run.global_params)[0]
+    assert torch.equal(plain[0.0], plain[1.0])
+
+
+# ------------------------------------------------------------ ladders
+def test_fc_ae_ladder_draws_fresh_rungs_from_seeded_generators():
+    """Fresh rungs come from CPU generators seeded with the reference's
+    integers and stay unfit; supplied params are marked prefit. Specs and
+    prices equal the reference ladder's."""
+    lt = T.fc_ae_ladder(2, P, latent_dims=(8, 32), hidden=(16,), seed=3,
+                        device="cpu")
+    lj = J.fc_ae_ladder(2, P, latent_dims=(8, 32), hidden=(16,), seed=3)
+    for ci in range(2):
+        for k in range(2):
+            gen = torch.Generator().manual_seed(
+                (3 * 1_000_003 + ci * 1009 + k) % 2 ** 31)
+            want = T.init_fc_ae(gen, lt[ci][k].cfg, "cpu")
+            for a, b in zip(leaves(lt[ci][k].params), leaves(want),
+                            strict=True):
+                assert torch.equal(a, b)
+            assert not lt[ci][k].prefit and not trc._rung_prefit(lt[ci][k])
+            assert T.wire_bytes(lt[ci][k].spec(P),
+                                lt[ci][k].codec_params()) == \
+                J.wire_bytes(lj[ci][k].spec(P), lj[ci][k].codec_params())
+    seeded = T.fc_ae_ladder(
+        1, P, latent_dims=(8, 32), hidden=(16,), bits=8, device="cpu",
+        params=[[lt[0][0].params, None]])
+    assert isinstance(seeded[0][0], T.ComposedCompressor)
+    assert seeded[0][0].codec_params() is lt[0][0].params
+    assert trc._rung_prefit(seeded[0][0])
+    assert not trc._rung_prefit(seeded[0][1])
+    with pytest.raises(AssertionError, match="cheapest-uplink-first"):
+        T.fc_ae_ladder(1, P, latent_dims=(32, 8), device="cpu")

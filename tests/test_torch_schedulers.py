@@ -334,9 +334,13 @@ def test_async_engines_bit_identical_and_zero_jitter_equals_sync():
 def test_async_refuses_what_is_not_ported():
     dt, _ = _uniform(tpipe, 2, 64)
     cfg = T.FLConfig(n_rounds=1)
-    with pytest.raises(NotImplementedError, match="rate controller"):
+    with pytest.raises(ValueError, match="engine"):
         T.FederatedRun(MNIST_CLASSIFIER, dt, cfg, device="cpu",
-                       scheduler=T.AsyncBuffered(distortion_power=1.0))
+                       scheduler=T.AsyncBuffered(engine="other"))
+    # distortion-weighted staleness is ported (rate control): without a
+    # controller it binds and leaves the weights as they are
+    T.FederatedRun(MNIST_CLASSIFIER, dt, cfg, device="cpu",
+                   scheduler=T.AsyncBuffered(distortion_power=1.0)).run()
     # the checkpoint state is ported: the event loop round-trips
     sched = T.AsyncBuffered()
     T.FederatedRun(MNIST_CLASSIFIER, dt, cfg, device="cpu", scheduler=sched)
