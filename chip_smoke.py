@@ -23,7 +23,8 @@ Phases, each reported on its own lines:
    window and a full, kv-padded shape, and in float32 at head dim 64.
    The chunked AE's four layers at 4096 chunks a client and run (h)'s
    server hidden layer run in float32, and so do the client and server
-   shapes of runs (i), (j) and (k). Kernels 3 to 6 have routes, named
+   shapes of runs (i), (j), (k), (n), (o) and (q) (and (q)'s attention
+   in bf16). Kernels 3 to 6 have routes, named
    in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
    32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
@@ -87,7 +88,15 @@ Phases, each reported on its own lines:
    exact, parameters in the golden band); the scatter route called twice
    on the card (``torch.equal``) and beside one ``index_add_`` over the
    whole cohort. The kernels record carries the runs' counts as
-   ``launches_run_i`` and ``launches_run_j``. Run (j) then crosses a
+   ``launches_run_i`` and ``launches_run_j``. Run (p), part 1: run (j)
+   with ``soa_state=True`` (a struct-of-arrays ``ClientPool``) on the
+   vector engine, twice, in turns with the eager runs (heap, vector, SoA,
+   vector, SoA, heap), each ``torch.equal`` to the first heap run
+   (traces, bytes, metrics, parameters); host seconds a round of each
+   printed, and round 1 of an eager and of an SoA run under ``cProfile``
+   in turns, twice (the round, the calls into ``core/soa.py``, the
+   garbage collector, the costliest functions).
+   Run (j) then crosses a
    checkpoint: saved after round 1 with one engine, restored into the
    other, round 2 must be ``torch.equal`` to the uninterrupted run, its
    downlink bytes equal;
@@ -107,7 +116,14 @@ Phases, each reported on its own lines:
    rings and records equal the uninterrupted run's. A reduced copy (2
    clients, 3 rounds, a refit at round 1) on the card and the CPU in the
    golden band. The kernels record carries the counts as
-   ``launches_run_k``;
+   ``launches_run_k``. Run (p), part 2: run (k) again with
+   ``soa_state=True`` (the snapshot rings in the pool's ring buffers),
+   ``torch.equal`` to the eager run in every tensor, scalar and record;
+   then resumed after round 3 SoA -> SoA, an eager checkpoint into a run
+   built with ``soa_state=True`` and an SoA checkpoint into an eager one
+   (the checkpoint's layout decides), each ``torch.equal`` to the
+   uninterrupted run. The kernels record carries the SoA runs' counts as
+   ``launches_run_p``;
 9. the paper's §5.2 federation — (l) ``color_imbalance_split(0, 256)``
    (collaborator 1 grayscale), each collaborator's pre-pass (5 epochs,
    then a 6-epoch fit of the paper's CIFAR FC AE at full width, 550,586 →
@@ -158,7 +174,47 @@ Phases, each reported on its own lines:
    codes, decisions and bytes exact; beside it the free-running
    trajectories' divergence, card against CPU and CPU against CPU from
    initial params one ulp apart. The
-   kernels record carries the counts as ``launches_run_n``.
+   kernels record carries the counts as ``launches_run_n``;
+13. the serve loop — (o) ``benchmarks/tables.py:905-953`` at FULL through
+   ``core/serve.py``'s ``run_serve``: N = 10^6 clients, jitter 0.4, a 5 %
+   straggler tail, seed 0, one warm-up round; q8 over 2^16 values (block
+   256) at cohorts 256 (3 timed rounds) and 4,096 (2), q8 over 2^10
+   values (block 2^10) at 65,536 (2), the chunked AE ``(256, (32,), 8)``
+   over 2^16 values on the kernel path at 256 (3), and the CIFAR CNN's
+   550,586 values through run (i)'s composed kernel-path chunked AE at N
+   1,000, K 100 (3). Each row: rounds, bytes a second and microseconds a
+   round, the median and range of three ``run_serve`` calls that each
+   time at least 1 s of rounds; the FULL rounds one at a time — a round's
+   host time
+   against its device time (CUDA events), its kernel launches (equal
+   every round, and across the q8 rows' cohorts), allocated memory
+   (equal after every round: two preallocated state generations), the
+   reference's invariants (``tests/test_serve.py:28-53``); the two
+   final states ``torch.equal``; one more round traced with
+   ``torch.profiler`` (device kernels, idle share). Kernels 2, 3 and 4
+   launch; the record carries the counts as ``launches_run_o``. Then the
+   step at ``serve_q8_c256``'s and ``serve_ae_c256``'s shapes on the card
+   and on the CPU for 3 rounds, both seams fed identical numpy draws:
+   times, seqs and versions exact, the clock and ``global_flat`` in the
+   golden band;
+14. ``LMDeltaTask`` at full width — (q) stablelm-1.6b (d_model 2048, 32
+   heads, d_ff 5,632, vocab 100,352, untied LM head), 2 of 24 layers,
+   float32 parameters, bf16 compute, 513,822,720 parameters drawn on the
+   card; 2 clients of 8 sequences of 512 tokens, batch 4, update payload
+   with error feedback, ``freeze_roles=("embedding",)``, a
+   ``by_role_partition`` ``PartitionedCompressor`` (``mlp`` on a shared
+   kernel-path chunked AE ``(256, (32,), 8)``, the rest q8 at block 256):
+   ``SyncFedAvg`` 2 rounds, then ``SampledSync(cohort=2)`` with
+   ``soa_state=True`` 2 rounds and its resume through a checkpoint
+   (``torch.equal``). The embedding group's codes all zero and its
+   decoded rows and means exactly zero, frozen leaves unchanged, uplink
+   bytes the groups' wire bytes, evaluation finite, kernels 1, 2, 3, 4 and
+   6 launched (kernel 6 once a layer an evaluate); parameter count and
+   peak memory printed. A reduced copy (the config's narrow widths,
+   float32) on the card and the CPU, the CPU encoding the card's local
+   models against the card's round-start model: codes exact, the rest in
+   the golden band. The record carries the counts as
+   ``launches_run_q``.
 
 Checkpoints go to ``build/chip_smoke/`` and are deleted after loading.
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -882,15 +938,15 @@ def run_sampled_cnn(device: str, n_clients: int = 1000, cohort: int = 100,
 
 
 def run_async_mlp(device: str, scenario=None, engine: str = "heap",
-                  rounds: int = 3):
+                  rounds: int = 3, soa: bool = False):
     """Run (j): :func:`build_async_mlp`, played ``rounds`` rounds. Returns
     (run, records, host seconds per round)."""
-    run = build_async_mlp(device, scenario, engine, rounds)
+    run = build_async_mlp(device, scenario, engine, rounds, soa)
     return (run,) + _timed_rounds(run, rounds, device)
 
 
 def build_async_mlp(device: str, scenario=None, engine: str = "heap",
-                    rounds: int = 3):
+                    rounds: int = 3, soa: bool = False):
     """Run (j)'s ``FederatedRun``: ``AsyncBuffered`` over the MNIST MLP at
     full width (15,910 parameters) at ``scenario``
     (``PAPER_SCALE_SCENARIO`` by default: 1,000 clients, K 50,
@@ -898,7 +954,8 @@ def build_async_mlp(device: str, scenario=None, engine: str = "heap",
     128 examples a client and 2 local epochs (four Adam steps: after one,
     every moved parameter has moved by lr to within rounding, and top-k
     would rank the rounding), update payload with error feedback through
-    ``ChainCompressor((TopK 1 %, q8))``, the scatter route."""
+    ``ChainCompressor((TopK 1 %, q8))``, the scatter route; ``soa`` keeps
+    the client state as a struct-of-arrays pool (run (p))."""
     from repro_torch.configs.paper import MNIST_CLASSIFIER
     from repro_torch.configs.paper import PAPER_SCALE_SCENARIO
     from repro_torch.core import (AsyncBuffered, ChainCompressor,
@@ -916,7 +973,7 @@ def build_async_mlp(device: str, scenario=None, engine: str = "heap",
         compressors=[ChainCompressor([TopKCompressor(0.01),
                                       QuantizeCompressor(bits=8)])
                      for _ in range(n)],
-        eval_data=ev, device=device,
+        eval_data=ev, device=device, soa_state=soa,
         scheduler=AsyncBuffered(
             buffer_k=sc.buffer_k, engine=engine,
             latency=LatencyModel(base=sc.base_latency,
@@ -924,6 +981,48 @@ def build_async_mlp(device: str, scenario=None, engine: str = "heap",
                                  straggler_frac=sc.straggler_frac,
                                  straggler_mult=sc.straggler_mult)))
     return run
+
+
+def profiled_async_round(soa: bool) -> dict:
+    """Run (j) on the vector engine (``soa`` in either layout): round 0
+    played, round 1 under ``cProfile``. Host seconds of the round, of the
+    calls into ``core/soa.py`` (with all they call), of the garbage
+    collector's passes and of the five functions with the most time of
+    their own."""
+    import cProfile
+    import gc
+    import pstats
+    import torch
+    run = build_async_mlp("cuda", engine="vector", rounds=2, soa=soa)
+    _timed_rounds(run, 1, "cuda")
+    gc_s, gc_t0 = [0.0], [0.0]
+
+    def gc_clock(phase, _info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+    gc.callbacks.append(gc_clock)
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    run.history.append(run.scheduler.run_round(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.disable()
+    gc.callbacks.remove(gc_clock)
+    stats = pstats.Stats(prof).stats
+    own = sorted(((tt, f"{Path(f).name}:{ln}:{fn}")
+                  for (f, ln, fn), (_, _, tt, _, _) in stats.items()),
+                 reverse=True)
+    def in_soa(f):
+        return f.endswith(str(Path("core") / "soa.py"))
+    # inclusive: calls into core/soa.py from outside it, with all they call
+    soa_s = sum(edge[3] for (f, _, _), (*_, callers) in stats.items()
+                if in_soa(f) for caller, edge in callers.items()
+                if not in_soa(caller[0]))
+    return {"round_s": wall, "soa_calls_s": soa_s, "gc_s": gc_s[0],
+            "top": [[name, tt] for tt, name in own[:5]]}
 
 
 def _timed_rounds(run, rounds: int, device: str):
@@ -1093,7 +1192,7 @@ def play(run, rounds: int, device: str, spy=None):
 
 
 def build_lifecycle_cnn(device: str, n_clients: int = 8, rounds: int = 6,
-                        lifecycle=None):
+                        lifecycle=None, soa: bool = False):
     """Run (k): ``SyncFedAvg`` over the paper's CIFAR CNN at full width
     (550,586 parameters), ``n_clients`` shards of 64 ``cifar_like`` images,
     1 local epoch, update payload with error feedback, each client the
@@ -1103,7 +1202,8 @@ def build_lifecycle_cnn(device: str, n_clients: int = 8, rounds: int = 6,
     at block 64, 1,156 B), all clients on one params object drawn from a
     seed (normalizer std 1e-3), and an ``AELifecycle`` (``LIFECYCLE_K`` by
     default). The AE is drawn on the CPU and moved, so every build starts
-    from the same values."""
+    from the same values. ``soa`` keeps the client state as a
+    struct-of-arrays pool (run (p))."""
     import torch
     from repro_torch.configs.paper import CIFAR_CLASSIFIER
     from repro_torch.core import (AELifecycle, ChunkedAECompressor,
@@ -1123,7 +1223,7 @@ def build_lifecycle_cnn(device: str, n_clients: int = 8, rounds: int = 6,
         compressors=[ComposedCompressor(
             ChunkedAECompressor(ae, cfg, use_kernel=True), bits=8)
             for _ in range(n_clients)],
-        eval_data=ev, device=device,
+        eval_data=ev, device=device, soa_state=soa,
         lifecycle=AELifecycle(**(LIFECYCLE_K if lifecycle is None
                                  else lifecycle)))
 
@@ -1176,14 +1276,24 @@ RECORD_BYTES = ("bytes_up", "bytes_up_raw", "bytes_up_measured",
 def tensors_of(run) -> dict:
     """Everything a resume must reproduce, by name: global params, and per
     client its residual, dispatch snapshot, snapshot rings and codec
-    params."""
+    params (the same reading of an eager list and of a struct-of-arrays
+    pool)."""
     from repro_torch.core.pytree import leaves
     out = {"global": leaves(run.global_params)}
     for ci, (st, comp) in enumerate(zip(run.clients, run.compressors)):
+        rings = {name: list(ring) for name, ring in st.part_snapshots.items()}
         out[f"client {ci}"] = leaves([st.residual, st.dispatched,
-                                      st.snapshots, st.part_snapshots])
+                                      list(st.snapshots), rings])
         out[f"codec {ci}"] = leaves(comp.codec_params())
     return out
+
+
+def scalars_of(st) -> tuple:
+    """A client's lifecycle scalars, read alike from a ``ClientState`` and
+    a pool's view (a baseline set to None reads as never set)."""
+    return (st.version, st.last_refresh, st.ae_baseline,
+            dict(st.part_last_refresh.items()),
+            {k: v for k, v in st.part_baseline.items() if v is not None})
 
 
 def check_resume(tag: str, full, resumed, n_first: int) -> None:
@@ -1198,10 +1308,7 @@ def check_resume(tag: str, full, resumed, n_first: int) -> None:
                 and all(torch.equal(x, y) for x, y in zip(a[k], b[k])),
                 f"{tag}: {k} differs from the uninterrupted run")
     for sa, sb in zip(full.clients, resumed.clients, strict=True):
-        require((sa.version, sa.last_refresh, sa.ae_baseline,
-                 sa.part_last_refresh, sa.part_baseline)
-                == (sb.version, sb.last_refresh, sb.ae_baseline,
-                    sb.part_last_refresh, sb.part_baseline),
+        require(scalars_of(sa) == scalars_of(sb),
                 f"{tag}: lifecycle scalars differ")
     for x, y in zip(full.history[n_first:], resumed.history, strict=True):
         require(x.round == y.round, f"{tag}: rounds differ")
@@ -1213,10 +1320,11 @@ def check_resume(tag: str, full, resumed, n_first: int) -> None:
 
 
 def resume_via_checkpoint(tag: str, build, n_first: int, n_rest: int,
-                          device: str):
+                          device: str, build_resumed=None):
     """Play ``n_first`` rounds of ``build(n_first)``, ``save_state``, load
-    into a fresh ``build(n_rest)`` and play the rest. Returns (resumed run,
-    its per-round plays, checkpoint bytes, save and load seconds)."""
+    into a fresh ``build_resumed(n_rest)`` (``build`` by default) and play
+    the rest. Returns (resumed run, its per-round plays, checkpoint bytes,
+    save and load seconds)."""
     CKPT_DIR.mkdir(parents=True, exist_ok=True)
     path = CKPT_DIR / f"{tag}.npz"
     first = build(n_first)
@@ -1225,7 +1333,7 @@ def resume_via_checkpoint(tag: str, build, n_first: int, n_rest: int,
     first.save_state(str(path))
     save_s = time.perf_counter() - t0
     del first
-    resumed = build(n_rest)
+    resumed = (build_resumed or build)(n_rest)
     t0 = time.perf_counter()
     require(resumed.load_state(str(path)) == n_first,
             f"{tag}: restored round")
@@ -1482,11 +1590,13 @@ class EncodeSpy:
     model, flat, in ``own``, the global params it trained from in
     ``start`` and its payload in ``payloads``, all under ``(round,
     client)``; given ``replay`` (another run's ``own``), encodes that local
-    model in place of the run's own. A context manager that puts the
-    function back."""
+    model in place of the run's own, and given ``replay_start`` (another
+    run's ``start``) against that global model (an update payload's
+    delta). A context manager that puts the function back."""
 
-    def __init__(self, replay=None):
-        self.replay, self.own, self.start, self.payloads = replay, {}, {}, {}
+    def __init__(self, replay=None, replay_start=None):
+        self.replay, self.replay_start = replay, replay_start
+        self.own, self.start, self.payloads = {}, {}, {}
 
     def __enter__(self):
         from repro_torch.core import scheduler as mod
@@ -1500,6 +1610,9 @@ class EncodeSpy:
             self.start[key] = ravel(global_params)[0].detach().clone()
             if self.replay is not None:
                 local = unravel(self.replay[key].to(flat.device))
+            if self.replay_start is not None:
+                global_params = unravel(
+                    self.replay_start[key].to(flat.device))
             enc = self.real(run, ci, local, global_params, state, metrics)
             self.payloads[key] = enc.payload
             return enc
@@ -1652,6 +1765,55 @@ def _max(x) -> float:
     return float(x.max()) if x.numel() else 0.0
 
 
+def hold_replay(tag: str, card, cpu, lr: float) -> dict:
+    """A replayed run's local models and payloads (two :class:`EncodeSpy`
+    records, the CPU's replaying the card's): each local model the CPU
+    trains against the card's in the golden band, except where both
+    devices' single Adam step is partial (smaller than 0.99 lr: a
+    gradient at rounding level, whose size and sign the rounding
+    decides); each payload's floats in the band, its integer codes exact.
+    Returns the largest differences and the counts."""
+    import torch
+    from repro_torch.core.pytree import leaves
+
+    def held(what, got, want) -> float:
+        try:
+            return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
+        except AssertionError as e:
+            raise AssertionError(f"{tag}: {what}: {e}") from None
+    rep = dict(local_full_steps=0.0, local_partial_steps=0,
+               local_partial_out_of_band=0, local_partial_max_abs_err=0.0,
+               payload=0.0, codes=0)
+    for key in sorted(card.own):
+        og, oc = card.own[key].cpu(), cpu.own[key]
+        ug = og - card.start[key].cpu()
+        uc = oc - cpu.start[key]
+        partial = (ug.abs() < 0.99 * lr) & (uc.abs() < 0.99 * lr)
+        d = (og - oc).abs()
+        out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * oc.abs()
+        require(not bool((out & ~partial).any()),
+                f"{tag}: local model {key}: {int((out & ~partial).sum())} "
+                "params out of the band where a device took a full Adam "
+                f"step, max {_max(d[out & ~partial])}")
+        rep["local_full_steps"] = max(rep["local_full_steps"],
+                                      _max(d[~partial]))
+        rep["local_partial_steps"] += int(
+            (partial & ((ug != 0) | (uc != 0))).sum())
+        rep["local_partial_out_of_band"] += int((out & partial).sum())
+        rep["local_partial_max_abs_err"] = max(
+            rep["local_partial_max_abs_err"], _max(d[partial]))
+        for a, b in zip(leaves(card.payloads[key]),
+                        leaves(cpu.payloads[key]), strict=True):
+            if a.dtype.is_floating_point:
+                rep["payload"] = max(rep["payload"],
+                                     held(f"payload {key}", a, b))
+            else:
+                require(torch.equal(a.cpu(), b),
+                        f"{tag}: payload codes {key} differ")
+                rep["codes"] += a.numel()
+    return rep
+
+
 def rate_cnn_replay(fit, n_clients: int = 2, rounds: int = 3) -> tuple:
     """Run (n)'s reduced copy on the card and on the CPU, the CPU run
     encoding the card's trained local model of each round and client in
@@ -1695,36 +1857,8 @@ def rate_cnn_replay(fit, n_clients: int = 2, rounds: int = 3) -> tuple:
             return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
         except AssertionError as e:
             raise AssertionError(f"{tag}: {what}: {e}") from None
-    rep = dict(local_full_steps=0.0, local_partial_steps=0,
-               local_partial_out_of_band=0, local_partial_max_abs_err=0.0,
-               payload=0.0, codes=0, params=[], distortion=0.0, ladder=0.0)
-    for key in sorted(spies["cuda"].own):
-        og, oc = spies["cuda"].own[key].cpu(), spies["cpu"].own[key]
-        ug = og - spies["cuda"].start[key].cpu()
-        uc = oc - spies["cpu"].start[key]
-        partial = (ug.abs() < 0.99 * lr) & (uc.abs() < 0.99 * lr)
-        d = (og - oc).abs()
-        out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * oc.abs()
-        require(not bool((out & ~partial).any()),
-                f"{tag}: local model {key}: {int((out & ~partial).sum())} "
-                "params out of the band where a device took a full Adam "
-                f"step, max {_max(d[out & ~partial])}")
-        rep["local_full_steps"] = max(rep["local_full_steps"],
-                                      _max(d[~partial]))
-        rep["local_partial_steps"] += int(
-            (partial & ((ug != 0) | (uc != 0))).sum())
-        rep["local_partial_out_of_band"] += int((out & partial).sum())
-        rep["local_partial_max_abs_err"] = max(
-            rep["local_partial_max_abs_err"], _max(d[partial]))
-        for a, b in zip(leaves(spies["cuda"].payloads[key]),
-                        leaves(spies["cpu"].payloads[key]), strict=True):
-            if a.dtype.is_floating_point:
-                rep["payload"] = max(rep["payload"],
-                                     held(f"payload {key}", a, b))
-            else:
-                require(torch.equal(a.cpu(), b),
-                        f"{tag}: payload codes {key} differ")
-                rep["codes"] += a.numel()
+    rep = hold_replay(tag, spies["cuda"], spies["cpu"], lr)
+    rep.update(params=[], distortion=0.0, ladder=0.0)
     for r, (pg, pc) in enumerate(zip(params["cuda"], params["cpu"])):
         rep["params"].append(held(f"round {r} global params", pg, pc))
     for a, b in zip(g.history, c.history, strict=True):
@@ -2019,6 +2153,559 @@ def run_rate_cnn(launches: dict) -> dict:
     return routes_n
 
 
+# ------------------------------------------------------ the serve loop (o)
+SERVE_N = 1_000_000
+SERVE_CFG = dict(jitter=0.4, straggler_frac=0.05, seed=0)   # tables.py:929
+
+
+def serve_rows(device: str) -> list:
+    """Run (o)'s rows, ``benchmarks/tables.py:905-953`` at FULL (N 10^6,
+    one warm-up round), the AE row on the kernel path, and one row at a
+    model's full width: the CIFAR CNN's 550,586 values through run (i)'s
+    composed kernel-path chunked AE, N 1,000, K 100
+    (``PAPER_SCALE_SCENARIO``). Each is (name, spec, codec params, N, K,
+    timed rounds)."""
+    import torch
+    from repro_torch.core import (ChunkedAECompressor, ChunkedAEConfig,
+                                  ComposedCompressor, codec, init_chunked_ae)
+    q8 = codec.QuantizeSpec(size=1 << 16, bits=8, block=256)
+    ae_cfg = ChunkedAEConfig(256, (32,), 8)
+    ae = init_chunked_ae(torch.Generator().manual_seed(0), ae_cfg, device)
+    cnn_ae = init_chunked_ae(torch.Generator().manual_seed(2),
+                             ChunkedAEConfig(), device)
+    cnn_ae["norm"] = {"mean": torch.zeros((), device=device),
+                      "std": torch.full((), 1e-3, device=device)}
+    cnn = ComposedCompressor(ChunkedAECompressor(cnn_ae, ChunkedAEConfig(),
+                                                 use_kernel=True), bits=8)
+    return [
+        ("serve_q8_c256", q8, None, SERVE_N, 256, 3),
+        ("serve_q8_c4096", q8, None, SERVE_N, 4096, 2),
+        ("serve_q8_c65536", codec.QuantizeSpec(size=1 << 10, bits=8,
+                                               block=1 << 10),
+         None, SERVE_N, 65_536, 2),
+        ("serve_ae_c256", codec.ChunkedAESpec(size=1 << 16, cfg=ae_cfg,
+                                              use_kernel=True),
+         ae, SERVE_N, 256, 3),
+        ("serve_cnn_c100", cnn.spec(CIFAR_PARAMS), cnn.codec_params(),
+         1000, 100, 3),
+    ]
+
+
+def check_serve_invariants(tag: str, st: dict, r: int, n: int, k: int,
+                           prev_clock: float) -> float:
+    """``tests/test_serve.py:28-53`` on the card after round ``r`` (from
+    0): the version up by one, the clock monotone, every client one
+    finite in-flight dispatch with a distinct seq, the re-dispatched
+    cohort after the clock, no client version past the global one."""
+    import torch
+    clock = float(st["clock"])
+    require(int(st["version"]) == r + 1, f"{tag}: version")
+    require(clock >= prev_clock, f"{tag}: clock went back")
+    require(bool(torch.isfinite(st["times"]).all()), f"{tag}: times")
+    require(int(torch.unique(st["seqs"]).numel()) == n, f"{tag}: seqs")
+    nxt = int(st["next_seq"])
+    require(nxt == n + (r + 1) * k, f"{tag}: next_seq")
+    recent = st["seqs"] >= nxt - k
+    require(int(recent.sum()) == k
+            and bool((st["times"][recent] >= clock).all()),
+            f"{tag}: re-dispatched arrivals")
+    require(int(st["versions"].max()) <= int(st["version"]),
+            f"{tag}: versions")
+    return clock
+
+
+def busy_ms(events) -> float:
+    """Union of the device kernels' intervals (``torch.profiler``
+    events), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3                         # profiler times are in us
+
+
+def traced_round(fn, top: int = 6, width: int = 60) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms (ended by a
+    synchronize), device kernels launched, device busy ms, the idle share
+    of the wall time and the ``top`` kernels that took longest (ms summed
+    by name, names cut to ``width`` characters)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms(kern)
+    by_name = {}
+    for e in kern:
+        by_name[e.name[:width]] = by_name.get(e.name[:width], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    return {"wall_ms": wall, "device_kernels": len(kern),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "top_kernels_ms": sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:top]}
+
+
+SERVE_WINDOW_S = 1.0      # the least host-clock window a throughput reading
+SERVE_WINDOWS = 3         # readings a row: their median and range
+
+
+def serve_row(name, spec, params, n: int, k: int, rounds: int) -> dict:
+    """One row of run (o): ``run_serve`` (warm-up 1, ``rounds`` timed); the
+    same rounds again one at a time, each round's host time (the step's
+    enqueue on the host clock) against its device time (CUDA events), its
+    kernel launches and allocated memory, and the invariants; the two
+    final states ``torch.equal`` (two fresh runs); one more round traced
+    (device kernels, idle share). The throughput is ``SERVE_WINDOWS``
+    fresh ``run_serve`` calls that each timed at least ``SERVE_WINDOW_S``
+    seconds of rounds: the median reading and the range. Each memory reading follows a ``gc.collect()``, so no
+    earlier phase's garbage freed between two readings can move them."""
+    import gc
+    import torch
+    from repro_torch.core import codec
+    from repro_torch.core.serve import (ServeConfig, init_state, make_step,
+                                        round_bytes, run_serve)
+    from repro_torch.kernels import _lib
+    cfg = ServeConfig(n_clients=n, buffer_k=k, spec=spec, **SERVE_CFG)
+    require(round_bytes(cfg, params) == k * codec.wire_bytes(spec, params),
+            f"{name}: round_bytes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    final, report = run_serve(cfg, rounds, params, warmup=1)
+    step, st = make_step(cfg, params), init_state(cfg, params)
+    per, clock = [], -1.0
+    for r in range(1 + rounds):
+        c0 = _lib.counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        e0.record()
+        t0 = time.perf_counter()
+        st = step(st)
+        host = (time.perf_counter() - t0) * 1e3
+        e1.record()
+        torch.cuda.synchronize()
+        c1 = _lib.counts()
+        gc.collect()
+        per.append({"host_ms": host, "device_ms": e0.elapsed_time(e1),
+                    "launches": {x: v - c0.get(x, 0) for x, v in c1.items()
+                                 if v - c0.get(x, 0)},
+                    "allocated": torch.cuda.memory_allocated()})
+        clock = check_serve_invariants(name, st, r, n, k, clock)
+    for key in final:
+        require(torch.equal(final[key], st[key]),
+                f"{name}: two fresh runs differ in {key}")
+    require(per[0]["launches"]
+            and all(p["launches"] == per[0]["launches"] for p in per),
+            f"{name}: launches a round differ: "
+            f"{[p['launches'] for p in per]}")
+    require(len({p["allocated"] for p in per}) == 1,
+            f"{name}: allocated memory not flat: "
+            f"{[p['allocated'] for p in per]}")
+    peak = torch.cuda.max_memory_allocated()
+    holder = [st]
+    trace = traced_round(lambda: holder.append(step(holder.pop())))
+    require(math.isfinite(float(holder[0]["global_flat"].abs().max())),
+            f"{name}: global model not finite")
+    del holder, st, final, step
+    reads, us = [], report["us_per_round"]
+    while len(reads) < SERVE_WINDOWS:
+        # as many rounds as the last reading says fill the window with a
+        # fifth to spare; a reading that still falls short is taken again
+        window = max(rounds, math.ceil(1.2 * SERVE_WINDOW_S * 1e6 / us))
+        x = run_serve(cfg, window, params, warmup=1)[1]
+        us = x["us_per_round"]
+        if window * us / 1e6 >= SERVE_WINDOW_S:
+            reads.append(dict(x, window_rounds=window,
+                              window_s=window * us / 1e6))
+    reads.sort(key=lambda x: x["rounds_per_sec"])
+    timed = {key: reads[len(reads) // 2][key] for key in
+             ("rounds_per_sec", "bytes_per_sec", "us_per_round")}
+    for key in list(timed):
+        timed[key + "_range"] = [min(x[key] for x in reads),
+                                 max(x[key] for x in reads)]
+    return dict(name=name, n_clients=n, cohort=k, full_timed_rounds=rounds,
+                window_rounds=[x["window_rounds"] for x in reads],
+                window_s=[x["window_s"] for x in reads],
+                **timed, round_bytes=report["round_bytes"],
+                sim_time=report["sim_time"],
+                round_host_ms=[p["host_ms"] for p in per],
+                round_device_ms=[p["device_ms"] for p in per],
+                launches_a_round=per[0]["launches"],
+                allocated_after_round_1=per[0]["allocated"],
+                allocated_after_last_round=per[-1]["allocated"],
+                peak_allocated=peak, traced_round=trace)
+
+
+class SeamDraws:
+    """Numpy draws for ``core/serve.py``'s two seams (``_uniform``,
+    ``synthetic_payloads``), as ``tests/test_torch_serve.py`` feeds them:
+    two instances of one seed hand two devices identical arrays."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+        self.rng = np.random.RandomState(seed)
+
+    def uniform(self, gen, shape):
+        import numpy as np
+        import torch
+        return torch.from_numpy(self.rng.uniform(size=shape).astype(
+            np.float32)).to(gen.device)
+
+    def payloads(self, spec, params, k, gen):
+        import numpy as np
+        import torch
+        from repro_torch.core import serve
+        from repro_torch.core.pytree import unflatten
+        treedef, leaf_sig = serve._payload_structure(
+            spec, serve._signature(params))
+        out = []
+        for shape, dtype in leaf_sig:
+            full = (k, *shape)
+            if dtype.is_floating_point:
+                x = self.rng.standard_normal(full).astype(np.float32)
+            else:
+                # q8 codes; no card row draws top-k indices, whose
+                # duplicates would race in an index_put_
+                require(dtype == torch.int8, f"no draw for {dtype}")
+                x = self.rng.randint(-127, 128, size=full).astype(np.int8)
+            out.append(torch.from_numpy(x).to(device=gen.device,
+                                              dtype=dtype))
+        return unflatten(treedef, out)
+
+
+def serve_card_vs_cpu(name, spec, params, n: int, k: int,
+                      rounds: int = 3) -> dict:
+    """Run (o)'s step at a row's shape on the card and on the CPU for
+    ``rounds`` rounds, both seams fed identical numpy draws: times, seqs,
+    versions, the version and ``next_seq`` exact every round, the clock and
+    ``global_flat`` in the golden band. Returns the largest differences."""
+    import torch
+    from repro_torch.core import serve
+    from repro_torch.core.pytree import tree_map
+    cfg = serve.ServeConfig(n_clients=n, buffer_k=k, spec=spec, **SERVE_CFG)
+    seams = serve._uniform, serve.synthetic_payloads
+    states = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            draws = SeamDraws(61)
+            serve._uniform, serve.synthetic_payloads = (draws.uniform,
+                                                        draws.payloads)
+            p = None if params is None else tree_map(
+                lambda t, d=dev: t.to(d), params)
+            step, st = (serve.make_step(cfg, p, dev),
+                        serve.init_state(cfg, p, device=dev))
+            states[dev] = []
+            for _ in range(rounds):
+                st = step(st)
+                states[dev].append({x: v.cpu().clone()
+                                    for x, v in st.items()})
+            del step, st
+    finally:
+        serve._uniform, serve.synthetic_payloads = seams
+    errs = {"clock": 0.0, "global_flat": 0.0}
+    for r, (g, c) in enumerate(zip(states["cuda"], states["cpu"])):
+        for x in ("times", "seqs", "versions", "version", "next_seq"):
+            require(torch.equal(g[x], c[x]),
+                    f"{name} card vs cpu: {x} differ in round {r}")
+        for x in errs:
+            errs[x] = max(errs[x], close(g[x], c[x], **GOLDEN_BAND))
+    return dict(name=f"{name}_card_vs_cpu", rounds=rounds, max_abs_err=errs,
+                max_abs_global=float(states["cpu"][-1]["global_flat"]
+                                     .abs().max()))
+
+
+def run_serve_loop(launches: dict) -> list:
+    """Phase 13, run (o): every row of :func:`serve_rows`; adds the run's
+    kernel counts to ``launches`` as ``*_run_o``."""
+    import gc
+    import torch
+    from repro_torch.kernels import _lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lib.reset_launches()
+    out = [serve_row(*row) for row in serve_rows("cuda")]
+    torch.cuda.synchronize()
+    counts = _lib.counts()
+    for x in ("dequantize_blocks_2d", "fused_dense", "fused_decode_agg"):
+        require(counts.get(x, 0) > 0, f"run (o) never launched {x}")
+    for x, v in counts.items():
+        launches[f"{x}_run_o"] = v
+    q8 = [r for r in out if r["name"].startswith("serve_q8")]
+    require(all(r["launches_a_round"] == q8[0]["launches_a_round"]
+                for r in q8), "run (o): kernel launches a round differ "
+            "across K")
+    rows = {row[0]: row for row in serve_rows("cuda")}
+    for name in ("serve_q8_c256", "serve_ae_c256"):
+        out.append(serve_card_vs_cpu(*rows[name][:5]))
+    return out
+
+
+# ------------------------------------------------- LMDeltaTask at width (q)
+LM_Q = dict(arch="stablelm_1_6b", n_layers=2, clients=2, seqs=8,
+            seq_len=512, batch=4)
+LM_AE = dict(chunk_size=256, hidden=(32,), latent_chunk=8)
+
+
+def lm_delta_arch(reduced: bool):
+    """Run (q)'s model: stablelm-1.6b at full width, 2 of its 24 layers,
+    float32 parameters, its own bf16 compute; ``reduced`` is the same
+    architecture at the config's narrow widths in float32 compute."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config(LM_Q["arch"])
+    return (cfg.reduced() if reduced
+            else dataclasses.replace(cfg, n_layers=LM_Q["n_layers"]))
+
+
+def build_lm_delta(arch, params, data, ev, device: str, sched=None,
+                   soa: bool = False, rounds: int = 2):
+    """A ``FederatedRun`` of ``LMDeltaTask(arch, freeze_roles=
+    ("embedding",))`` from ``params``: payload "update" with error
+    feedback, batch 4, 1 local epoch, a ``by_role_partition``
+    ``PartitionedCompressor`` a client — the ``mlp`` group on one shared
+    kernel-path ``ChunkedAECompressor(ChunkedAEConfig(256, (32,), 8))``
+    (normalizer std 1e-3, as run (k)'s), every other group on q8 at block
+    256."""
+    import torch
+    from repro_torch.core import (ChunkedAECompressor, ChunkedAEConfig,
+                                  FederatedRun, FLConfig, LMDeltaTask,
+                                  PartitionedCompressor, QuantizeCompressor,
+                                  by_role_partition, init_chunked_ae)
+
+    class _From(LMDeltaTask):
+        def init_params(self, gen, dev):
+            return params
+
+    ae_cfg = ChunkedAEConfig(**LM_AE)
+    ae = init_chunked_ae(torch.Generator().manual_seed(4), ae_cfg, device)
+    ae["norm"] = {"mean": torch.zeros((), device=device),
+                  "std": torch.full((), 1e-3, device=device)}
+    pmap = by_role_partition(params)
+    comps = [PartitionedCompressor(pmap, {
+        name: (ChunkedAECompressor(ae, ae_cfg, use_kernel=True)
+               if name == "mlp" else QuantizeCompressor(bits=8, block=256))
+        for name in pmap.names}) for _ in data]
+    return FederatedRun(
+        _From(arch, freeze_roles=("embedding",)), data,
+        FLConfig(n_rounds=rounds, local_epochs=1, batch_size=LM_Q["batch"],
+                 payload="update", error_feedback=True, seed=0),
+        compressors=comps, eval_data=ev, scheduler=sched, soa_state=soa,
+        device=device)
+
+
+def lm_delta_data(vocab: int, seqs: int, seq_len: int):
+    """Run (q)'s shards (``synthetic_lm_batch``, a seed a client) and its
+    evaluation batch of 2 sequences."""
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    data = [synthetic_lm_batch(20 + ci, vocab, seqs, seq_len)
+            for ci in range(LM_Q["clients"])]
+    return data, synthetic_lm_batch(99, vocab, 2, seq_len)
+
+
+class GroupMeanSpy:
+    """Wraps ``partition.scatter_groups`` (the last step of the
+    partitioned server round and of each client's error-feedback decode):
+    the largest |decoded mean| (or |decoded row|) of each group, a call
+    each. A context manager that puts the function back."""
+
+    def __enter__(self):
+        from repro_torch.core import partition
+        self.mod, self.real, self.calls = (partition,
+                                           partition.scatter_groups, [])
+
+        def spy(structure, means, size):
+            self.calls.append({n: float(m.abs().max())
+                               for n, m in means.items()})
+            return self.real(structure, means, size)
+        partition.scatter_groups = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.scatter_groups = self.real
+
+
+class FrozenCodesSpy:
+    """Wraps ``scheduler._encode_local``: counts the q8 codes of the
+    ``embedding`` group in every payload a client ships, and the nonzero
+    ones among them."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import scheduler as mod
+        self.mod, self.real = mod, mod._encode_local
+        self.codes = self.nonzero = 0
+
+        def spy(*a, **kw):
+            enc = self.real(*a, **kw)
+            q = enc.payload["embedding"]["q"]
+            self.codes += q.numel()
+            self.nonzero += int(torch.count_nonzero(q))
+            return enc
+        mod._encode_local = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._encode_local = self.real
+
+
+def check_lm_round(tag: str, run, rec, frozen0) -> None:
+    """Run (q)'s checks a round: uplink bytes = the groups' wire bytes
+    summed over the cohort, finite evaluation, frozen leaves unchanged."""
+    import torch
+    from repro_torch.core import codec
+    from repro_torch.core.partition import role_of_path
+    from repro_torch.core.pytree import leaf_paths, leaves
+    comp = run.compressors[0]
+    wire = codec.wire_bytes(comp.spec(comp.pmap.size), comp.codec_params())
+    require(rec.bytes_up == len(rec.participants) * wire,
+            f"{tag} round {rec.round}: bytes_up {rec.bytes_up} != "
+            f"{len(rec.participants)} x {wire}")
+    require(all(math.isfinite(v) for v in rec.global_metrics.values()),
+            f"{tag} round {rec.round}: eval metrics not finite")
+    for (path, _, _), t, t0 in zip(leaf_paths(run.global_params),
+                                   leaves(run.global_params), frozen0,
+                                   strict=True):
+        if role_of_path(path) == "embedding":
+            require(torch.equal(t, t0), f"{tag}: frozen {path} moved")
+
+
+def run_lm_delta(launches: dict) -> dict:
+    """Phase 15, run (q): ``LMDeltaTask`` at full width on the card
+    (:func:`lm_delta_arch`, :func:`build_lm_delta`): 2 clients of 8
+    sequences of 512 tokens, ``SyncFedAvg`` for 2 rounds, then from its
+    global model ``SampledSync(cohort=2)`` with ``soa_state=True`` for 2
+    rounds, and that run resumed through a checkpoint after round 0
+    (``torch.equal``). Adds the counts of the 2 + 2 rounds to
+    ``launches`` as ``*_run_q``; returns what it measured."""
+    import gc
+    import torch
+    from repro_torch.core import ClientPool, SampledSync
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import init_params, param_count
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = lm_delta_arch(False)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         arch, "cuda")
+    n_params = param_count(params)
+    frozen0 = [t.clone() for t in leaves(params)]
+    data, ev = lm_delta_data(arch.vocab_size, LM_Q["seqs"], LM_Q["seq_len"])
+    _lib.reset_launches()
+    with FrozenCodesSpy() as codes, GroupMeanSpy() as means:
+        run = build_lm_delta(arch, params, data, ev, "cuda")
+        plays_s = play(run, 2, "cuda")
+        for rec in run.history:
+            check_lm_round("run (q) sync", run, rec, frozen0)
+        start = run.global_params
+        del run, params
+        gc.collect()
+        full = build_lm_delta(arch, start, data, ev, "cuda",
+                              SampledSync(cohort=2), soa=True)
+        plays_p = play(full, 2, "cuda")
+    torch.cuda.synchronize()
+    counts = _lib.counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(isinstance(full.clients, ClientPool), "run (q): not SoA")
+    for rec in full.history:
+        check_lm_round("run (q) sampled", full, rec, frozen0)
+    require(codes.codes > 0 and codes.nonzero == 0,
+            f"run (q): {codes.nonzero} of {codes.codes} embedding codes "
+            "nonzero")
+    require(len(means.calls) == 4 * 3
+            and all(c["embedding"] == 0.0 for c in means.calls),
+            f"run (q): embedding decodes {means.calls}")
+    for x in ("quantize_blocks_2d", "dequantize_blocks_2d", "fused_dense",
+              "fused_decode_agg", "flash_attention"):
+        require(counts.get(x, 0) > 0, f"run (q) never launched {x}")
+        launches[f"{x}_run_q"] = counts[x]
+    require(counts["flash_attention"] == 4 * arch.n_layers,
+            f"run (q): flash_attention {counts['flash_attention']}, not "
+            f"{arch.n_layers} an evaluate")
+    del frozen0
+    res, plays_r, nbytes, save_s, load_s = resume_via_checkpoint(
+        "run_q", lambda n: build_lm_delta(arch, start, data, ev, "cuda",
+                                          SampledSync(cohort=2), soa=True,
+                                          rounds=n), 1, 1, "cuda")
+    require(isinstance(res.clients, ClientPool), "run (q): resumed layout")
+    check_resume("run (q) resume", full, res, 1)
+    out = dict(param_count=n_params, peak_allocated=peak,
+               round_s=[p["s"] for p in plays_s + plays_p],
+               launches_a_round=[p["launches"] for p in plays_s + plays_p],
+               embedding_codes=codes.codes,
+               group_mean_max=means.calls[-1],
+               metrics=[r.global_metrics for r in full.history],
+               bytes_up=full.history[-1].bytes_up,
+               checkpoint_bytes=nbytes, save_s=save_s, load_s=load_s,
+               resumed_round_s=[p["s"] for p in plays_r])
+    del full, res, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_delta_replay(rounds: int = 3) -> dict:
+    """Run (q)'s reduced copy on the card and the CPU (float32 compute, 2
+    clients of 4 sequences of 64 tokens, one Adam step a client a round,
+    ``SyncFedAvg``), the CPU encoding the card's local models against the
+    card's round-start global model (:class:`EncodeSpy`), so a q8 code
+    boundary that the two devices' training straddles by rounding cannot
+    fork the runs (:func:`rate_cnn_replay`'s manner): codes exact; payload
+    floats, global params and metrics each round in the golden band; the
+    local models too but where both devices' single Adam step is
+    partial."""
+    import torch
+    from repro_torch.core.pytree import ravel, tree_map
+    from repro_torch.models.model import init_params
+    arch = lm_delta_arch(True)
+    params = init_params(torch.Generator().manual_seed(0), arch, "cpu")
+    data, ev = lm_delta_data(arch.vocab_size, LM_Q["batch"], 64)
+    runs, spies, globs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        run = build_lm_delta(arch, tree_map(lambda t, d=dev: t.to(d),
+                                            params),
+                             data, ev, dev, rounds=rounds)
+        replay = ((spies["cuda"].own, spies["cuda"].start)
+                  if dev == "cpu" else ())
+        globs[dev] = []
+        with EncodeSpy(*replay) as spies[dev]:
+            for r in range(rounds):
+                run.history.append(run.scheduler.run_round(r))
+                globs[dev].append(ravel(run.global_params)[0].cpu())
+        runs[dev] = run
+    tag, lr = "lm (q) reduced", runs["cuda"].cfg.lr
+
+    def held(what, got, want) -> float:
+        try:
+            return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
+        except AssertionError as e:
+            raise AssertionError(f"{tag}: {what}: {e}") from None
+    rep = hold_replay(tag, spies["cuda"], spies["cpu"], lr)
+    rep["params"] = []
+    for r, (pg, pc) in enumerate(zip(globs["cuda"], globs["cpu"])):
+        rep["params"].append(held(f"round {r} global params", pg, pc))
+    for a, b in zip(runs["cuda"].history, runs["cpu"].history, strict=True):
+        require(a.bytes_up == b.bytes_up, f"{tag}: bytes differ")
+        for k in a.global_metrics:
+            held(f"round {a.round} {k}", torch.tensor(a.global_metrics[k]),
+                 torch.tensor(b.global_metrics[k]))
+    return rep
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -2154,8 +2841,36 @@ def main() -> int:
                                    46, 20),
                  check_grouped_decode_agg([(8, 1802)], 32, 256, [0], 47,
                                           20)])
+    # runs (o) and (q): the serve loop's AE row (its server hidden layer
+    # over 256 clients' 256 chunks, its kernel-4 reduce); the q8 rows'
+    # dequantize at K 65,536 (one block of 2^10 a client) and at K 256
+    # (256 blocks of 256 a client; K 4,096's is the (2^20, 256) above);
+    # the LM path: the
+    # q8 of the embedding group (1,605,632 blocks of 256) and of the
+    # attention group (131,072), the mlp group's chunked AE over 270,336
+    # chunks (encode 256 -> 32 -> 8, EF decode 8 -> 32 -> 256), the
+    # server's hidden layer over both clients' chunks and its reduce, and
+    # evaluate's attention (2 x 512 tokens, 32 heads of 64, bf16, causal)
+    serve_lm = (
+        [check_fused_dense(65_536, 8, 32, "relu", torch.float32, 48, 20),
+         check_decode_agg(256, 256, 32, 256, 49, 20)]
+        + list(check_quantize(65_536, 8, 59, 10, block=1024).values())
+        + list(check_quantize(65_536, 8, 60, 10).values())
+        + list(check_quantize(1_605_632, 8, 50, 5).values())
+        + list(check_quantize(131_072, 8, 51, 10).values())
+        + [check_fused_dense(270_336, 256, 32, "relu", torch.float32, 52,
+                             5),
+           check_fused_dense(270_336, 32, 8, "relu", torch.float32, 53, 5),
+           check_fused_dense(270_336, 8, 32, "relu", torch.float32, 54, 5),
+           check_fused_dense(270_336, 32, 256, "linear", torch.float32, 55,
+                             5),
+           check_fused_dense(540_672, 8, 32, "relu", torch.float32, 56, 5),
+           check_decode_agg(2, 270_336, 32, 256, 57, 5),
+           check_flash(2, 512, 512, 32, 32, 64, "causal", None,
+                       torch.bfloat16, 58, 10)])
     for r in (fd[1:] + grouped + cohort + client
-              + [slice_rows["flash_attention"]] + flash + runtime + rate_n):
+              + [slice_rows["flash_attention"]] + flash + runtime + rate_n
+              + serve_lm):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -2339,23 +3054,32 @@ def main() -> int:
         f"(params max abs err {err!r})")
 
     from repro_torch.configs.paper import SMOKE_SCALE_SCENARIO
-    # the two engines in turns (heap, vector, vector, heap): every run must
-    # give the first one's traces and bit-identical parameters
-    runs_j, secs_j = [], {"heap": [], "vector": []}
-    for engine in ("heap", "vector", "vector", "heap"):
+    # the two engines and, for run (p), the struct-of-arrays pool on the
+    # vector engine in turns (heap, vector, soa, vector, soa, heap): every
+    # run must give the first one's traces and bit-identical parameters
+    from repro_torch.core import ClientPool
+    runs_j, secs_j = [], {"heap": [], "vector": [], "soa": []}
+    for layout in ("heap", "vector", "soa", "vector", "soa", "heap"):
         _lib.reset_launches()
-        run_x, hist_x, secs_x = run_async_mlp("cuda", engine=engine)
-        runs_j.append((engine, hist_x, ravel(run_x.global_params)[0],
+        run_x, hist_x, secs_x = run_async_mlp(
+            "cuda", engine="heap" if layout == "heap" else "vector",
+            soa=layout == "soa")
+        require(isinstance(run_x.clients, ClientPool) == (layout == "soa"),
+                f"run (j) {layout}: client layout")
+        runs_j.append((layout, hist_x, ravel(run_x.global_params)[0],
                        _lib.counts()))
-        secs_j[engine].append(secs_x)
+        secs_j[layout].append(secs_x)
         if len(runs_j) == 1:
             comp_j = run_x.compressors[0]
         del run_x
     _, hist_jh, params_jh, counts_j = runs_j[0]
-    for engine, hist_x, params_x, _ in runs_j[1:]:
-        check_same_trace(f"run (j) heap/{engine}", hist_jh, hist_x)
+    for layout, hist_x, params_x, _ in runs_j[1:]:
+        check_same_trace(f"run (j) heap/{layout}", hist_jh, hist_x)
+        require(all(x.global_metrics == y.global_metrics
+                    for x, y in zip(hist_jh, hist_x)),
+                f"run (j) heap/{layout}: metrics differ")
         require(torch.equal(params_jh, params_x),
-                f"run (j): the {engine} engine's parameters differ")
+                f"run (j): the {layout} run's parameters differ")
     for r in hist_jh:
         require(len(r.participants) == 50, "run (j) buffer size")
         require(math.isfinite(r.global_metrics["loss"]), "run (j) loss")
@@ -2370,16 +3094,26 @@ def main() -> int:
     for k in ("quantize_blocks_2d", "dequantize_blocks_2d"):
         require(counts_j.get(k, 0) > 0, f"run (j) never launched {k}")
         launches[k + "_run_j"] = counts_j[k]
+    counts_pj = runs_j[2][3]
     log(f"runtime (j) AsyncBuffered MNIST MLP, 1,000 clients, K 50, TopK "
         f"1 % -> q8: launches {counts_j}; heap == vector (traces, bytes, "
         "torch.equal params); "
         + "; ".join(f"r{r.round} staleness max {max(r.staleness)} sim_time "
                     f"{r.sim_time!r} loss {r.global_metrics['loss']!r}"
                     for r in hist_jh))
-    log(f"runtime (j) round wall time in turns heap, vector, vector, heap: "
-        f"heap {secs_j['heap']!r} s, vector {secs_j['vector']!r} s (host "
-        "clock, each ended by a synchronize)")
+    log(f"runtime (j) round wall time in turns heap, vector, soa, vector, "
+        f"soa, heap: heap {secs_j['heap']!r} s, vector {secs_j['vector']!r} "
+        "s (host clock, each ended by a synchronize)")
     del runs_j
+    log(f"soa (p) run (j) soa_state=True, vector engine == eager heap "
+        f"(traces, bytes, metrics, torch.equal params), twice: launches "
+        f"{counts_pj}; round host s in turns with the eager vector runs: "
+        f"eager {secs_j['vector']!r}, SoA {secs_j['soa']!r}")
+    log("soa (p) run (j) round 1 under cProfile, eager and SoA in turns, "
+        "twice (host s: the round, the calls into core/soa.py, the garbage "
+        "collector, the five costliest functions): "
+        + json.dumps([{layout: profiled_async_round(layout == "soa")
+                       for layout in ("vector", "soa")} for _ in range(2)]))
     for engine in ("heap", "vector"):
         run_g, hist_g, _ = run_async_mlp("cuda", SMOKE_SCALE_SCENARIO,
                                          engine)
@@ -2506,7 +3240,48 @@ def main() -> int:
         f"({[p['s'] for p in plays_kr]!r} s): params, residuals, codec "
         "params, snapshot rings and records torch.equal / equal to the "
         "uninterrupted run (which a rerun reproduced bit for bit)")
-    del res_k, run_k
+    del res_k
+    # run (p), part 2: run (k) with the client state a struct-of-arrays
+    # pool (the snapshot rings in use), against the eager run; an SoA
+    # resume; and the cross restores (the checkpoint's layout decides)
+    _lib.reset_launches()
+    with CohortSpy() as spy_s:
+        run_ks = build_lifecycle_cnn("cuda", soa=True)
+        plays_ks = play(run_ks, 6, "cuda", spy_s)
+    torch.cuda.synchronize()
+    counts_pk = _lib.counts()
+    require(isinstance(run_ks.clients, ClientPool), "run (p) (k): not SoA")
+    check_resume("run (p) (k) SoA vs eager", run_k, run_ks, 0)
+    require([c["C"] for c in spy_s.calls] == [c["C"] for c in spy.calls],
+            "run (p) (k): refits differ")
+    del run_ks
+    for x in set(counts_pj) | set(counts_pk):
+        launches[f"{x}_run_p"] = counts_pj.get(x, 0) + counts_pk.get(x, 0)
+
+    def k_soa(n):
+        return build_lifecycle_cnn("cuda", rounds=n, soa=True)
+
+    def k_eager(n):
+        return build_lifecycle_cnn("cuda", rounds=n)
+    cross = {}
+    for tag, saver, loader in (("soa", k_soa, None),
+                               ("eager_to_soa", k_eager, k_soa),
+                               ("soa_to_eager", k_soa, k_eager)):
+        res_x, plays_x, nbytes_x, _, _ = resume_via_checkpoint(
+            f"run_k_{tag}", saver, 4, 2, "cuda", build_resumed=loader)
+        require(isinstance(res_x.clients, ClientPool)
+                == (saver is k_soa), f"run (p) (k) {tag}: the checkpoint's "
+                "layout must decide")
+        check_resume(f"run (p) (k) {tag}", run_k, res_x, 4)
+        cross[tag] = nbytes_x
+        del res_x
+    log(f"soa (p) run (k) soa_state=True == eager: params, residuals, "
+        f"codec params, snapshot rings, scalars and records torch.equal / "
+        f"equal; launches {counts_pk}; round host s eager "
+        f"{[p['s'] for p in plays_k]!r}, SoA {[p['s'] for p in plays_ks]!r}; "
+        f"resumed after round 3 SoA -> SoA, eager -> SoA ctor, SoA -> "
+        f"eager ctor: torch.equal (checkpoint bytes {cross})")
+    del run_k
     gc.collect()
     torch.cuda.empty_cache()
     runs_kr = {dev: build_lifecycle_cnn(dev, 2, 3, LIFECYCLE_K_REDUCED)
@@ -2629,6 +3404,16 @@ def main() -> int:
     # -------------------- 12. a per-partition ladder on kernel 5 (n)
     routes_n = run_rate_cnn(launches)
 
+    # ------------------------------------------- 13. the serve loop (o)
+    for row in run_serve_loop(launches):
+        log("serve (o) " + json.dumps(row))
+
+    # ------------------------------------- 14. LMDeltaTask at width (q)
+    lm_q = run_lm_delta(launches)
+    log("lm delta (q) stablelm-1.6b x2 layers " + json.dumps(lm_q))
+    log("lm delta (q) reduced cuda == cpu (replay): "
+        + json.dumps(lm_delta_replay()))
+
     # --------------------------------------------------------- 13. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
@@ -2647,7 +3432,7 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
-                 for x in "hijkn" if f"{name}_run_{x}" in launches}
+                 for x in "hijknopq" if f"{name}_run_{x}" in launches}
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,

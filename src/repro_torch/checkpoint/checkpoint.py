@@ -148,16 +148,23 @@ def save_federated_state(path: str, round_idx: int, global_params: Tree,
     codec params in the ``ratecontrol`` section of the tree. Arrays go into
     the npz tree; what rebuilds them (which clients carry a residual, ring
     shapes, scalar fields) rides in the JSON metadata, key for key as the
-    reference writes it. Struct-of-arrays client state is not ported yet
-    and raises."""
-    if clients_soa is not None:
-        raise NotImplementedError(
-            "struct-of-arrays client state is not ported yet (ROADMAP "
-            "Queue A item 10)")
+    reference writes it. ``clients_soa`` is the struct-of-arrays
+    alternative to ``clients`` (DESIGN.md §12.4): ``ClientPool.state()``'s
+    ``(tree, meta)`` pair, whose ring contents, cursors, counts and residual
+    block ride the ``clients_soa`` section as whole arrays. Pass at most one
+    of the two."""
+    if clients is not None and clients_soa is not None:
+        raise ValueError("pass either the eager client list or the "
+                         "struct-of-arrays pool state, not both")
     tree: dict = {"global": global_params}
     cmeta = None
     codec_meta = None
     rc_meta = None
+    soa_meta = None
+    if clients_soa is not None:
+        soa_tree, soa_meta = clients_soa
+        if soa_tree:
+            tree["clients_soa"] = soa_tree
     if codec_params is not None:
         tree["codecs"] = [{"params": p} if p is not None else {}
                           for p in codec_params]
@@ -204,7 +211,7 @@ def save_federated_state(path: str, round_idx: int, global_params: Tree,
         tree["clients"] = ctree
     save_pytree(path, tree,
                 metadata={"round": round_idx, "clients": cmeta,
-                          "clients_soa": None,
+                          "clients_soa": soa_meta,
                           "codecs": codec_meta, "ratecontrol": rc_meta,
                           "scheduler": scheduler_state, **(extra or {})})
 
@@ -231,7 +238,10 @@ def load_federated_state(path: str, like_params: Tree,
     params when they were saved and ``like_ratecontrol`` (a freshly bound
     controller's ``state_tree()``) gives their structure;
     ``meta["scheduler"]`` the scheduler's ``state_dict()``. A
-    struct-of-arrays checkpoint raises (not ported yet).
+    struct-of-arrays checkpoint surfaces its restored tensors as
+    ``meta["clients_soa_tree"]`` beside the JSON side in
+    ``meta["clients_soa"]``; the caller rebuilds the pool with
+    ``ClientPool.from_state``, which holds the model template.
 
     One deviation from the reference, whose load gives every client its
     own copy of the codec params: equal copies of one params object that
@@ -246,11 +256,13 @@ def load_federated_state(path: str, like_params: Tree,
     dev = (resolve(device) if device is not None
            else leaves(like_params)[0].device)
     meta = _peek_meta(path)
-    if meta.get("clients_soa") is not None:
-        raise NotImplementedError(
-            "checkpoint holds struct-of-arrays client state, which is not "
-            "ported yet (ROADMAP Queue A item 10)")
     like: dict = {"global": like_params}
+    soa_meta = meta.get("clients_soa")
+    if soa_meta is not None:
+        from repro_torch.core.soa import ClientPool
+        soa_like = ClientPool.like_from_meta(soa_meta)
+        if soa_like:
+            like["clients_soa"] = soa_like
     codec_meta = meta.get("codecs")
     if codec_meta is not None and like_codec_params is not None:
         if len(codec_meta) != len(like_codec_params):
@@ -282,6 +294,8 @@ def load_federated_state(path: str, like_params: Tree,
         like["clients"] = clike
     tree, meta = load_pytree(path, like, dev)
     meta = dict(meta or {})
+    if soa_meta is not None:
+        meta["clients_soa_tree"] = tree.get("clients_soa") or {}
     memo: dict = {}
     if "codecs" in like:
         codecs = _reshare(like["codecs"], tree["codecs"], memo)

@@ -8,6 +8,15 @@ from repro_torch.core.aggregate import (  # noqa: F401
     weighted_mean_stacked,
 )
 from repro_torch.core.arrival import ArrivalEngine, pop_k_device  # noqa: F401
+from repro_torch.core.soa import ClientPool, ClientView  # noqa: F401
+from repro_torch.core.serve import (  # noqa: F401
+    ServeConfig,
+    init_state as init_serve_state,
+    make_step as make_serve_step,
+    round_bytes,
+    run_serve,
+    synthetic_payloads,
+)
 from repro_torch.core.autoencoder import (  # noqa: F401
     ChunkedAEConfig,
     ConvAEConfig,
@@ -116,4 +125,8 @@ from repro_torch.core.scheduler import (  # noqa: F401
     SampledSync,
     SyncFedAvg,
 )
-from repro_torch.core.task import ClassifierTask, ClientTask  # noqa: F401
+from repro_torch.core.task import (  # noqa: F401
+    ClassifierTask,
+    ClientTask,
+    LMDeltaTask,
+)

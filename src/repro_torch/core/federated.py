@@ -1,6 +1,6 @@
 """Federated-learning orchestration with compressed update communication
-(port of ``repro.core.federated``, with the AE lifecycle, rate control and
-checkpoint resume; struct-of-arrays client state is not ported yet).
+(port of ``repro.core.federated``, with the AE lifecycle, rate control,
+checkpoint resume and struct-of-arrays client state).
 ``SyncFedAvg``, ``SampledSync`` and ``AsyncBuffered`` drive it.
 
 The paper's FL scheme (§1, §3, Fig. 3): a server ships a global model to
@@ -87,7 +87,11 @@ class FederatedRun:
     :class:`~repro_torch.core.lifecycle.AELifecycle`) buffers snapshots,
     refits the clients' AEs and charges their decoder ships;
     ``ratecontrol`` (a :class:`~repro_torch.core.ratecontrol.
-    RateController`) moves clients along a ladder of compressors."""
+    RateController`) moves clients along a ladder of compressors.
+    ``soa_state`` keeps the per-client state as a struct-of-arrays
+    :class:`~repro_torch.core.soa.ClientPool` (snapshot rings
+    ``ring_depth`` deep, by default the largest consumer's
+    ``buffer_size`` and at least 8) in place of a ``ClientState`` list."""
 
     def __init__(
         self,
@@ -99,6 +103,8 @@ class FederatedRun:
         scheduler: Optional[RoundScheduler] = None,
         lifecycle: Optional[AELifecycle] = None,
         ratecontrol=None,
+        soa_state: bool = False,
+        ring_depth: Optional[int] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve(device)
@@ -118,7 +124,22 @@ class FederatedRun:
                           {k: v.to(self.device) for k, v in eval_data.items()})
         gen = torch.Generator().manual_seed(fl_cfg.seed)
         self.global_params = task.init_params(gen, self.device)
-        self.clients = [ClientState() for _ in range(n)]
+        if soa_state:
+            # struct-of-arrays client state (DESIGN.md §12.1): the
+            # ClientState surface through views, stacked tensors beneath.
+            # Every snapshot consumer truncates to its buffer_size right
+            # after appending, so a ring as deep as the largest one
+            # reproduces the eager lists exactly
+            from repro_torch.core.soa import ClientPool
+            if ring_depth is None:
+                ring_depth = max(
+                    8,
+                    int(getattr(lifecycle, "buffer_size", 0) or 0),
+                    int(getattr(ratecontrol, "buffer_size", 0) or 0))
+            self.clients = ClientPool(n, self.global_params,
+                                      ring_depth=ring_depth)
+        else:
+            self.clients = [ClientState() for _ in range(n)]
         self.history: List[RoundRecord] = []
         self.round_offset = 0              # set by load_state on resume
         self.lifecycle = lifecycle
@@ -169,12 +190,16 @@ class FederatedRun:
         scheduler's event-loop state. Under a rate controller the codec
         params ride its ladder tree (every rung's params, with the rung
         occupancy in the metadata) instead of the flat ``codecs``
-        section."""
+        section. A struct-of-arrays pool saves its stacked arrays whole
+        (``ClientPool.state()``)."""
         from repro_torch.checkpoint.checkpoint import save_federated_state
+        from repro_torch.core.soa import ClientPool
         rc = self.ratecontrol
+        is_pool = isinstance(self.clients, ClientPool)
         save_federated_state(
             path, self.round_offset + len(self.history), self.global_params,
-            clients=self.clients,
+            clients=(None if is_pool else self.clients),
+            clients_soa=(self.clients.state() if is_pool else None),
             codec_params=(None if rc is not None else
                           [c.codec_params() for c in self.compressors]),
             ratecontrol=((rc.state_meta(), rc.state_tree())
@@ -188,7 +213,10 @@ class FederatedRun:
         calls continue from the saved round. Returns the next round
         index. A checkpoint of another task, or one whose rate-controller
         presence differs from this run's, is refused before any state is
-        touched; a struct-of-arrays checkpoint raises (not ported yet)."""
+        touched. The checkpoint's client-state layout, not this run's
+        ``soa_state``, decides what is restored: a struct-of-arrays
+        checkpoint rebuilds a ``ClientPool``, an eager one a
+        ``ClientState`` list."""
         from repro_torch.checkpoint.checkpoint import (_peek_meta,
                                                        load_federated_state)
         meta = _peek_meta(path)
@@ -219,7 +247,16 @@ class FederatedRun:
             like_ratecontrol=(rc.state_tree() if rc is not None else None),
             device=self.device)
         self.global_params = params
-        if meta.get("client_states") is not None:
+        if meta.get("clients_soa") is not None:
+            from repro_torch.core.soa import ClientPool
+            soa = meta["clients_soa"]
+            if int(soa["n"]) != len(self.clients):
+                raise ValueError(
+                    f"checkpoint holds {soa['n']} clients, the run has "
+                    f"{len(self.clients)}")
+            self.clients = ClientPool.from_state(
+                meta.get("clients_soa_tree") or {}, soa, self.global_params)
+        elif meta.get("client_states") is not None:
             if len(meta["client_states"]) != len(self.clients):
                 raise ValueError(
                     f"checkpoint holds {len(meta['client_states'])} "

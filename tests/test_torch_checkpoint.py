@@ -19,7 +19,8 @@
   flat (an FC-AE ladder) and per-partition (a shared chunked-AE rung);
   after a load, clients that shared one AE params object share it again;
 * an async checkpoint restored into the other engine;
-* refusals: a checkpoint of another task, and struct-of-arrays state.
+* refusals: a checkpoint of another task, an SoA checkpoint of another
+  population; struct-of-arrays checkpoints interchange both ways.
 
 Bytes exact; floats in the golden band ``atol=2e-5, rtol=2e-4``.
 """
@@ -336,6 +337,12 @@ def test_async_checkpoint_restores_into_the_other_engine(saver, loader,
 
 # ------------------------------------------------------------ refusals
 def test_load_refuses_another_task_and_soa_state(tmp_path):
+    """A checkpoint of another task is refused before any state is
+    touched; struct-of-arrays client state now interchanges both ways (a
+    JAX SoA checkpoint restores a ``ClientPool`` in the port whose state
+    equals the reference's pool, and a port SoA checkpoint loads in the
+    JAX package), while an SoA checkpoint of another population, and a
+    save given both layouts, are refused."""
     path = str(tmp_path / "mlp.npz")
     run = _torch_q8(1)
     run.run()
@@ -350,17 +357,47 @@ def test_load_refuses_another_task_and_soa_state(tmp_path):
         wrong.load_state(path)
     assert torch.equal(ravel(wrong.global_params)[0], before)
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="not both"):
         tck.save_federated_state(str(tmp_path / "x.npz"), 0,
-                                 run.global_params, clients_soa=({}, {}))
+                                 run.global_params, clients=run.clients,
+                                 clients_soa=({}, {}))
+    # JAX → port: the restored pool holds the reference's pool state
     soa = str(tmp_path / "soa.npz")
     dj, evj = _data(jpipe)
-    jrun = J.FederatedRun(J_MLP, dj, J.FLConfig(n_rounds=1, batch_size=16),
-                          eval_data=evj, soa_state=True)
+    jcfg = J.FLConfig(n_rounds=1, batch_size=16, payload="update",
+                      error_feedback=True)
+    jrun = J.FederatedRun(J_MLP, dj, jcfg, eval_data=evj, soa_state=True,
+                          compressors=[J.QuantizeCompressor(bits=8)
+                                       for _ in range(N_CLIENTS)])
     jrun.run()
     jrun.save_state(soa)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _torch_q8(1).load_state(soa)
+    into = _torch_q8(1)
+    assert into.load_state(soa) == 1
+    assert isinstance(into.clients, T.ClientPool)
+    jtree, jmeta = jrun.clients.state()
+    ttree, tmeta = into.clients.state()
+    assert tmeta == jmeta
+    np.testing.assert_array_equal(ttree["residuals"].numpy(),
+                                  np.asarray(jtree["residuals"]))
+    # port → JAX: the reference restores the port's pool
+    tsoa = str(tmp_path / "tsoa.npz")
+    into.save_state(tsoa)
+    back = J.FederatedRun(J_MLP, dj, jcfg, eval_data=evj,
+                          compressors=[J.QuantizeCompressor(bits=8)
+                                       for _ in range(N_CLIENTS)])
+    assert back.load_state(tsoa) == 1
+    btree, bmeta = back.clients.state()
+    assert bmeta == jmeta
+    np.testing.assert_array_equal(np.asarray(btree["residuals"]),
+                                  np.asarray(jtree["residuals"]))
+    # an SoA checkpoint of another population is refused
+    d2, ev2 = tpipe.train_eval_split(tpipe.mnist_like(0, 128), 32)
+    two = T.FederatedRun(_JaxInitTask(MNIST_CLASSIFIER, P0),
+                         tpipe.uniform_partition(0, d2, 2),
+                         T.FLConfig(**_q8_cfg(1)), eval_data=ev2,
+                         device="cpu")
+    with pytest.raises(ValueError, match="3 clients"):
+        two.load_state(soa)
 
 
 # ------------------------------------------------------------ controllers

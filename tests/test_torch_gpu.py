@@ -1027,3 +1027,123 @@ def test_async_distortion_power_card_vs_cpu():
             np.testing.assert_allclose(da, db, **BAND)
     torch.testing.assert_close(ravel(g.global_params)[0].cpu(),
                                ravel(c.global_params)[0], **BAND)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["q8", "chunked_ae"])
+def test_serve_step_flat_memory_and_deterministic_on_card(kind):
+    """The serve loop on the card: allocated memory equal after every
+    round from the second on (two preallocated generations), the kernels
+    launched every round, and two fresh runs ``torch.equal``. Each reading
+    follows a ``gc.collect()``, so garbage that earlier tests left in
+    reference cycles cannot be freed between two readings (the step
+    makes no cycles: a leak would survive the collection)."""
+    _card()
+    import gc
+    from repro_torch.core import codec, serve
+    from repro_torch.core.autoencoder import ChunkedAEConfig, init_chunked_ae
+    if kind == "q8":
+        spec, params = codec.QuantizeSpec(size=1 << 14, bits=8), None
+        want = {"dequantize_blocks_2d"}
+    else:
+        ch = ChunkedAEConfig(256, (32,), 8)
+        spec = codec.ChunkedAESpec(1 << 14, ch, use_kernel=True)
+        params = init_chunked_ae(torch.Generator().manual_seed(0), ch,
+                                 "cuda")
+        want = {"fused_dense", "fused_decode_agg"}
+    cfg = serve.ServeConfig(n_clients=20_000, buffer_k=128, spec=spec,
+                            jitter=0.4, straggler_frac=0.05, seed=0)
+    finals = []
+    for _ in range(2):
+        step = serve.make_step(cfg, params)
+        state = serve.init_state(cfg, params)
+        mem = []
+        for _ in range(5):
+            before = _lib.counts()
+            state = step(state)
+            torch.cuda.synchronize()
+            after = _lib.counts()
+            assert all(after.get(k, 0) > before.get(k, 0) for k in want)
+            gc.collect()
+            mem.append(torch.cuda.memory_allocated())
+        assert len(set(mem[1:])) == 1, mem
+        finals.append(state)
+    for key in finals[0]:
+        assert torch.equal(finals[0][key], finals[1][key]), key
+    assert int(finals[0]["version"]) == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["async", "sampled"])
+def test_soa_matches_eager_on_card(sched):
+    """``soa_state=True`` (the vector engine for async) ``torch.equal`` to
+    the eager run (the heap engine) on the card: records, params and
+    residuals."""
+    _card()
+    from repro_torch import core as T
+    from repro_torch.configs.paper import MNIST_CLASSIFIER
+    from repro_torch.core.pytree import ravel
+    from repro_torch.data import pipeline as tpipe
+
+    def mk(soa):
+        train, ev = tpipe.train_eval_split(tpipe.mnist_like(0, 352), 32)
+        s = (T.AsyncBuffered(buffer_k=2, engine="vector" if soa else "heap",
+                             latency=T.LatencyModel(jitter=0.3,
+                                                    straggler_frac=0.3))
+             if sched == "async" else T.SampledSync(cohort=3))
+        return T.FederatedRun(
+            MNIST_CLASSIFIER, tpipe.uniform_partition(0, train, 5),
+            T.FLConfig(n_rounds=4, local_epochs=1, batch_size=16,
+                       payload="update", error_feedback=True, seed=3),
+            eval_data=ev, scheduler=s, soa_state=soa,
+            compressors=[T.QuantizeCompressor(bits=8) for _ in range(5)])
+
+    eager, pooled = mk(False), mk(True)
+    for a, b in zip(eager.run(), pooled.run(), strict=True):
+        for k in ("participants", "staleness", "sim_time", "bytes_up",
+                  "bytes_down", "global_metrics"):
+            assert getattr(a, k) == getattr(b, k), k
+    assert isinstance(pooled.clients, T.ClientPool)
+    assert torch.equal(ravel(eager.global_params)[0],
+                       ravel(pooled.global_params)[0])
+    for ce, cp in zip(eager.clients, pooled.clients, strict=True):
+        assert (ce.residual is None) == (cp.residual is None)
+        if ce.residual is not None:
+            assert torch.equal(ravel(ce.residual)[0], ravel(cp.residual)[0])
+
+
+@pytest.mark.gpu
+def test_lm_delta_frozen_roles_exactly_zero_on_card():
+    """``LMDeltaTask(freeze_roles=("embedding",))`` on the card: the
+    embedding and LM head keep their values bit for bit through two local
+    epochs while every other role moves; evaluate launches kernel 6 once a
+    layer and the local round launches it never (autograd's route)."""
+    _card()
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch import core as T
+    from repro_torch.core.pytree import leaf_paths, leaves
+    from repro_torch.data import pipeline as tpipe
+    cfg = dataclasses.replace(configs.get_config("stablelm_1_6b").reduced(),
+                              compute_dtype="bfloat16")
+    task = T.LMDeltaTask(cfg, freeze_roles=("embedding",))
+    params = task.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              "cuda")
+    data = {k: v.cuda() for k, v in tpipe.synthetic_lm_batch(
+        1, cfg.vocab_size, 4, 64).items()}
+    before = _lib.counts().get("flash_attention", 0)
+    local, m = task.local_update(
+        params, data, T.FLConfig(local_epochs=2, batch_size=2, lr=1e-3,
+                                 payload="update"), seed=0, anchor=params)
+    assert _lib.counts().get("flash_attention", 0) == before
+    assert np.isfinite(m["ce_loss"])
+    for (path, _, _), a, b in zip(leaf_paths(params), leaves(local),
+                                  leaves(params), strict=True):
+        role = T.role_of_path(path)
+        if role == "embedding":
+            assert torch.equal(a, b), path
+        elif role in ("attention", "mlp"):
+            assert not torch.equal(a, b), path
+    metrics = task.evaluate(local, data)
+    assert np.isfinite(metrics["ce_loss"])
+    assert _lib.counts().get("flash_attention", 0) == before + cfg.n_layers

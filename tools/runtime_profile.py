@@ -71,44 +71,14 @@ def _phases_sampled(run, r: int) -> dict:
     return out
 
 
-def _busy_ms(events) -> float:
-    """Union of the device kernels' intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3                         # profiler times are in us
-
-
 def _traced_round(run, r: int) -> dict:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    _sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run.history.append(run.scheduler.run_round(r))
-        _sync()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_ms(kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_s": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / (wall * 1e3),
-            "device_kernels": len(kernels),
-            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+    """Round ``r`` of ``run`` under ``torch.profiler``
+    (``chip_smoke.traced_round``), the ten kernels with the most device
+    time."""
+    from chip_smoke import traced_round
+    return traced_round(
+        lambda: run.history.append(run.scheduler.run_round(r)), top=10,
+        width=90)
 
 
 def main() -> int:
