@@ -23,14 +23,18 @@ Phases, each reported on its own lines:
    window and a full, kv-padded shape, and in float32 at head dim 64.
    The chunked AE's four layers at 4096 chunks a client and run (h)'s
    server hidden layer run in float32, and so do the client and server
-   shapes of runs (i), (j), (k), (n), (o) and (q) (and (q)'s attention
-   in bf16). Kernels 3 to 6 have routes, named
+   shapes of runs (i), (j), (k), (n), (o), (q) and (t) (and (q)'s
+   attention in bf16). Kernel 6's padded route runs at MLA's heads (40 ×
+   q/k 96, v 64, bf16, causal) at run (r)'s prefill and run (t)'s
+   evaluate, beside ``scaled_dot_product_attention`` at the unpadded
+   shapes (the kernels PyTorch picked named). Kernels 3 to 6 have routes,
+   named
    in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
    32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
    M_b <= 16 and K <= 512, else ``bands`` (a mixed round at K 512, N 4096
    runs both in one launch); flash attention in bf16 ``wgmma``, in float32
-   ``fma``. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
+   ``fma``, and ``wgmma_padded``/``fma_padded`` for head dims it pads. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
    at every shape, which leaves out a relu, tanh or sigmoid; kernel 4's is
    ``torch.einsum("c,cmk,kn->mn", w, h, W)``, without the bias
    (``library_call`` says so). ``ms``, ``plain_ms``, ``library_ms`` and
@@ -198,9 +202,9 @@ Phases, each reported on its own lines:
    times, seqs and versions exact, the clock and ``global_flat`` in the
    golden band;
 14. ``LMDeltaTask`` at full width — (q) stablelm-1.6b (d_model 2048, 32
-   heads, d_ff 5,632, vocab 100,352, untied LM head), 2 of 24 layers,
-   float32 parameters, bf16 compute, 513,822,720 parameters drawn on the
-   card; 2 clients of 8 sequences of 512 tokens, batch 4, update payload
+   heads, d_ff 5,632, vocab 100,352, untied LM head), 6 of 24 layers with
+   remat on (the config's), float32 parameters, bf16 compute, 719,376,384
+   parameters drawn on the card; 2 clients of 8 sequences of 512 tokens, batch 4, update payload
    with error feedback, ``freeze_roles=("embedding",)``, a
    ``by_role_partition`` ``PartitionedCompressor`` (``mlp`` on a shared
    kernel-path chunked AE ``(256, (32,), 8)``, the rest q8 at block 256):
@@ -214,7 +218,39 @@ Phases, each reported on its own lines:
    float32) on the card and the CPU, the CPU encoding the card's local
    models against the card's round-start model: codes exact, the rest in
    the golden band. The record carries the counts as
-   ``launches_run_q``.
+   ``launches_run_q``;
+15. MLA serving — (r) minicpm3-4b at full width (d_model 2560, 40 heads,
+   q_lora 768, kv_lora 256, heads of nope 64 + rope 32 over a value head
+   of 64, d_ff 6,400, vocab 73,448, tied embeddings), all 62 layers
+   (4,073,937,408 parameters), its own dtypes; 4 prompts of 1,024 tokens,
+   16 greedy decode steps; kernel 6 once a layer in prefill on the padded
+   route (``wgmma_padded``), never in decode (the absorbed-matrix decode is
+   plain torch, as the reference's); one more prefill holds each layer's
+   padded call against the plain version at the model's own inputs; the
+   latent cache's bytes beside a GQA cache of the same heads. Its 2-layer
+   copy on the card and the CPU as run (g) (``c_kv``/``k_rope`` caches).
+   The record carries the count as ``launches_run_r``;
+16. MoE serving — (s) dbrx-132b (16 experts top-4, capacity 1.25, float32
+   parameters) at 2 of 40 layers and llama4-maverick (128 experts top-1
+   and a shared expert, bfloat16 parameters, drawn an expert slab at a
+   time) at 1 of 48, each 4 x 1,024-token prompts and 16 decode steps,
+   kernel 6 once a layer in prefill; the router's counters a layer (top-k
+   assignments dropped by capacity, load-balance and z-loss terms). A
+   reduced copy of each on the card and the CPU: logits and caches in the
+   golden band, every dispatch mask equal;
+17. MLA training with remat — (t) ``LMDeltaTask`` on minicpm3-4b at full
+   width, 8 of 62 layers (689,490,432 parameters), remat on,
+   ``FLConfig(optimizer="adamw")``, run (q)'s data and codec plan, 2
+   ``SyncFedAvg`` rounds (kernels 1–4, and kernel 6 on the padded route
+   once a layer an evaluate); then one local step with remat on and off
+   from the trained model, deterministic algorithms on: ``torch.equal``,
+   both peaks printed. The record carries the counts as
+   ``launches_run_t``;
+18. an MoE training step — (u) dbrx-132b at full width, 1 of 40 layers
+   (4,492,234,752 parameters), remat on, 2 x 512 tokens: ``train_loss``
+   under autograd, then ``make_optimizer("sgdm", lr, grad_clip=1.0)``'s
+   update in place (parameters, gradients and momentum: three copies of
+   the model); the loss and ``moe_aux`` finite, the peak printed.
 
 Checkpoints go to ``build/chip_smoke/`` and are deleted after loading.
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -689,74 +725,97 @@ def run_flat_mixed(device: str, grouped: bool = True):
     return _four_client_run(device, comps, grouped)
 
 
-def deepseek(n_layers: int, **changes):
+def arch_cut(arch: str, n_layers: int, **changes):
+    """``arch``'s full-width config at ``n_layers`` layers."""
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("deepseek-coder-33b"),
-                               n_layers=n_layers, **changes)
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, **changes)
 
 
 def in_model_flash_errs(run) -> list:
     """Call ``run()`` with every kernel-6 call that the model makes held
     against the plain version on the same inputs: the model's own q, k and
-    v after the rope, the cast to the compute type and ``.contiguous()``.
-    Returns each call's max abs err; raises outside the tolerance."""
+    v after the rope, the cast to the compute type and ``.contiguous()``;
+    a padded call (MLA's heads) against the plain version on its unpadded
+    q, k and v at the call's scale. Returns each call's max abs err;
+    raises outside the tolerance."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models import attention
-    kernel = attention.flash_kernel
+    kernels = {"flash_kernel": attention.flash_kernel,
+               "flash_kernel_padded": attention.flash_kernel_padded}
     errs = []
 
-    def checked(q, k, v, *, mode, window):
-        out = kernel(q, k, v, mode=mode, window=window)
-        want = ref.flash_attention_ref(q, k, v, mode=mode, window=window)
-        tol = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
-        errs.append(close(out, want, **tol))
-        return out
+    def held(kernel):
+        def checked(q, k, v, *, mode, window, scale=None):
+            kw = {} if scale is None else {"scale": scale}
+            out = kernel(q, k, v, mode=mode, window=window, **kw)
+            want = ref.flash_attention_ref(q, k, v, mode=mode, window=window,
+                                           scale=scale)
+            tol = (FLASH_F32_TOL if q.dtype == torch.float32
+                   else FLASH_BF16_TOL)
+            errs.append(close(out, want, **tol))
+            return out
+        return checked
 
-    attention.flash_kernel = checked
+    for name, kernel in kernels.items():
+        setattr(attention, name, held(kernel))
     try:
         run()
     finally:
-        attention.flash_kernel = kernel
+        for name, kernel in kernels.items():
+            setattr(attention, name, kernel)
     return errs
 
 
-def run_lm_serving() -> dict:
-    """Run (f): deepseek-coder-33b at full width, 16 layers, serving 4
-    prompts of 1,024 tokens then 16 greedy decode steps on the card."""
+def filled(cache) -> list:
+    """Per cache tensor ``(L, B, C, ...)`` (GQA's K and V, MLA's latents),
+    which ``(L, B, C)`` slots hold a nonzero entry."""
+    return [t.abs().flatten(3).amax(-1) > 0
+            for t in cache["layers"].values()]
+
+
+def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
+                     steps: int = 16, spy=None) -> tuple:
+    """``cfg``'s weights drawn on the card from ``seed``, a warm-up
+    prefill, then a timed prefill of B prompts of S tokens
+    (``synthetic_lm_batch``) and ``steps`` greedy decode steps, each ended
+    by a synchronize. Launch counters (``_lib`` and kernel 6's routes) are
+    zeroed just before the prefill and read after it, and again around the
+    decode, which must launch nothing; the prefill fills the cache's first
+    S slots and the decode the rest. Returns (params, batch,
+    measurements)."""
     import torch
     from repro_torch import models
     from repro_torch.data.pipeline import synthetic_lm_batch
     from repro_torch.kernels import _lib
-    B, S, steps = 4, 1024, 16
-    cfg = deepseek(16)
+    from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
-    params = models.init_params(torch.Generator(device="cuda").manual_seed(0),
-                                cfg, "cuda")
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = models.param_count(params)
-    require(n_params == 8_947_735_552, f"run (f) holds {n_params} parameters")
     batch = {k: t.cuda() for k, t in
              synthetic_lm_batch(0, cfg.vocab_size, B, S).items()}
     models.prefill(params, cfg, batch, S + steps)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if spy is not None:
+        spy.calls.clear()
     _lib.reset_launches()
+    fa.ROUTE_LAUNCHES.clear()
     t0 = time.perf_counter()
     logits, cache = models.prefill(params, cfg, batch, S + steps)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    counts_prefill = _lib.counts()
-    require(counts_prefill == {"flash_attention": cfg.n_layers},
-            f"run (f) prefill launches {counts_prefill}")
+    counts_prefill = (_lib.counts(), dict(fa.ROUTE_LAUNCHES))
     require(tuple(logits.shape) == (B, cfg.padded_vocab), "logits shape")
     require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    seen = cache["layers"]["k"].abs().amax(dim=(-1, -2)) > 0  # (L, B, C)
-    require(cache["index"] == S and bool(seen[:, :, :S].all())
-            and not bool(seen[:, :, S:].any()), "prefill cache not filled")
+    require(cache["index"] == S and all(bool(f[:, :, :S].all()) and not bool(
+        f[:, :, S:].any()) for f in filled(cache)), "prefill cache not filled")
+    routing = spy.rows() if spy is not None else None
     _lib.reset_launches()
+    fa.ROUTE_LAUNCHES.clear()
     step_s = []
     tokens = []
     for _ in range(steps):
@@ -767,28 +826,48 @@ def run_lm_serving() -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         require(bool(torch.isfinite(logits).all()), "non-finite decode")
-    counts_decode = _lib.counts()
-    require(counts_decode == {}, f"run (f) decode launches {counts_decode}")
-    seen = cache["layers"]["k"].abs().amax(dim=(-1, -2)) > 0
-    require(cache["index"] == S + steps and bool(seen.all()),
+    counts_decode = (_lib.counts(), dict(fa.ROUTE_LAUNCHES))
+    require(counts_decode == ({}, {}),
+            f"{cfg.name}: decode launches {counts_decode}")
+    require(cache["index"] == S + steps
+            and all(bool(f.all()) for f in filled(cache)),
             "decode did not fill the cache")
-    peak = torch.cuda.max_memory_allocated()
-    # after the counts and the peak were read: one more prefill, each
-    # layer's kernel-6 call held against the plain version at the model's
-    # own inputs
-    attn_errs = in_model_flash_errs(
-        lambda: models.prefill(params, cfg, batch, S + steps))
-    require(len(attn_errs) == cfg.n_layers, "in-model kernel-6 checks")
-    return dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
-                batch=B, prompt=S, decode_steps=steps, init_s=init_s,
-                prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
-                decode_step_s=step_s,
-                decode_step_median_s=sorted(step_s)[steps // 2],
-                peak_memory_bytes=peak,
-                launches_prefill=counts_prefill,
-                launches_decode=counts_decode,
-                attention_in_model_max_abs_err=attn_errs,
-                first_tokens=torch.cat(tokens, 1)[:, :4].tolist())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["layers"].values())
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers,
+               params=models.param_count(params), batch=B, prompt=S,
+               decode_steps=steps, init_s=init_s, prefill_s=prefill_s,
+               prefill_tokens_per_s=B * S / prefill_s, decode_step_s=step_s,
+               decode_step_median_s=sorted(step_s)[steps // 2],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches_prefill=counts_prefill[0],
+               routes_prefill=counts_prefill[1], launches_decode={},
+               cache_bytes=cache_bytes,
+               first_tokens=torch.cat(tokens, 1)[:, :4].tolist())
+    if routing is not None:
+        out["routing_prefill"] = routing
+    del cache, logits
+    return params, batch, out
+
+
+def run_lm_serving() -> dict:
+    """Run (f): deepseek-coder-33b at full width, 16 layers, serving 4
+    prompts of 1,024 tokens then 16 greedy decode steps on the card
+    (:func:`serve_full_width`); after the counts and the peak were read,
+    one more prefill holds each layer's kernel-6 call against the plain
+    version at the model's own inputs."""
+    from repro_torch import models
+    cfg = arch_cut("deepseek-coder-33b", 16)
+    params, batch, out = serve_full_width(cfg, seed=0)
+    require(out["params"] == 8_947_735_552,
+            f"run (f) holds {out['params']} parameters")
+    require(out["launches_prefill"] == {"flash_attention": cfg.n_layers},
+            f"run (f) prefill launches {out['launches_prefill']}")
+    errs = in_model_flash_errs(
+        lambda: models.prefill(params, cfg, batch, 1024 + 16))
+    require(len(errs) == cfg.n_layers, "in-model kernel-6 checks")
+    out["attention_in_model_max_abs_err"] = errs
+    return out
 
 
 def bf16_close(card, cpu, cpu_f32, tag: str) -> dict:
@@ -815,7 +894,7 @@ def run_lm_card_vs_cpu() -> dict:
     from repro_torch.core.pytree import tree_map
     from repro_torch.data.pipeline import synthetic_lm_batch
     from repro_torch.kernels import _lib
-    cfg = deepseek(2, compute_dtype="float32")
+    cfg = arch_cut("deepseek-coder-33b", 2, compute_dtype="float32")
     tol = dict(atol=1e-4, rtol=1e-3)
     gparams = models.init_params(
         torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
@@ -832,7 +911,7 @@ def run_lm_card_vs_cpu() -> dict:
             f"run (g) prefill launches {counts}")
     clogits, ccache = models.prefill(cparams, cfg, batch, 132)
     errs = [close(glogits.cpu(), clogits, **tol)]
-    bcfg = deepseek(2)                        # bfloat16 compute
+    bcfg = arch_cut("deepseek-coder-33b", 2)      # bfloat16 compute
     _lib.reset_launches()
     blogits, bcache = models.prefill(gparams, bcfg, gbatch, 132)
     torch.cuda.synchronize()
@@ -2454,14 +2533,15 @@ def run_serve_loop(launches: dict) -> list:
 
 
 # ------------------------------------------------- LMDeltaTask at width (q)
-LM_Q = dict(arch="stablelm_1_6b", n_layers=2, clients=2, seqs=8,
+LM_Q = dict(arch="stablelm_1_6b", n_layers=6, clients=2, seqs=8,
             seq_len=512, batch=4)
 LM_AE = dict(chunk_size=256, hidden=(32,), latent_chunk=8)
 
 
 def lm_delta_arch(reduced: bool):
-    """Run (q)'s model: stablelm-1.6b at full width, 2 of its 24 layers,
-    float32 parameters, its own bf16 compute; ``reduced`` is the same
+    """Run (q)'s model: stablelm-1.6b at full width, 6 of its 24 layers
+    (remat on, the config's), float32 parameters, its own bf16 compute;
+    ``reduced`` is the same
     architecture at the config's narrow widths in float32 compute."""
     import dataclasses
     from repro_torch import configs
@@ -2471,10 +2551,11 @@ def lm_delta_arch(reduced: bool):
 
 
 def build_lm_delta(arch, params, data, ev, device: str, sched=None,
-                   soa: bool = False, rounds: int = 2):
+                   soa: bool = False, rounds: int = 2,
+                   optimizer: str = "adam"):
     """A ``FederatedRun`` of ``LMDeltaTask(arch, freeze_roles=
     ("embedding",))`` from ``params``: payload "update" with error
-    feedback, batch 4, 1 local epoch, a ``by_role_partition``
+    feedback, batch 4, 1 local epoch, ``optimizer``, a ``by_role_partition``
     ``PartitionedCompressor`` a client — the ``mlp`` group on one shared
     kernel-path ``ChunkedAECompressor(ChunkedAEConfig(256, (32,), 8))``
     (normalizer std 1e-3, as run (k)'s), every other group on q8 at block
@@ -2501,7 +2582,8 @@ def build_lm_delta(arch, params, data, ev, device: str, sched=None,
     return FederatedRun(
         _From(arch, freeze_roles=("embedding",)), data,
         FLConfig(n_rounds=rounds, local_epochs=1, batch_size=LM_Q["batch"],
-                 payload="update", error_feedback=True, seed=0),
+                 payload="update", error_feedback=True, seed=0,
+                 optimizer=optimizer),
         compressors=comps, eval_data=ev, scheduler=sched, soa_state=soa,
         device=device)
 
@@ -2706,6 +2788,419 @@ def lm_delta_replay(rounds: int = 3) -> dict:
     return rep
 
 
+# ------------------------------------------------ MLA and MoE (runs r-u)
+def check_flash_padded(B: int, S: int, H: int, D: int, Dv: int, dtype,
+                       seed: int, iters: int) -> dict:
+    """Kernel 6's padded route (``flash_attention_padded``) at MLA's heads,
+    causal, H query heads over H kv heads: q and k zero-padded from D, v
+    from Dv, to the next head dim the kernel has, the kernel at the
+    unpadded scale ``D ** -0.5``, the first Dv columns; against the plain
+    version on the unpadded inputs. ``ms`` is the whole route, ``launch_ms``
+    the kernel alone on padded inputs, ``pad_ms`` the three padding copies.
+    ``bound_ms`` counts the unpadded work: q, k (D) and v, the output (Dv)
+    moved once, against ``2·D + 2·Dv`` operations for each (query, key)
+    pair the causal mask lets through. ``library_ms`` is
+    ``scaled_dot_product_attention(is_causal=True, scale=D ** -0.5)`` on
+    the unpadded (B, H, S, ·) views, with the kernels PyTorch picked for it
+    named."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(dtype)
+    scale = D ** -0.5
+    got = fa.flash_attention_padded(q, k, v)
+    want = ref.flash_attention_ref(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    require(got.dtype == dtype and got.shape == v.shape, "padded output")
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    err = close(got, want, **tol)
+    P = fa.padded_head_dim(D, Dv)
+    pads = ((q, P - D), (k, P - D), (v, P - Dv))
+    qp, kp, vp = (F.pad(t, (0, n)) for t, n in pads)
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    pairs = B * H * attention_pairs(S, S, "causal", None)
+    b_ms, b_by = bound(q.element_size() * (2 * B * S * H * D
+                                           + 2 * B * S * H * Dv),
+                       (2.0 * D + 2.0 * Dv) * pairs, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                    .max())
+    lib_kernels = [n for n, _ in traced_round(lib, top=3)["top_kernels_ms"]]
+    route = lambda: fa.flash_attention_padded(q, k, v)       # noqa: E731
+    return dict(name="flash_attention", shape=[B, S, S, H, H, D, Dv],
+                mode="causal", window=None, dtype=dname,
+                kernel_route=fa.kernel_route(dtype) + "_padded",
+                padded_head_dim=P, max_abs_err=err, ms=time_ms(route, iters),
+                launch_ms=time_ms(lambda: fa.flash_attention(
+                    qp, kp, vp, scale=scale), iters),
+                pad_ms=time_ms(lambda: [F.pad(t, (0, n)) for t, n in pads],
+                               iters),
+                host_ms=host_ms(route, iters),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, scale=scale), iters),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters),
+                library_call="scaled_dot_product_attention(scale=D**-0.5)",
+                library_kernels=lib_kernels, library_max_abs_err=lib_err,
+                gflop=(2.0 * D + 2.0 * Dv) * pairs / 1e9)
+
+
+def run_mla_serving(n_layers: int = 62) -> dict:
+    """Run (r): minicpm3-4b at full width (MLA: q_lora 768, kv_lora 256,
+    heads of 64 + 32 over a value head of 64; tied embeddings), its own
+    dtypes, serving 4 prompts of 1,024 tokens then 16 greedy decode steps.
+    Kernel 6 launches once a layer in prefill on the padded route (q and k
+    96 -> 128, v 64 -> 128), never in decode; one more prefill holds each
+    layer's padded call against the plain version at the model's own
+    inputs."""
+    import torch
+    from repro_torch import models
+    cfg = arch_cut("minicpm3-4b", n_layers)
+    m = cfg.mla
+    params, batch, out = serve_full_width(cfg, seed=0)
+    route = "wgmma_padded"
+    require(out["launches_prefill"] == {"flash_attention": cfg.n_layers}
+            and out["routes_prefill"] == {route: cfg.n_layers},
+            f"run (r) prefill launches {out['launches_prefill']} routes "
+            f"{out['routes_prefill']}")
+    # the same cache as GQA K (H, nope + rope) and V (H, v) per token
+    per_tok_mla = m.kv_lora_rank + m.qk_rope_head_dim
+    per_tok_gqa = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                 + m.v_head_dim)
+    out["cache_bytes_gqa_same_heads"] = (out["cache_bytes"] * per_tok_gqa
+                                         // per_tok_mla)
+    require(out["cache_bytes"] == cfg.n_layers * 4 * (1024 + 16)
+            * per_tok_mla * 2, f"run (r) cache bytes {out['cache_bytes']}")
+    errs = in_model_flash_errs(
+        lambda: models.prefill(params, cfg, batch, 1024 + 16))
+    require(len(errs) == cfg.n_layers, "in-model padded kernel-6 checks")
+    out["attention_in_model_max_abs_err"] = errs
+    del params
+    return out
+
+
+def mla_card_vs_cpu() -> dict:
+    """Run (r)'s 2-layer copy: minicpm3-4b at full width, 2 layers, float32
+    compute, on the card and the CPU from the same weights (1 prompt of
+    128 tokens, 4 decode steps, the CPU fed the card's tokens): logits and
+    the ``c_kv``/``k_rope`` caches within ``atol=1e-4, rtol=1e-3``; the
+    card's prefill takes the padded route (``fma_padded`` in float32,
+    ``wgmma_padded`` in bf16). Then a bf16-compute prefill on both, within
+    twice the CPU's own bf16-vs-float32 error."""
+    import torch
+    from repro_torch import models
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    cfg = arch_cut("minicpm3-4b", 2, compute_dtype="float32")
+    tol = dict(atol=1e-4, rtol=1e-3)
+    gparams = models.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    cparams = tree_map(lambda t: t.cpu(), gparams)
+    batch = synthetic_lm_batch(1, cfg.vocab_size, 1, 128)
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    _lib.reset_launches()
+    fa.ROUTE_LAUNCHES.clear()
+    glogits, gcache = models.prefill(gparams, cfg, gbatch, 132)
+    torch.cuda.synchronize()
+    routes = dict(fa.ROUTE_LAUNCHES)
+    require(_lib.counts() == {"flash_attention": 2}
+            and routes == {"fma_padded": 2}, f"run (r) 2-layer {routes}")
+    clogits, ccache = models.prefill(cparams, cfg, batch, 132)
+    errs = [close(glogits.cpu(), clogits, **tol)]
+    bcfg = arch_cut("minicpm3-4b", 2)                     # bfloat16 compute
+    blogits, bcache = models.prefill(gparams, bcfg, gbatch, 132)
+    clogits16, ccache16 = models.prefill(cparams, bcfg, batch, 132)
+    bf16 = {"logits": bf16_close(blogits, clogits16, clogits, "logits")}
+    for k in ("c_kv", "k_rope"):
+        bf16[f"cache_{k}"] = bf16_close(bcache["layers"][k],
+                                        ccache16["layers"][k],
+                                        ccache["layers"][k], f"cache {k}")
+    require(dict(fa.ROUTE_LAUNCHES) == {"fma_padded": 2, "wgmma_padded": 2},
+            f"run (r) 2-layer routes {dict(fa.ROUTE_LAUNCHES)}")
+    del blogits, bcache, clogits16, ccache16
+    for _ in range(4):
+        token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+        clogits, ccache = models.decode_step(cparams, cfg, token.cpu(),
+                                             ccache)
+        errs.append(close(glogits.cpu(), clogits, **tol))
+    cache_err = max(close(gcache["layers"][k].cpu(), ccache["layers"][k],
+                          **tol) for k in ("c_kv", "k_rope"))
+    return dict(arch=cfg.name, n_layers=2,
+                params=models.param_count(gparams),
+                logits_max_abs_err=errs, cache_max_abs_err=cache_err,
+                bf16_prefill=bf16)
+
+
+class RouteSpy:
+    """Wraps ``models.moe.route``: per call, the tokens routed, the
+    capacity, the top-k assignments dropped by capacity (without a slot),
+    the load-balance and z-loss terms (:meth:`rows`, read on the host after
+    the run, so the spy adds no synchronization), and (``keep``) the
+    dispatch mask on the host. A context manager that puts the function
+    back."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.calls, self.masks = keep, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real = moe, moe.route
+
+        def spy(logits, cfg, capacity):
+            out = self.real(logits, cfg, capacity)
+            d, _, (lb, zl) = out
+            G, S, _ = logits.shape
+            self.calls.append((G * S, capacity, G * S * cfg.moe.top_k,
+                               d.detach().sum(), lb.detach(), zl.detach()))
+            if self.keep:
+                self.masks.append(d.detach().cpu())
+            return out
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+    def rows(self) -> list:
+        return [dict(tokens=n, capacity=c, dropped=routed - int(kept),
+                     lb_loss=float(lb), z_loss=float(zl))
+                for n, c, routed, kept, lb, zl in self.calls]
+
+
+def run_moe_serving(arch: str, n_layers: int) -> dict:
+    """Run (s): ``arch`` at full width and its own dtypes, ``n_layers``
+    layers, serving 4 prompts of 1,024 tokens then 16 greedy decode steps;
+    kernel 6 once a layer in prefill (GQA, head dim 128, no padding),
+    never in decode; the router's counters per layer of the prefill."""
+    import gc
+    import torch
+    cfg = arch_cut(arch, n_layers)
+    with RouteSpy() as spy:
+        params, _, out = serve_full_width(cfg, seed=2, spy=spy)
+    require(out["launches_prefill"] == {"flash_attention": cfg.n_layers}
+            and out["routes_prefill"] == {"wgmma": cfg.n_layers},
+            f"run (s) {arch} prefill launches {out['launches_prefill']}")
+    require(len(out["routing_prefill"]) == cfg.n_layers,
+            "run (s): one route a layer")
+    require(all(math.isfinite(c["lb_loss"]) and math.isfinite(c["z_loss"])
+                for c in out["routing_prefill"]), "run (s) aux terms")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_card_vs_cpu(arch: str) -> dict:
+    """Run (s)'s reduced copies: ``arch``'s reduced config (float32) on the
+    card and the CPU from the same weights, 2 prompts of 64 tokens and 3
+    decode steps (the CPU fed the card's tokens): logits and caches in the
+    golden band, every dispatch mask equal."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    cfg = get_config(arch).reduced()
+    cparams = models.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), cparams)
+    batch = synthetic_lm_batch(3, cfg.vocab_size, 2, 64)
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    spies, errs = {}, []
+    with RouteSpy(keep=True) as spies["cuda"]:
+        glogits, gcache = models.prefill(gparams, cfg, gbatch, 67)
+        tokens = []
+        for _ in range(3):
+            tokens.append(glogits[:, :cfg.vocab_size].argmax(-1)[:, None])
+            glogits, gcache = models.decode_step(gparams, cfg, tokens[-1],
+                                                 gcache)
+    with RouteSpy(keep=True) as spies["cpu"]:
+        clogits, ccache = models.prefill(cparams, cfg, batch, 67)
+        for t in tokens:
+            clogits, ccache = models.decode_step(cparams, cfg, t.cpu(),
+                                                 ccache)
+    errs.append(close(glogits.cpu(), clogits, **GOLDEN_BAND))
+    for k in gcache["layers"]:
+        errs.append(close(gcache["layers"][k].cpu(), ccache["layers"][k],
+                          **GOLDEN_BAND))
+    a, b = spies["cuda"].masks, spies["cpu"].masks
+    require(len(a) == len(b) == 4 * cfg.n_layers
+            and all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"run (s) {arch} reduced: dispatch masks differ")
+    return dict(arch=cfg.name, max_abs_err=max(errs), routes=len(a),
+                dropped=[c["dropped"] for c in spies["cuda"].rows()])
+
+
+def remat_on_off(arch, params, data, optimizer: str) -> dict:
+    """One local step of ``LMDeltaTask(arch, freeze_roles=("embedding",))``
+    with ``remat`` on and off from the same params and batch,
+    deterministic algorithms on: the trained params ``torch.equal``, and
+    each call's peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.core import FLConfig, LMDeltaTask
+    from repro_torch.core.pytree import leaves
+    cfg = FLConfig(local_epochs=1, batch_size=LM_Q["batch"],
+                   payload="update", optimizer=optimizer)
+    one = {k: v[:LM_Q["batch"]].cuda() for k, v in data.items()}
+    out, peaks = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (True, False):
+            task = LMDeltaTask(dataclasses.replace(arch, remat=remat),
+                               freeze_roles=("embedding",))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out[remat], _ = task.local_update(params, one, cfg, seed=0)
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(all(torch.equal(a, b) for a, b in zip(
+        leaves(out[True]), leaves(out[False]), strict=True)),
+        f"{arch.name}: remat on/off local steps differ")
+    require(any(not torch.equal(a, b) for a, b in zip(
+        leaves(out[True]), leaves(params))), "remat step moved nothing")
+    return dict(arch=arch.name, n_layers=arch.n_layers, equal=True,
+                peak_remat_on=peaks[True], peak_remat_off=peaks[False])
+
+
+LM_T = dict(arch="minicpm3-4b", n_layers=8)
+
+
+def run_mla_delta(launches: dict) -> dict:
+    """Run (t): ``LMDeltaTask`` on minicpm3-4b at full width, 8 of 62
+    layers (remat on, the config's), ``FLConfig(optimizer="adamw")``, run
+    (q)'s data shape and codec plan (:func:`build_lm_delta`: the ``mlp``
+    group on an unfitted kernel-path chunked AE, the rest q8), 2
+    ``SyncFedAvg`` rounds; then one local step with remat on and off from
+    the trained global model (:func:`remat_on_off`). Adds the rounds'
+    counts to ``launches`` as ``*_run_t``."""
+    import gc
+    import torch
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import init_params, param_count
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = arch_cut(LM_T["arch"], LM_T["n_layers"])
+    require(arch.remat, "run (t): the config trains with remat")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         arch, "cuda")
+    n_params = param_count(params)
+    frozen0 = [t.clone() for t in leaves(params)]
+    data, ev = lm_delta_data(arch.vocab_size, LM_Q["seqs"], LM_Q["seq_len"])
+    _lib.reset_launches()
+    fa.ROUTE_LAUNCHES.clear()
+    with FrozenCodesSpy() as codes:
+        run = build_lm_delta(arch, params, data, ev, "cuda",
+                             optimizer="adamw")
+        plays = play(run, 2, "cuda")
+    torch.cuda.synchronize()
+    counts, routes = _lib.counts(), dict(fa.ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for rec in run.history:
+        check_lm_round("run (t)", run, rec, frozen0)
+    require(codes.codes > 0 and codes.nonzero == 0,
+            f"run (t): {codes.nonzero} embedding codes nonzero")
+    for x in ("quantize_blocks_2d", "dequantize_blocks_2d", "fused_dense",
+              "fused_decode_agg", "flash_attention"):
+        require(counts.get(x, 0) > 0, f"run (t) never launched {x}")
+        launches[f"{x}_run_t"] = counts[x]
+    require(routes == {"wgmma_padded": 2 * arch.n_layers},
+            f"run (t): kernel 6 routes {routes}, not the padded route once "
+            "a layer an evaluate")
+    metrics = [r.global_metrics for r in run.history]
+    start = run.global_params
+    del run, params, frozen0
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_on_off(arch, start, data[0], "adamw")
+    out = dict(param_count=n_params, peak_allocated=peak,
+               round_s=[p["s"] for p in plays],
+               launches_a_round=[p["launches"] for p in plays],
+               routes_kernel6=routes, metrics=metrics, remat=remat)
+    del start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_train_step(n_layers: int = 1) -> dict:
+    """Run (u): one training step of dbrx-132b at full width, ``n_layers``
+    of 40 layers with remat on, a batch of 2 x 512 tokens:
+    ``models.train_loss`` under autograd, then ``make_optimizer("sgdm",
+    lr, grad_clip=cfg.grad_clip)``'s update in place (no second copy of
+    parameters or momentum: parameters, gradients and momentum are three
+    copies of the model). ``moe_aux`` must be finite; peak memory
+    printed."""
+    import gc
+    import torch
+    from repro_torch import models
+    from repro_torch.core.pytree import leaves, value_and_grad
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.kernels import _lib
+    from repro_torch.optim.optimizers import global_norm, make_optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = arch_cut("dbrx-132b", n_layers)
+    require(cfg.remat, "run (u): the config trains with remat")
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
+    n_params = models.param_count(params)
+    opt = make_optimizer("sgdm", cfg.learning_rate, grad_clip=cfg.grad_clip)
+    state = opt.init(params)
+    batch = {k: t.cuda() for k, t in
+             synthetic_lm_batch(5, cfg.vocab_size, 2, 512).items()}
+    norm0 = params["final_norm"]["scale"].clone()
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RouteSpy() as spy:
+        loss, metrics, grads = value_and_grad(
+            lambda p, b: models.train_loss(p, cfg, b), params, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    norm = float(global_norm(grads))
+    t0 = time.perf_counter()
+    params, state = opt.update(params, grads, state, inplace=True)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(math.isfinite(float(loss))
+            and math.isfinite(float(metrics["moe_aux"])),
+            f"run (u): loss {float(loss)}, moe_aux {metrics['moe_aux']}")
+    require(_lib.counts() == {}, f"run (u) launches {_lib.counts()}")
+    require(not torch.equal(norm0, params["final_norm"]["scale"])
+            and all(bool(torch.isfinite(m).all())
+                    and float(m.abs().max()) > 0
+                    for m in leaves(state["mu"])),
+            "run (u): the step moved nothing, or a momentum is not finite")
+    require(state["count"] == 1, "run (u): step count")
+    out = dict(arch=cfg.name, n_layers=n_layers, params=n_params,
+               batch=[2, 512], loss=float(loss),
+               moe_aux=float(metrics["moe_aux"]),
+               ce_loss=float(metrics["ce_loss"]), grad_global_norm=norm,
+               routing=spy.rows(), grad_s=grad_s, update_s=update_s,
+               peak_memory_bytes=peak)
+    del params, grads, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -2845,9 +3340,9 @@ def main() -> int:
     # over 256 clients' 256 chunks, its kernel-4 reduce); the q8 rows'
     # dequantize at K 65,536 (one block of 2^10 a client) and at K 256
     # (256 blocks of 256 a client; K 4,096's is the (2^20, 256) above);
-    # the LM path: the
+    # run (q)'s LM path at 6 layers: the
     # q8 of the embedding group (1,605,632 blocks of 256) and of the
-    # attention group (131,072), the mlp group's chunked AE over 270,336
+    # attention group (393,216), the mlp group's chunked AE over 811,008
     # chunks (encode 256 -> 32 -> 8, EF decode 8 -> 32 -> 256), the
     # server's hidden layer over both clients' chunks and its reduce, and
     # evaluate's attention (2 x 512 tokens, 32 heads of 64, bf16, causal)
@@ -2857,20 +3352,37 @@ def main() -> int:
         + list(check_quantize(65_536, 8, 59, 10, block=1024).values())
         + list(check_quantize(65_536, 8, 60, 10).values())
         + list(check_quantize(1_605_632, 8, 50, 5).values())
-        + list(check_quantize(131_072, 8, 51, 10).values())
-        + [check_fused_dense(270_336, 256, 32, "relu", torch.float32, 52,
+        + list(check_quantize(393_216, 8, 51, 10).values())
+        + [check_fused_dense(811_008, 256, 32, "relu", torch.float32, 52,
                              5),
-           check_fused_dense(270_336, 32, 8, "relu", torch.float32, 53, 5),
-           check_fused_dense(270_336, 8, 32, "relu", torch.float32, 54, 5),
-           check_fused_dense(270_336, 32, 256, "linear", torch.float32, 55,
+           check_fused_dense(811_008, 32, 8, "relu", torch.float32, 53, 5),
+           check_fused_dense(811_008, 8, 32, "relu", torch.float32, 54, 5),
+           check_fused_dense(811_008, 32, 256, "linear", torch.float32, 55,
                              5),
-           check_fused_dense(540_672, 8, 32, "relu", torch.float32, 56, 5),
-           check_decode_agg(2, 270_336, 32, 256, 57, 5),
+           check_fused_dense(1_622_016, 8, 32, "relu", torch.float32, 56, 5),
+           check_decode_agg(2, 811_008, 32, 256, 57, 5),
            check_flash(2, 512, 512, 32, 32, 64, "causal", None,
                        torch.bfloat16, 58, 10)])
+    # runs (r) and (t): MLA's attention through kernel 6's padded route
+    # (40 heads, q/k 96 -> 128, v 64 -> 128, bf16, causal) at run (r)'s
+    # prefill (4 x 1,024) and run (t)'s evaluate (2 x 512); run (t)'s
+    # codec layers: the q8 of its embedding (734,720 blocks of 256) and
+    # attention (422,433) groups, the mlp group's chunked AE over 1,536,000
+    # chunks and the server's hidden layer and reduce
+    mla = [check_flash_padded(4, 1024, 40, 96, 64, torch.bfloat16, 61, 10),
+           check_flash_padded(2, 512, 40, 96, 64, torch.bfloat16, 62, 10)]
+    mla_t = (list(check_quantize(734_720, 8, 63, 5).values())
+             + list(check_quantize(422_433, 8, 64, 5).values())
+             + [check_fused_dense(1_536_000, 256, 32, "relu", torch.float32,
+                                  65, 3),
+                check_fused_dense(1_536_000, 32, 8, "relu", torch.float32,
+                                  66, 3),
+                check_fused_dense(3_072_000, 8, 32, "relu", torch.float32,
+                                  67, 3),
+                check_decode_agg(2, 1_536_000, 32, 256, 68, 3)])
     for r in (fd[1:] + grouped + cohort + client
               + [slice_rows["flash_attention"]] + flash + runtime + rate_n
-              + serve_lm):
+              + serve_lm + mla + mla_t):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -3410,11 +3922,48 @@ def main() -> int:
 
     # ------------------------------------- 14. LMDeltaTask at width (q)
     lm_q = run_lm_delta(launches)
-    log("lm delta (q) stablelm-1.6b x2 layers " + json.dumps(lm_q))
+    log(f"lm delta (q) stablelm-1.6b x{LM_Q['n_layers']} layers "
+        + json.dumps(lm_q))
     log("lm delta (q) reduced cuda == cpu (replay): "
         + json.dumps(lm_delta_replay()))
 
-    # --------------------------------------------------------- 13. report
+    # ---------------------------------------------- 15. MLA serving (r)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_r = run_mla_serving()
+    launches["flash_attention_run_r"] = lm_r["launches_prefill"][
+        "flash_attention"]
+    log("mla (r) " + json.dumps(lm_r))
+    log(f"mla (r) minicpm3-4b x{lm_r['n_layers']} layers: prefill 4 x 1024 "
+        f"tokens in {lm_r['prefill_s']:.4f} s, decode step median "
+        f"{lm_r['decode_step_median_s']:.4f} s, peak "
+        f"{lm_r['peak_memory_bytes'] / 2**30:.2f} GiB, cache "
+        f"{lm_r['cache_bytes']} B (GQA of the same heads "
+        f"{lm_r['cache_bytes_gqa_same_heads']} B); kernel 6 "
+        f"{lm_r['routes_prefill']} in prefill, none in decode")
+    log("mla (r) 2-layer cuda == cpu within atol=1e-4 rtol=1e-3 (float32 "
+        "compute), bfloat16 prefill within 2 x the CPU's bfloat16 error: "
+        + json.dumps(mla_card_vs_cpu()))
+
+    # ---------------------------------------------- 16. MoE serving (s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, n in (("dbrx-132b", 2), ("llama4-maverick-400b-a17b", 1)):
+        row = run_moe_serving(arch, n)
+        log(f"moe (s) {arch} x{n} " + json.dumps(row))
+    for arch in ("dbrx_132b", "llama4_maverick_400b_a17b"):
+        log(f"moe (s) {arch} reduced cuda == cpu in the golden band, "
+            "dispatch masks equal: " + json.dumps(moe_card_vs_cpu(arch)))
+
+    # ------------------------------ 17. MLA training with remat (t)
+    lm_t = run_mla_delta(launches)
+    log("lm delta (t) minicpm3-4b x8 layers " + json.dumps(lm_t))
+
+    # --------------------------------- 18. an MoE training step (u)
+    lm_u = run_moe_train_step()
+    log("moe train (u) dbrx-132b x1 layer " + json.dumps(lm_u))
+
+    # --------------------------------------------------------- 19. report
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -3432,7 +3981,9 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
-                 for x in "hijknopq" if f"{name}_run_{x}" in launches}
+                 for x in "hijknopqrt" if f"{name}_run_{x}" in launches}
+        if name == "flash_attention":
+            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1])
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,

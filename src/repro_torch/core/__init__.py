@@ -2,9 +2,12 @@
 communication for federated learning (port of ``repro.core``)."""
 from repro_torch.core.aggregate import (  # noqa: F401
     apply_update,
+    buffered_aggregate,
     distortion_weights,
+    fedavg,
     normalize_weights,
     staleness_weights,
+    weighted_mean,
     weighted_mean_stacked,
 )
 from repro_torch.core.arrival import ArrivalEngine, pop_k_device  # noqa: F401

@@ -1,13 +1,15 @@
-"""FedAvg aggregation over decoded collaborator updates (port of the parts
-of ``repro.core.aggregate`` the synchronous and buffered-async paths use,
-with the async buffer's staleness and distortion discounts)."""
+"""FedAvg aggregation over decoded collaborator updates (port of
+``repro.core.aggregate``): the stacked reduction the server paths use, the
+sequence API over a list of per-client trees (:func:`weighted_mean`,
+:func:`fedavg`, :func:`buffered_aggregate`), and the async buffer's
+staleness and distortion discounts."""
 from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence
 
 import torch
 
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.pytree import stack, tree_map
 
 Tree = Any
 
@@ -34,12 +36,30 @@ def weighted_mean_stacked(stacked: Tree, weights: Sequence[float], *,
     return tree_map(combine, stacked)
 
 
+def weighted_mean(updates: Sequence[Tree],
+                  weights: Optional[Sequence[float]] = None) -> Tree:
+    """The sequence API for callers holding per-client trees: stacks the
+    leaves and delegates to :func:`weighted_mean_stacked` (equal weights
+    when none are given)."""
+    if weights is None:
+        weights = [1.0] * len(updates)
+    return weighted_mean_stacked(stack(list(updates)),
+                                 normalize_weights(weights), normalized=True)
+
+
 @torch.no_grad()
 def apply_update(global_params: Tree, mean_update: Tree,
                  server_lr: float = 1.0) -> Tree:
     return tree_map(
         lambda p, u: (p.float() + server_lr * u.float()).to(p.dtype),
         global_params, mean_update)
+
+
+def fedavg(global_params: Tree, updates: Sequence[Tree],
+           weights: Optional[Sequence[float]] = None,
+           server_lr: float = 1.0) -> Tree:
+    return apply_update(global_params, weighted_mean(updates, weights),
+                        server_lr)
 
 
 def staleness_weights(base_weights: Sequence[float],
@@ -69,3 +89,14 @@ def distortion_weights(base_weights: Sequence[float],
         raise ValueError("one distortion per weight")
     return [w if e is None else w * float(1 + e) ** (-power)
             for w, e in zip(base_weights, distortions)]
+
+
+def buffered_aggregate(global_params: Tree, updates: Sequence[Tree],
+                       base_weights: Sequence[float],
+                       staleness: Sequence[int], *, power: float = 0.5,
+                       server_lr: float = 1.0) -> Tree:
+    """One async buffer flush: staleness-discounted FedAvg over the buffer's
+    updates."""
+    return fedavg(global_params, updates,
+                  staleness_weights(base_weights, staleness, power),
+                  server_lr)

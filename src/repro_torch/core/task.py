@@ -1,7 +1,8 @@
 """Client tasks: the model-side half of the federated runtime (port of
 ``repro.core.task``): the ``ClientTask`` protocol, ``ClassifierTask`` with
 its vmapped cohort path, and ``LMDeltaTask``, federated delta fine-tuning
-of the LM zoo's dense family. DESIGN.md §14.1 describes the protocol.
+of the LM zoo's ported families (dense and MoE, GQA or MLA attention).
+DESIGN.md §14.1 describes the protocol.
 """
 from __future__ import annotations
 
@@ -133,9 +134,10 @@ def _lm_step(arch_cfg, optimizer: str, lr: float, prox_mu: float,
              frozen_roles: Tuple[str, ...]):
     """The local training step, built once per ``(arch_cfg, optimizer, lr,
     prox_mu, frozen_roles)``: autograd through ``models.train_loss`` (whose
-    attention takes the differentiable plain route while autograd records),
-    the gradients times the role mask, then the port's Adam. The FedProx
-    term is added when ``prox_mu`` > 0."""
+    attention takes the differentiable plain route while autograd records,
+    and which checkpoints each layer where ``arch_cfg.remat`` is set), the
+    gradients times the role mask, then ``make_optimizer(optimizer, lr)``.
+    The FedProx term is added when ``prox_mu`` > 0."""
     from repro_torch.core.pytree import leaves, tree_map, value_and_grad
     from repro_torch.models import model as model_lib
     from repro_torch.optim.optimizers import make_optimizer
@@ -160,8 +162,9 @@ def _lm_step(arch_cfg, optimizer: str, lr: float, prox_mu: float,
 
 @dataclasses.dataclass
 class LMDeltaTask(ClientTask):
-    """Federated delta fine-tuning of a ``configs/`` zoo model (the dense
-    family is ported). Each client shard is a token corpus ``{"tokens":
+    """Federated delta fine-tuning of a ``configs/`` zoo model: the dense
+    family (llama3-8b, stablelm-1.6b, deepseek-coder-33b, minicpm3-4b with
+    MLA) and the MoE family (dbrx-132b, llama4-maverick) are ported. Each client shard is a token corpus ``{"tokens":
     (n, S), "labels": (n, S)}`` (``data.pipeline.synthetic_lm_batch``); a
     local round runs ``cfg.local_epochs`` epochs of next-token training in
     the ``batch_indices`` order the classifier path uses. The task needs

@@ -3,14 +3,26 @@
 ``flash_attention_pallas``).
 
 q: (B, Sq, H, D), k and v: (B, Skv, KV, D) with ``H % KV == 0``; modes
-``causal``, ``window`` and ``full``; scale ``D ** -0.5``; the output has
-q's shape and dtype. A CPU tensor takes the plain version
+``causal``, ``window`` and ``full``; scale ``D ** -0.5`` unless given; the
+output has q's shape and dtype. A CPU tensor takes the plain version
 (``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises.
 The dtype picks the kernel: bfloat16 the wgmma kernel fed by TMA (its
 tensor maps need 16-byte aligned q, k and v), float32 the FMA kernel.
+
+:func:`flash_attention_padded` takes the head dims the kernel has no
+instantiation for — ``D`` outside :data:`HEAD_DIMS`, or a value head
+``Dv != D`` (MLA's 96-wide query/key head over a 64-wide value head): it
+zero-pads q, k and v on the last axis to the smallest of ``HEAD_DIMS``
+that holds both, launches the kernel with the scale of the unpadded ``D``
+and returns the first ``Dv`` columns. The zero columns add exact zeros to
+every float32 dot product, so this is the attention of the unpadded
+inputs. Each launch counts one for ``flash_attention`` in ``_lib`` and one
+for its route in :data:`ROUTE_LAUNCHES` (``wgmma``, ``fma``, or
+``wgmma_padded``/``fma_padded`` for the padded calls).
 """
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -20,6 +32,9 @@ from repro_torch.kernels import _lib, ref
 MODES = {"causal": 0, "window": 1, "full": 2}
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches per route, reset with ``ROUTE_LAUNCHES.clear()``
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def kernel_route(dtype: torch.dtype) -> str:
@@ -56,12 +71,42 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"row without a key (Sq={Sq}, Skv={Skv})")
 
 
+def padded_head_dim(D: int, Dv: int) -> Optional[int]:
+    """The smallest of :data:`HEAD_DIMS` that holds ``max(D, Dv)``, or
+    None when none does."""
+    return next((p for p in HEAD_DIMS if p >= max(D, Dv)), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    mode: str = "causal",
-                    window: Optional[int] = None) -> torch.Tensor:
+                    mode: str = "causal", window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    return _flash(q, k, v, mode, window, scale, "")
+
+
+def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, mode: str = "causal",
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q, k (B, S, *, D) and v (B, Skv, KV, Dv) through the
+    kernel at the padded head dim (see the module docstring); ``scale``
+    defaults to the unpadded ``D ** -0.5``."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    P = padded_head_dim(D, Dv)
+    if P is None:
+        raise ValueError(f"flash_attention: head dims D={D}, Dv={Dv} exceed "
+                         f"the largest the kernel takes, {HEAD_DIMS[-1]}")
+    pad = torch.nn.functional.pad
+    out = _flash(pad(q, (0, P - D)), pad(k, (0, P - D)), pad(v, (0, P - Dv)),
+                 mode, window, D ** -0.5 if scale is None else scale,
+                 "_padded")
+    return out[..., :Dv]
+
+
+def _flash(q, k, v, mode, window, scale, route_tag: str) -> torch.Tensor:
     check_shapes(q, k, v, mode, window)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, mode=mode, window=window)
+        return ref.flash_attention_ref(q, k, v, mode=mode, window=window,
+                                       scale=scale)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -83,6 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B and Sq and H:
         _lib.launch("flash_attention", "repro_flash_attention", q, k, v, o,
                     B, Sq, Skv, H, KV, D, MODES[mode],
-                    window if mode == "window" else 0, D ** -0.5,
-                    DTYPES[q.dtype])
+                    window if mode == "window" else 0,
+                    D ** -0.5 if scale is None else scale, DTYPES[q.dtype])
+        ROUTE_LAUNCHES[kernel_route(q.dtype) + route_tag] += 1
     return o

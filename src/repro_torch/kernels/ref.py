@@ -170,11 +170,12 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, mode: str = "causal", window=None,
-                        kv_block: int = 128) -> torch.Tensor:
+                        kv_block: int = 128, scale=None) -> torch.Tensor:
     """Forward attention the way ``flash_attention_pallas`` computes it:
     ``chunked_attention_ref`` inside the kernel's contract (one query chunk,
-    kv blocks of ``kv_block``, the default scale ``D ** -0.5``, no
-    ``q_offset``, softcap or ``extra_qk``), which is block for block the
-    Pallas kernel's online softmax."""
+    kv blocks of ``kv_block``, no ``q_offset``, softcap or ``extra_qk``),
+    which is block for block the Pallas kernel's online softmax. ``scale``
+    defaults to ``D ** -0.5``, the Pallas kernel's."""
     return chunked_attention_ref(q, k, v, mode=mode, window=window,
-                                 q_chunk=q.shape[1], kv_chunk=kv_block)
+                                 q_chunk=q.shape[1], kv_chunk=kv_block,
+                                 scale=scale)

@@ -1,6 +1,7 @@
-"""GQA attention (port of the GQA part of ``repro.models.attention``):
-full-sequence flash attention for training and prefill, single-token decode
-attention against a linear or ring cache, and the GQA module.
+"""Attention (port of ``repro.models.attention``): full-sequence flash
+attention for training and prefill, single-token decode attention against
+a linear or ring cache, the GQA module and MLA (multi-head latent
+attention, MiniCPM3 / DeepSeek-V2 style).
 
 ``flash_attention`` keeps the reference's whole signature. On the CPU it
 runs the reference's chunked online-softmax math
@@ -11,13 +12,16 @@ training path (autograd recording through q, k or v) takes the same
 chunked math on the card, which is differentiable — the reference's
 model-level ``flash_attention`` is that math, and its Pallas kernel has no
 backward, so it never runs where a gradient is taken. Every other call
-launches kernel 6 (``kernels/flash_attention.py``) when it is inside the
-TPU kernel's contract — ``softcap == 0``, no ``extra_qk``,
-``q_offset == 0``, ``Dv == D`` and the default scale — and raises
-``NotImplementedError`` outside it. ``decode_attention`` is plain torch
-on every device, as the reference runs no kernel there.
-
-MLA (``init_mla``, ``mla_forward``, ``mla_decode``) is not ported yet.
+launches kernel 6 (``kernels/flash_attention.py``) when it is inside
+:func:`kernel_contract` — ``softcap == 0``, no ``extra_qk``,
+``q_offset == 0`` — and raises ``NotImplementedError`` outside it. Head
+dims the kernel has no instantiation for (``D`` outside its
+``HEAD_DIMS``, ``Dv != D``) and an explicit scale take its padded route
+(``flash_attention_padded``: q, k and v zero-padded to the next head dim
+it has, the unpadded scale, the output sliced), which is how MLA's
+prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width) reaches the kernel.
+``decode_attention`` and ``mla_decode`` are plain torch on every device,
+as the reference runs no kernel there.
 """
 from __future__ import annotations
 
@@ -27,24 +31,26 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import \
-    flash_attention as flash_kernel
-from repro_torch.models.common import (apply_rope, cast, dense_init,
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, flash_attention as flash_kernel,
+    flash_attention_padded as flash_kernel_padded, padded_head_dim)
+from repro_torch.models.common import (apply_norm, apply_rope, cast,
+                                       dense_init, init_norm,
                                        masked_softmax, pdt)
 
 # where the arguments outside kernel 6's contract will be ported
-_LATER = ("ROADMAP Queue A item 12c: MLA and the remaining flash_attention "
-          "arguments")
+_LATER = ("ROADMAP Queue A item 11i: the flash_attention arguments outside "
+          "kernel 6's contract (softcap, extra_qk, q_offset) on the card")
 
 
 # =====================================================================
 # Flash-style chunked attention (training / prefill)
 # =====================================================================
 def kernel_contract(q: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
-                    softcap: float = 0.0, extra_qk=None,
-                    scale: Optional[float] = None) -> Optional[str]:
+                    softcap: float = 0.0, extra_qk=None) -> Optional[str]:
     """Why a call lies outside kernel 6's contract, or None when the kernel
-    computes it."""
+    computes it (directly, or through its padded route; any scale is in
+    the contract, the kernel takes it as an argument)."""
     D, Dv = q.shape[-1], v.shape[-1]
     if softcap != 0.0:
         return f"softcap={softcap}"
@@ -52,11 +58,19 @@ def kernel_contract(q: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
         return "extra_qk (decomposed MLA scores)"
     if q_offset != 0:
         return f"q_offset={q_offset}"
-    if Dv != D:
-        return f"Dv={Dv} != D={D}"
-    if scale is not None and scale != D ** -0.5:
-        return f"scale={scale} (the kernel uses D ** -0.5)"
+    if padded_head_dim(D, Dv) is None:
+        return f"head dims D={D}, Dv={Dv} above {HEAD_DIMS[-1]}"
     return None
+
+
+def kernel_padded(q: torch.Tensor, v: torch.Tensor,
+                  scale: Optional[float] = None) -> bool:
+    """Whether a call inside the contract takes the kernel's padded route:
+    a head dim it has no instantiation for, ``Dv != D``, or a scale other
+    than ``D ** -0.5``."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    return (D not in HEAD_DIMS or Dv != D
+            or (scale is not None and scale != D ** -0.5))
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor,
@@ -88,11 +102,14 @@ def flash_attention(
     head-shared score term (the decomposed MLA formulation)."""
     if q.device.type == "cuda" and attention_route(q, k, v) == "kernel":
         why = kernel_contract(q, v, q_offset=q_offset, softcap=softcap,
-                              extra_qk=extra_qk, scale=scale)
+                              extra_qk=extra_qk)
         if why is not None:
             raise NotImplementedError(
                 f"flash_attention on CUDA: {why} is outside kernel 6's "
                 f"contract; see {_LATER}")
+        if kernel_padded(q, v, scale):
+            return flash_kernel_padded(q, k, v, mode=mode, window=window,
+                                       scale=scale)
         return flash_kernel(q, k, v, mode=mode, window=window)
     return ref.chunked_attention_ref(q, k, v, mode=mode, q_offset=q_offset,
                                      window=window, softcap=softcap,
@@ -217,4 +234,120 @@ def gqa_decode(
                            positions=positions, window=window,
                            softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ cast(p["wo"], cfg), cache
+
+
+# =====================================================================
+# MLA (Multi-head Latent Attention) — MiniCPM3 / DeepSeek-V2 style
+# =====================================================================
+def init_mla(gen: torch.Generator, cfg: ArchConfig,
+             lead: Tuple[int, ...] = ()) -> dict:
+    """Drawn in the reference's order of leaves; ``w_uk`` and ``w_uv`` are
+    stored ``(..., r, H, dim)`` for the absorbed decode path, as there."""
+    m = cfg.mla
+    dtype = pdt(cfg)
+    H = cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "w_dq": dense_init(gen, cfg.d_model, m.q_lora_rank, dtype,
+                           lead=lead),
+        "q_norm": init_norm(cfg, m.q_lora_rank, lead=lead, device=dev),
+        "w_uq": dense_init(gen, m.q_lora_rank, H * qk_dim, dtype, lead=lead),
+        # joint down-projection: [c_kv | k_rope]
+        "w_dkv": dense_init(gen, cfg.d_model,
+                            m.kv_lora_rank + m.qk_rope_head_dim, dtype,
+                            lead=lead),
+        "kv_norm": init_norm(cfg, m.kv_lora_rank, lead=lead, device=dev),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           dtype, lead=lead).reshape(
+                               *lead, m.kv_lora_rank, H, m.qk_nope_head_dim),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype,
+                           lead=lead).reshape(
+                               *lead, m.kv_lora_rank, H, m.v_head_dim),
+        "wo": dense_init(gen, H * m.v_head_dim, cfg.d_model, dtype,
+                         scale=(H * m.v_head_dim) ** -0.5, lead=lead),
+    }
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = apply_norm(p["q_norm"], x @ cast(p["w_dq"], cfg), cfg)
+    q = (q_lat @ cast(p["w_uq"], cfg)).reshape(B, S, H, qk_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_kv_latent(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    dkv = x @ cast(p["w_dkv"], cfg)
+    c_kv, k_rope = torch.split(
+        dkv, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = apply_norm(p["kv_norm"], c_kv, cfg)         # (B, S, r)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                # (B, S, 1, rope_d)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                positions: torch.Tensor, mode: str = "causal",
+                window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence MLA (train / prefill): expand the latent to per-head
+    K/V and run flash attention on the concatenated ``[nope | rope]``
+    heads, as the reference keeps it. Returns (out, (c_kv, k_rope)) for
+    the cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_kv_latent(p, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhn->bshn", c_kv, cast(p["w_uk"], cfg))
+    v = torch.einsum("bsr,rhv->bshv", c_kv, cast(p["w_uv"], cfg))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = flash_attention(q, k, v.contiguous(), mode=mode, window=window)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ cast(p["wo"], cfg), (c_kv, k_rope)
+
+
+def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
+               index: int) -> Tuple[torch.Tensor, dict]:
+    """Absorbed-matrix MLA decode: attention runs in the latent space
+    against the cache's ``c_kv (B, S, r)`` and ``k_rope (B, S, rope)``,
+    which are written in place (the same dict is returned)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    pos_b = torch.full((B, 1), index, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos_b)          # (B,1,H,*)
+    c_new, kr_new = _mla_kv_latent(p, x, cfg, pos_b)   # (B,1,r), (B,1,rope)
+
+    S = cache["c_kv"].shape[1]
+    slot = index % S
+    cache["c_kv"][:, slot] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slot] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    # absorb W_uk into q: (B,1,H,r)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, cast(p["w_uk"], cfg))
+    s = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), c_kv.float())
+         + torch.einsum("bqhp,bsp->bhqs", q_rope.float(),
+                        k_rope.float())) * scale
+    mask = (torch.arange(S, device=x.device) <= index)[None, None, None, :]
+    probs = masked_softmax(s, mask)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs, c_kv.float())
+    out = torch.einsum("bqhr,rhv->bqhv", ctx.to(x.dtype),
+                       cast(p["w_uv"], cfg))
+    out = out.reshape(B, 1, H * m.v_head_dim)
     return out @ cast(p["wo"], cfg), cache

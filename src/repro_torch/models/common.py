@@ -44,9 +44,19 @@ def cast(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: Optional[float] = None,
                lead: Tuple[int, ...] = ()) -> torch.Tensor:
-    """Truncated-normal fan-in init, ``(*lead, d_in, d_out)``."""
+    """Truncated-normal fan-in init, ``(*lead, d_in, d_out)``. A stacked
+    leaf in a narrower dtype than float32 is drawn one ``(d_in, d_out)``
+    slab at a time into its own dtype, so no float32 copy of the whole
+    stack exists (llama4-maverick's ``(128, 5120, 8192)`` bfloat16 expert
+    stack would need 21 GB for one)."""
     if scale is None:
         scale = d_in ** -0.5
+    if lead and dtype != torch.float32:
+        out = torch.empty((*lead, d_in, d_out), dtype=dtype,
+                          device=gen.device)
+        for slab in out.view(-1, d_in, d_out):
+            slab.copy_(dense_init(gen, d_in, d_out, dtype, scale))
+        return out
     w = torch.empty((*lead, d_in, d_out), dtype=torch.float32,
                     device=gen.device)
     return _trunc_normal_(w, gen).mul_(scale).to(dtype)

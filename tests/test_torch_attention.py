@@ -11,7 +11,17 @@ JAX package on the CPU.
   ``q_offset``, ``extra_qk``, ``Dv != D`` and a scale) and
   ``decode_attention`` against ``repro.models.attention`` in the golden
   band ``atol=2e-5, rtol=2e-4``: the same float32 arithmetic;
-* kernel 6's contract: the calls that raise instead of running.
+* kernel 6's contract: the calls that raise instead of running, and the
+  calls that take its padded route (a head dim it has no instantiation
+  for, ``Dv != D``, an explicit scale); the padded route's arithmetic on
+  the CPU (pad, the plain version with the unpadded scale, slice) against
+  ``chunked_attention_ref`` on the unpadded inputs at MLA's ``D 96 / Dv
+  64`` and at the reduced MLA config's shapes;
+* the port of ``tests/test_perf_features.py::
+  test_flash_attention_extra_qk_matches_concat`` (decomposed scores equal
+  concatenated q/k) on the CPU route, and the MLA module
+  (``mla_forward``, ``mla_decode``) against the reference's on its own
+  weights.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 """
@@ -162,16 +172,124 @@ def test_masks_match_jax(q_len, kv_len, q_offset, window):
 def test_kernel_contract():
     """What a CUDA call of the model-level ``flash_attention`` hands to
     kernel 6, and what it refuses (``NotImplementedError`` naming the
-    reason): the check, as a function, on the shapes of a call."""
+    reason): the check, as a function, on the shapes of a call. Head dims
+    the kernel has no instantiation for and ``Dv != D`` are in the
+    contract, as is any scale (``kernel_padded`` sends these to the padded
+    route); softcap, ``extra_qk``, ``q_offset`` and head dims above 128
+    are not."""
     q = torch.zeros((1, 8, 4, 32))
     v = torch.zeros((1, 8, 2, 32))
     assert tattn.kernel_contract(q, v) is None
-    assert tattn.kernel_contract(q, v, scale=32 ** -0.5) is None
     assert "softcap" in tattn.kernel_contract(q, v, softcap=50.0)
     assert "extra_qk" in tattn.kernel_contract(q, v, extra_qk=(q, v))
     assert "q_offset" in tattn.kernel_contract(q, v, q_offset=3)
-    assert "Dv" in tattn.kernel_contract(q, torch.zeros((1, 8, 2, 16)))
-    assert "scale" in tattn.kernel_contract(q, v, scale=0.1)
+    assert tattn.kernel_contract(q, torch.zeros((1, 8, 2, 16))) is None
+    assert tattn.kernel_contract(torch.zeros((1, 8, 4, 96)),
+                                 torch.zeros((1, 8, 2, 64))) is None
+    assert "head dims" in tattn.kernel_contract(
+        torch.zeros((1, 8, 4, 192)), torch.zeros((1, 8, 2, 128)))
+    assert not tattn.kernel_padded(q, v)
+    assert not tattn.kernel_padded(q, v, scale=32 ** -0.5)
+    assert tattn.kernel_padded(q, v, scale=0.1)
+    assert tattn.kernel_padded(q, torch.zeros((1, 8, 2, 16)))
+    assert tattn.kernel_padded(torch.zeros((1, 8, 4, 96)),
+                               torch.zeros((1, 8, 2, 96)))
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,Dv,mode,window", [
+    (2, 40, 8, 8, 96, 64, "causal", None),   # minicpm3-4b's MLA heads
+    (1, 33, 4, 4, 96, 64, "full", None),
+    (2, 37, 4, 2, 96, 64, "window", 9),
+    (2, 24, 2, 2, 32, 32, "causal", None),   # the reduced MLA config's
+    (1, 20, 4, 2, 48, 48, "causal", None),   # D off the kernel's dims
+])
+def test_padded_route_arithmetic(B, S, H, KV, D, Dv, mode, window):
+    """Kernel 6's padded route on the CPU: zero-pad q, k and v to the next
+    head dim the kernel has, the plain version with the unpadded scale,
+    the first Dv columns; against ``chunked_attention_ref`` on the
+    unpadded inputs in the golden band, and the wrapper
+    (``flash_attention_padded``) is exactly that arithmetic."""
+    from repro_torch.kernels.flash_attention import (flash_attention_padded,
+                                                     padded_head_dim)
+    q, k, v = (torch.from_numpy(a) for a in
+               _qkv(D + Dv + S, B, S, S, H, KV, D, Dv))
+    P = padded_head_dim(D, Dv)
+    assert P == min(p for p in (16, 32, 64, 128) if p >= max(D, Dv))
+    pad = torch.nn.functional.pad
+    got = ref.flash_attention_ref(pad(q, (0, P - D)), pad(k, (0, P - D)),
+                                  pad(v, (0, P - Dv)), mode=mode,
+                                  window=window, scale=D ** -0.5)[..., :Dv]
+    want = ref.chunked_attention_ref(q, k, v, mode=mode, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **BAND)
+    before = _lib.counts()
+    wrapped = flash_attention_padded(q, k, v, mode=mode, window=window)
+    assert _lib.counts() == before
+    assert torch.equal(wrapped, got)
+    j = jattn.flash_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                              jnp.asarray(v.numpy()), mode=mode,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j), **BAND)
+
+
+def test_flash_attention_extra_qk_matches_concat():
+    """Decomposed scores == concatenated q/k (the MLA formulation), the
+    port of ``tests/test_perf_features.py``'s case on the CPU route."""
+    B, S, H, D, P2 = 2, 33, 4, 16, 8
+    rs = np.random.RandomState(0)
+    q1, k1, v = (torch.from_numpy(rs.randn(B, S, H, D).astype(np.float32))
+                 for _ in range(3))
+    q2 = torch.from_numpy(rs.randn(B, S, H, P2).astype(np.float32))
+    k2 = torch.from_numpy(rs.randn(B, S, P2).astype(np.float32))
+    scale = (D + P2) ** -0.5
+    got = tattn.flash_attention(q1, k1, v, extra_qk=(q2, k2), scale=scale,
+                                q_chunk=16, kv_chunk=16)
+    q_cat = torch.cat([q1, q2], dim=-1)
+    k_cat = torch.cat([k1, k2[:, :, None, :].expand(B, S, H, P2)], dim=-1)
+    want = tattn.flash_attention(q_cat, k_cat, v, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5,
+                               rtol=1e-3)
+
+
+def test_mla_module_matches_jax():
+    """``mla_forward`` (output and the cached latents) and three
+    ``mla_decode`` steps (output and the cache written in place) against
+    the reference's on its own weights, reduced minicpm3-4b."""
+    import jax
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    from repro_torch.core.pytree import from_jax_params
+    cfg = tconfigs.get_config("minicpm3_4b").reduced()
+    jcfg = jconfigs.get_config("minicpm3_4b").reduced()
+    jp = jattn.init_mla(jax.random.PRNGKey(2), jcfg)
+    tp = from_jax_params(jax.tree_util.tree_map(np.array, jp), "cpu")
+    assert tuple(tp["w_uk"].shape) == (32, cfg.n_heads, 16)
+    B, S = 2, 12
+    x = np.random.RandomState(4).randn(B, S + 3, cfg.d_model).astype(
+        np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    out, (c_kv, k_rope) = tattn.mla_forward(
+        tp, torch.from_numpy(x[:, :S]), cfg,
+        positions=torch.from_numpy(pos.copy()))
+    jout, (jc, jr) = jattn.mla_forward(jp, jnp.asarray(x[:, :S]), jcfg,
+                                       positions=jnp.asarray(pos))
+    for got, want in ((out, jout), (c_kv, jc), (k_rope, jr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    C = S + 3
+    cache = {"c_kv": torch.zeros((B, C, 32)), "k_rope": torch.zeros((B, C,
+                                                                      16))}
+    cache["c_kv"][:, :S], cache["k_rope"][:, :S] = c_kv, k_rope
+    jcache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+    for i in range(3):
+        xi = x[:, S + i:S + i + 1]
+        got, cache2 = tattn.mla_decode(tp, torch.from_numpy(xi), cfg, cache,
+                                       S + i)
+        assert cache2 is cache
+        want, jcache = jattn.mla_decode(jp, jnp.asarray(xi), jcfg, jcache,
+                                        jnp.int32(S + i))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    for k in cache:
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   **BAND)
 
 
 @pytest.mark.parametrize("shapes,mode,window,match", [

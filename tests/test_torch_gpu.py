@@ -1147,3 +1147,168 @@ def test_lm_delta_frozen_roles_exactly_zero_on_card():
     metrics = task.evaluate(local, data)
     assert np.isfinite(metrics["ce_loss"])
     assert _lib.counts().get("flash_attention", 0) == before + cfg.n_layers
+
+
+# ------------------------------------------- MLA, MoE, optimizers, remat
+FLASH_TOL = {torch.float32: dict(atol=3e-5, rtol=1e-3),
+             torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_padded_route_matches_plain(dtype):
+    """Kernel 6's padded route at MLA's heads, (2, 256, 40 x 96/64),
+    causal: q and k zero-padded from 96 to 128, v from 64, the kernel at
+    the unpadded scale, the first 64 columns; against the plain version
+    on the unpadded inputs. The model-level call takes it and counts one
+    padded launch."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_attention as model_flash
+    g = torch.Generator(device="cuda").manual_seed(96)
+    q = torch.randn((2, 256, 40, 96), generator=g, device="cuda").to(dtype)
+    k = torch.randn((2, 256, 40, 96), generator=g, device="cuda").to(dtype)
+    v = torch.randn((2, 256, 40, 64), generator=g, device="cuda").to(dtype)
+    want = ref.flash_attention_ref(q, k, v, scale=96 ** -0.5)
+    route = fa.kernel_route(dtype) + "_padded"
+    before, r0 = _lib.counts(), fa.ROUTE_LAUNCHES[route]
+    got = fa.flash_attention_padded(q, k, v)
+    via_model = model_flash(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape[:3] + (64,) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    assert torch.equal(via_model, got)
+    assert (_lib.counts()["flash_attention"]
+            == before.get("flash_attention", 0) + 2)
+    assert fa.ROUTE_LAUNCHES[route] == r0 + 2
+    # an explicit scale at a kernel head dim takes the padded route too
+    q64, k64 = q[..., :64].contiguous(), k[..., :64].contiguous()
+    got = model_flash(q64, k64, v, scale=0.1)
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q64, k64, v, scale=0.1).float(),
+        **FLASH_TOL[dtype])
+    assert fa.ROUTE_LAUNCHES[route] == r0 + 3
+
+
+def _route_spy():
+    """Wraps ``models.moe.route``: records every call's dispatch mask by
+    the device it ran on."""
+    from repro_torch.models import moe
+    real, seen = moe.route, {"cuda": [], "cpu": []}
+
+    def spy(logits, cfg, capacity):
+        out = real(logits, cfg, capacity)
+        seen[logits.device.type].append(out[0].cpu())
+        return out
+    return moe, real, spy, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b",
+                                  "llama4_maverick_400b_a17b"])
+def test_mla_moe_reduced_on_card_matches_cpu(arch):
+    """Reduced MLA and MoE configs (float32): prefill and 3 greedy decode
+    steps on the card against the CPU from the same weights, the CPU fed
+    the card's tokens; logits and caches in the golden band, every MoE
+    dispatch mask equal; prefill launches kernel 6 once a layer, decode
+    never."""
+    _card()
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    cfg = get_config(arch).reduced()
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), params)
+    batch = synthetic_lm_batch(0, cfg.vocab_size, 2, 64)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    moe, real, spy, seen = _route_spy()
+    moe.route = spy
+    try:
+        _lib.reset_launches()
+        glogits, gcache = models.prefill(gparams, cfg, gbatch, 67)
+        torch.cuda.synchronize()
+        assert _lib.counts() == {"flash_attention": cfg.n_layers}
+        logits, cache = models.prefill(params, cfg, batch, 67)
+        torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+        for _ in range(3):
+            token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+            glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+            logits, cache = models.decode_step(params, cfg, token.cpu(),
+                                               cache)
+            torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+    finally:
+        moe.route = real
+    torch.cuda.synchronize()
+    assert _lib.counts() == {"flash_attention": cfg.n_layers}
+    for key in gcache["layers"]:
+        torch.testing.assert_close(gcache["layers"][key].cpu(),
+                                   cache["layers"][key], **BAND)
+    n_calls = 4 * cfg.n_layers if cfg.family == "moe" else 0
+    assert len(seen["cuda"]) == len(seen["cpu"]) == n_calls
+    for a, b in zip(seen["cuda"], seen["cpu"], strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b"])
+def test_remat_gradients_equal_on_card(arch):
+    """``cfg.remat`` on and off give ``torch.equal`` gradients on the card
+    (deterministic algorithms on, as chip_smoke's run (t) has them)."""
+    _card()
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import flatten, value_and_grad
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    cfg = get_config(arch).reduced()
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    batch = {k: v.cuda() for k, v in
+             synthetic_lm_batch(1, cfg.vocab_size, 2, 64).items()}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            out[remat] = value_and_grad(
+                lambda p, bt, c=c: models.train_loss(p, c, bt), params,
+                batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(out[False][0], out[True][0])
+    for a, b in zip(flatten(out[False][2])[0], flatten(out[True][2])[0],
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sgdm_bf16_step_on_card_equals_cpu():
+    """One ``sgdm_bf16`` step (bfloat16 momentum, a bfloat16 and a float32
+    parameter, grad clip on) on the card equals the CPU's bit for bit, in
+    place and not."""
+    _card()
+    from repro_torch.core.pytree import leaves, tree_map
+    from repro_torch.optim.optimizers import make_optimizer
+    rs = np.random.RandomState(0)
+    p = {"w": torch.from_numpy(rs.randn(64, 48).astype(np.float32)),
+         "h": torch.from_numpy(rs.randn(33, 17).astype(np.float32)).to(
+             torch.bfloat16)}
+    g = tree_map(lambda t: (t.float() * 3.0).to(t.dtype) + 0.25, p)
+    opt = make_optimizer("sgdm_bf16", 0.05, grad_clip=5.0)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pd, gd = (tree_map(lambda t, d=dev: t.to(d), x) for x in (p, g))
+        s = opt.init(pd)
+        s["mu"] = tree_map(lambda t: torch.full_like(t, 0.5), s["mu"])
+        outs[dev] = opt.update(pd, gd, s)
+        ip = tree_map(lambda t: t.clone(), pd)
+        is_ = dict(s, mu=tree_map(lambda t: t.clone(), s["mu"]))
+        outs[dev + "_inplace"] = opt.update(ip, tree_map(
+            lambda t: t.clone(), gd), is_, inplace=True)
+    for key in ("cuda", "cpu_inplace", "cuda_inplace"):
+        (pa, sa), (pb, sb) = outs[key], outs["cpu"]
+        assert sa["mu"]["h"].dtype == torch.bfloat16
+        for a, b in zip(leaves(pa) + leaves(sa["mu"]),
+                        leaves(pb) + leaves(sb["mu"]), strict=True):
+            assert torch.equal(a.cpu(), b), key

@@ -16,7 +16,13 @@ and the LM cells of ``tests/test_resume_matrix.py``.
   ``SampledSync`` and ``AsyncBuffered`` (vector engine); and eager ↔ SoA
   cross restores. The resumed run is ``torch.equal`` to the uninterrupted
   one, its bytes and records equal the reference's resumed run's, its
-  parameters and metrics in the golden band of the reference's.
+  parameters and metrics in the golden band of the reference's;
+* the new families: on reduced minicpm3-4b (MLA) and dbrx-132b (MoE) the
+  roles of every leaf equal the reference's (``q_norm``/``kv_norm`` under
+  ``attn/`` are attention, the router and expert stacks mlp) and
+  ``by_role_partition`` leaves no ``other`` group; one ``SyncFedAvg``
+  round of ``LMDeltaTask`` under ``optimizer="sgdm"`` against the
+  reference's, records exact, parameters and metrics in the golden band.
 """
 import os
 
@@ -270,3 +276,80 @@ def test_resume_matrix_lm_soa(sched, tmp_path):
 @pytest.mark.parametrize("save_soa,load_soa", [(False, True), (True, False)])
 def test_resume_matrix_lm_cross_restore(save_soa, load_soa, tmp_path):
     _run_lm_cell("sync", tmp_path, soa=save_soa, resume_soa=load_soa)
+
+
+# ------------------------------------------------------- MLA and MoE
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b"])
+def test_roles_of_new_families_match_reference(arch):
+    from repro.configs import get_config as jget
+    from repro.core.partition import role_of_path as j_role
+    from repro_torch.core.partition import by_role_partition, role_of_path
+    jp = jax.tree_util.tree_map(np.array, j_init_params(
+        jax.random.PRNGKey(0), jget(arch).reduced()))
+    params = from_jax_params(jp, "cpu")
+    paths = [p for p, _, _ in leaf_paths(params)]
+    assert paths == [p for p, _, _ in j_leaf_segments(jp)]
+    roles = {p: role_of_path(p) for p in paths}
+    assert roles == {p: j_role(p) for p in paths}
+    assert "other" not in roles.values()
+    if arch == "minicpm3_4b":
+        assert roles["layers/attn/q_norm/scale"] == "attention"
+        assert roles["layers/attn/kv_norm/scale"] == "attention"
+    else:
+        assert roles["layers/ffn/router"] == "mlp"
+        assert roles["layers/ffn/w_gate"] == "mlp"
+    names = by_role_partition(params).names
+    assert sorted(names) == ["attention", "embedding", "mlp", "norm"]
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b"])
+def test_lm_delta_round_new_families_match_reference(arch):
+    """One ``SyncFedAvg`` round of ``LMDeltaTask`` (2 clients of 4
+    sequences of 16 tokens, batch 2, ``optimizer="sgdm"``, update payload)
+    on the reference's initial params, against the reference's run.
+
+    Momentum SGD moves each parameter in proportion to its gradient, so
+    the gradients' float32 agreement carries to the parameters. Under
+    Adam the same round leaves 4 (dbrx) to 6 (minicpm3) of 1.3–2.4 M
+    parameters out of the band by up to 1.5e-4: where the second step's
+    ``m = 0.09 g1 + 0.1 g2`` cancels, ``m / sqrt(v)`` turns a rounding
+    difference in the gradients into a share of ``lr``."""
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    jcfg, tcfg = jget(arch).reduced(), tget(arch).reduced()
+    # the reference's run draws its params from PRNGKey(FLConfig.seed = 0)
+    p0 = jax.tree_util.tree_map(np.array,
+                                j_init_params(jax.random.PRNGKey(0), jcfg))
+
+    class _From(LMDeltaTask):
+        def init_params(self, gen, device):
+            return from_jax_params(p0, device)
+
+    def data(pkg):
+        shards = [pkg.synthetic_lm_batch(seed=30 + i,
+                                         vocab_size=tcfg.vocab_size,
+                                         batch=4, seq_len=16)
+                  for i in range(2)]
+        return shards, pkg.synthetic_lm_batch(
+            seed=98, vocab_size=tcfg.vocab_size, batch=2, seq_len=16)
+
+    kw = dict(n_rounds=1, local_epochs=1, batch_size=2, payload="update",
+              optimizer="sgdm", lr=1e-3)
+    tshards, tev = data(tpipe)
+    jshards, jev = data(jpipe)
+    trun = T.FederatedRun(_From(tcfg), tshards, T.FLConfig(**kw),
+                          eval_data=tev, device="cpu")
+    jrun = J.FederatedRun(J.LMDeltaTask(jcfg), jshards, J.FLConfig(**kw),
+                          eval_data=jev)
+    th, jh = trun.run(), jrun.run()
+    for a, b in zip(th, jh, strict=True):
+        for k in ("round", "bytes_up", "bytes_up_raw", "bytes_down",
+                  "participants"):
+            assert getattr(a, k) == getattr(b, k), k
+        assert a.global_metrics.keys() == b.global_metrics.keys()
+        for k in b.global_metrics:
+            _close(a.global_metrics[k], b.global_metrics[k], k)
+    assert float(np.abs(_tflat(trun.global_params) - ravel(
+        from_jax_params(p0, "cpu"))[0].numpy()).max()) > 0
+    _close(_tflat(trun.global_params), _jflat(jrun.global_params),
+           "global params")

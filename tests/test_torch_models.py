@@ -1,4 +1,5 @@
-"""The port's LM (dense GQA family) against a live JAX run on the CPU.
+"""The port's LM (the dense and MoE families, GQA and MLA attention)
+against a live JAX run on the CPU.
 
 * the config copies equal the JAX package's for all ten architectures, and
   so do their ``reduced()`` variants;
@@ -16,7 +17,21 @@
   paths, shapes and dtypes equal ``jax.eval_shape`` of the reference's
   ``init_params`` in flat order, built under ``FakeTensorMode`` so nothing
   is allocated;
-* the families and attention kinds not ported yet raise.
+* reduced minicpm3-4b (MLA), dbrx-132b (MoE, top-2 of 4 experts) and
+  llama4-maverick (MoE, top-1, a shared expert): ``train_loss`` (with
+  ``moe_aux``) and its gradient against ``jax.grad``, prefill logits and
+  cache (MLA's ``c_kv``/``k_rope`` latents), 3 decode steps, and the port
+  of ``tests/test_model_consistency.py:33-46`` (decode equals the full
+  forward) for minicpm3-4b and dbrx-132b;
+* MoE ``route``: dispatch and combine masks exact against the reference's
+  (including capacities that drop tokens), combine weights and the
+  aux-loss terms in the golden band; ``_group_size`` equal;
+* remat: ``train_loss``'s gradients with ``cfg.remat`` on and off are
+  ``torch.equal`` for a dense, an MLA and an MoE reduced config, and
+  prefill never checkpoints;
+* the full-width minicpm3-4b and dbrx-132b trees against
+  ``jax.eval_shape`` (``FakeTensorMode``);
+* the families not ported yet raise, naming their ROADMAP item.
 """
 import dataclasses
 
@@ -130,7 +145,9 @@ def test_dense_lm_matches_jax(arch, window):
     assert _lib.counts() == before            # CPU tensors: plain versions
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "stablelm_1_6b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "stablelm_1_6b",
+                                  "minicpm3_4b", "dbrx_132b",
+                                  "llama4_maverick_400b_a17b"])
 def test_train_loss_gradient_matches_jax(arch):
     """The gradient of ``train_loss`` with respect to every parameter leaf,
     the port's autograd against ``jax.grad`` of the reference, from the
@@ -191,15 +208,15 @@ def test_full_width_tree_matches_jax_eval_shape():
         == 33_342_991_360
 
 
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "llama4_maverick_400b_a17b",
-                                  "mamba2_2_7b", "recurrentgemma_9b",
-                                  "whisper_medium", "phi3_vision_4_2b",
-                                  "dbrx_132b"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch,item", [
+    ("mamba2_2_7b", "11e"), ("recurrentgemma_9b", "11f"),
+    ("whisper_medium", "11g"), ("phi3_vision_4_2b", "11h")])
+def test_unported_families_raise(arch, item):
     cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
+    match = f"ROADMAP Queue A item {item}"
+    with pytest.raises(NotImplementedError, match=match):
         tmodels.init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
+    with pytest.raises(NotImplementedError, match=match):
         tmodels.init_cache(cfg, 1, 8, device="cpu")
 
 
@@ -230,3 +247,166 @@ def test_lm_entry_points_raise_without_a_card():
         tmodels.init_params(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tmodels.init_cache(cfg, 1, 8)
+
+
+# =====================================================================
+# MLA and MoE
+# =====================================================================
+NEW_ARCHS = ["minicpm3_4b", "dbrx_132b", "llama4_maverick_400b_a17b"]
+S_NEW = 16
+
+
+def _carried(arch, seed=0):
+    cfg, jcfg = _reduced(arch)
+    jparams = jmodels.init_params(jax.random.PRNGKey(seed), jcfg)
+    return cfg, jcfg, jparams, from_jax_params(_np(jparams), "cpu")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_mla_moe_lm_matches_jax(arch):
+    """``train_loss`` and its metrics (``moe_aux`` on the MoE family),
+    prefill logits and cache, 3 decode steps and the cache after them."""
+    cfg, jcfg, jparams, params = _carried(arch)
+    batch = tpipe.synthetic_lm_batch(2, cfg.vocab_size, B, S_NEW)
+    jbatch = {k: jnp.asarray(v.numpy(), jnp.int32) for k, v in batch.items()}
+    loss, metrics = tmodels.train_loss(params, cfg, batch)
+    jloss, jmetrics = jmodels.train_loss(jparams, jcfg, jbatch)
+    assert sorted(metrics) == sorted(jmetrics)
+    assert ("moe_aux" in metrics) == (cfg.family == "moe")
+    for k in jmetrics:
+        _close(metrics[k].item(), float(jmetrics[k]), k)
+
+    cache_len = S_NEW + 3
+    logits, cache = tmodels.prefill(params, cfg, batch, cache_len)
+    jlogits, jcache = jmodels.prefill(jparams, jcfg, jbatch, cache_len)
+    _close(logits.numpy(), jlogits, "prefill logits")
+    _compare_cache(cache, jcache, "prefill")
+    if cfg.attn_type == "mla":
+        assert sorted(cache["layers"]) == ["c_kv", "k_rope"]
+    token = jnp.argmax(jlogits[:, :cfg.vocab_size], axis=-1)[:, None]
+    for step in range(3):
+        logits, cache = tmodels.decode_step(
+            params, cfg, torch.from_numpy(np.array(token, np.int64)), cache)
+        jlogits, jcache = jmodels.decode_step(jparams, jcfg, token, jcache)
+        _close(logits.numpy(), jlogits, f"decode step {step}")
+        token = jnp.argmax(jlogits[:, :cfg.vocab_size], axis=-1)[:, None]
+    _compare_cache(cache, jcache, "after decode")
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b"])
+def test_decode_matches_full_forward(arch):
+    """The port of ``tests/test_model_consistency.py:33-46``: decoding
+    token S after prefilling S tokens equals the last-position logits of a
+    full (S+1)-token forward, at the reference's tolerance."""
+    cfg = tconfigs.get_config(arch).reduced()
+    params = tmodels.init_params(torch.Generator().manual_seed(1), cfg,
+                                 "cpu")
+    S = 12
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (B, S + 1)))
+    _, cache = tmodels.prefill(params, cfg, {"tokens": toks[:, :S]},
+                               cache_len=32)
+    lg_dec, _ = tmodels.decode_step(params, cfg, toks[:, S:S + 1], cache)
+    lg_full, _ = tmodels.prefill(params, cfg, {"tokens": toks},
+                                 cache_len=33)
+    np.testing.assert_allclose(lg_dec.numpy(), lg_full.numpy(), atol=2e-5,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("G,S,E,top_k,capacity,kept", [
+    (4, 16, 4, 2, 10, 126),  # reduced dbrx: 16 * 1.25 * 2 / 4; 2 dropped
+    (2, 16, 4, 2, 3, 24),    # capacity drops 40 of 64
+    (3, 8, 4, 1, 2, 16),     # top-1, drops 8 of 24
+    (1, 32, 8, 4, 4, 32),    # top-4 of 8
+])
+def test_route_matches_jax(G, S, E, top_k, capacity, kept):
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+    cfg = dataclasses.replace(
+        tconfigs.get_config("dbrx_132b").reduced(),
+        moe=tconfigs.base.MoEConfig(n_experts=E, top_k=top_k,
+                                    d_ff_expert=64))
+    jcfg = dataclasses.replace(
+        jconfigs.get_config("dbrx_132b").reduced(),
+        moe=jconfigs.base.MoEConfig(n_experts=E, top_k=top_k,
+                                    d_ff_expert=64))
+    logits = np.random.RandomState(G * S + E).randn(G, S, E).astype(
+        np.float32)
+    logits[0, :4] = 0.5                         # ties: the first index wins
+    d, c, (lb, zl) = tmoe.route(torch.from_numpy(logits), cfg, capacity)
+    jd, jc, (jlb, jzl) = jmoe.route(jnp.asarray(logits), jcfg, capacity)
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    assert np.array_equal(c.numpy() > 0, np.asarray(jc) > 0)
+    _close(c.numpy(), jc, "combine")
+    _close(lb.item(), float(jlb), "load balance")
+    _close(zl.item(), float(jzl), "z loss")
+    assert int(d.sum()) == kept < top_k * G * S     # tokens dropped
+    assert int(d.sum(dim=1).amax()) <= 1            # a slot holds one token
+
+
+def test_group_size_matches_jax():
+    from repro.models.model import _group_size as jgs
+    from repro_torch.models.model import _group_size as tgs
+    for n in (1, 2, 7, 16, 24, 32, 100, 256, 1024, 4096, 8192, 3000):
+        assert tgs(n) == jgs(n), n
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "minicpm3_4b", "dbrx_132b"])
+def test_remat_gradients_equal(arch):
+    """``cfg.remat`` checkpoints each layer while autograd records: the
+    gradients are the same bits, the loss too; prefill and no-grad
+    evaluation never checkpoint."""
+    cfg, _ = _reduced(arch)
+    params = tmodels.init_params(torch.Generator().manual_seed(5), cfg,
+                                 "cpu")
+    batch = tpipe.synthetic_lm_batch(3, cfg.vocab_size, B, S_NEW)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        out[remat] = value_and_grad(
+            lambda p, bt, c=c: tmodels.train_loss(p, c, bt), params, batch)
+    assert torch.equal(out[False][0], out[True][0])
+    for a, b in zip(flatten(out[False][2])[0], flatten(out[True][2])[0],
+                    strict=True):
+        assert torch.equal(a, b)
+    import torch.utils.checkpoint as ckpt
+    from repro_torch.models import model as model_lib
+    calls = []
+    real = model_lib.checkpoint
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    model_lib.checkpoint = spy
+    try:
+        rc = dataclasses.replace(cfg, remat=True)
+        value_and_grad(lambda p, bt: tmodels.train_loss(p, rc, bt), params,
+                       batch)
+        assert len(calls) == cfg.n_layers
+        with torch.no_grad():
+            tmodels.train_loss(params, rc, batch)
+        tmodels.prefill(params, rc, batch)
+        assert len(calls) == cfg.n_layers
+    finally:
+        model_lib.checkpoint = real
+    assert real is ckpt.checkpoint
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b"])
+def test_full_width_new_families_match_jax_eval_shape(arch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = tconfigs.get_config(arch)
+    shapes = jax.eval_shape(
+        lambda k: jmodels.init_params(k, jconfigs.get_config(arch)),
+        jax.random.PRNGKey(0))
+    jleaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    with FakeTensorMode():
+        params = tmodels.init_params(torch.Generator(), cfg, "cpu")
+        got = [(tuple(t.shape), str(t.dtype).split(".")[-1])
+               for t in flatten(params)[0]]
+        paths = [p for p, _, _ in leaf_paths(params)]
+    want = [(tuple(s.shape), str(s.dtype)) for _, s in jleaves]
+    want_paths = ["/".join(str(getattr(e, "key", e)) for e in path)
+                  for path, _ in jleaves]
+    assert paths == want_paths
+    assert got == want
