@@ -54,9 +54,10 @@ Phases, each reported on its own lines:
    run and read just after;
 5. LM serving — the dense GQA model zoo through ``prefill`` and
    ``decode_step``: (f) deepseek-coder-33b at full width (d_model 7168, 56
-   query heads over 8 KV heads, d_ff 19,200, vocab 32,256), 16 of its 62
-   layers, its own dtypes (float32 parameters, bf16 compute), weights drawn
-   on the card from a seed; 4 prompts of 1,024 tokens from
+   query heads over 8 KV heads, d_ff 19,200, vocab 32,256), 8 of its 62
+   layers (cut from 16 to keep the script's time), its own dtypes
+   (float32 parameters, bf16 compute), weights drawn on the card from a
+   seed; 4 prompts of 1,024 tokens from
    ``synthetic_lm_batch``, then 16 greedy decode steps; flash attention
    must launch once a layer in prefill and never in decode; one more
    prefill then holds each layer's kernel-6 call against the plain version
@@ -202,10 +203,11 @@ Phases, each reported on its own lines:
    times, seqs and versions exact, the clock and ``global_flat`` in the
    golden band;
 14. ``LMDeltaTask`` at full width — (q) stablelm-1.6b (d_model 2048, 32
-   heads, d_ff 5,632, vocab 100,352, untied LM head), 6 of 24 layers with
-   remat on (the config's), float32 parameters, bf16 compute, 719,376,384
-   parameters drawn on the card; 2 clients of 8 sequences of 512 tokens, batch 4, update payload
-   with error feedback, ``freeze_roles=("embedding",)``, a
+   heads, d_ff 5,632, vocab 100,352, untied LM head), 2 of 24 layers (cut
+   from 6, which drops most of its checkpoint's time) with remat on (the
+   config's), float32 parameters, bf16 compute, 513,822,720 parameters
+   drawn on the card; 2 clients of 8 sequences of 512 tokens, batch 4,
+   update payload with error feedback, ``freeze_roles=("embedding",)``, a
    ``by_role_partition`` ``PartitionedCompressor`` (``mlp`` on a shared
    kernel-path chunked AE ``(256, (32,), 8)``, the rest q8 at block 256):
    ``SyncFedAvg`` 2 rounds, then ``SampledSync(cohort=2)`` with
@@ -221,8 +223,9 @@ Phases, each reported on its own lines:
    ``launches_run_q``;
 15. MLA serving — (r) minicpm3-4b at full width (d_model 2560, 40 heads,
    q_lora 768, kv_lora 256, heads of nope 64 + rope 32 over a value head
-   of 64, d_ff 6,400, vocab 73,448, tied embeddings), all 62 layers
-   (4,073,937,408 parameters), its own dtypes; 4 prompts of 1,024 tokens,
+   of 64, d_ff 6,400, vocab 73,448, tied embeddings), 16 of its 62
+   layers (1,190,889,984 parameters; cut from 62 to keep the script's
+   time), its own dtypes; 4 prompts of 1,024 tokens,
    16 greedy decode steps; kernel 6 once a layer in prefill on the padded
    route (``wgmma_padded``), never in decode (the absorbed-matrix decode is
    plain torch, as the reference's); one more prefill holds each layer's
@@ -250,7 +253,35 @@ Phases, each reported on its own lines:
    (4,492,234,752 parameters), remat on, 2 x 512 tokens: ``train_loss``
    under autograd, then ``make_optimizer("sgdm", lr, grad_clip=1.0)``'s
    update in place (parameters, gradients and momentum: three copies of
-   the model); the loss and ``moe_aux`` finite, the peak printed.
+   the model); the loss and ``moe_aux`` finite, the peak printed;
+19. SSM, hybrid, audio and VLM serving, every layer at full width and the
+   config's own dtypes, weights drawn on the card from a seed, 16 greedy
+   decode steps after the prefill (prefill s, decode-step median, peak
+   memory, cache bytes, kernel-6 launches and routes a prefill; decode
+   launches nothing and leaves the cache's bytes as they were):
+   (v) mamba2-2.7b, 64 layers, 4 x 1,024 tokens — no kernel (the SSD scan
+   is plain torch, as the reference's is jnp); layer 0's chunked-scan
+   outputs, final SSD state and conv tail in float32 against the
+   recurrence stepped token by token. (w) recurrentgemma-9b, 38 layers
+   (12 (R, R, A) groups and a 2-layer tail, 10,444,984,320 float32
+   parameters), 2 x 4,096 tokens, so the 2,048 window binds and the ring
+   caches wrap — kernel 6 12 times at head dim 256 in window mode
+   (``wgmma``). (x) whisper-medium, 24 + 24 layers, 4 x 1,500 frames and
+   a 4 x 448-token decoder prompt — kernel 6 72 times: 24 full over the
+   frames, 24 causal, 24 full cross calls of 448 queries over 1,500
+   frames. (y) phi-3-vision-4.2b, 32 layers, 4 x 1,024 tokens of which
+   the first 576 are image embeddings drawn from the seed — kernel 6 32
+   times on the padded route (96 -> 128). One more prefill holds every
+   kernel-6 call against the plain version and checks each call's mode
+   and shapes. Each family's reduced config on the card and the CPU from
+   the same weights (2 x 80 tokens, 3 decode steps, the CPU fed the
+   card's tokens): logits and every cache leaf in the golden band. The
+   record carries the counts as ``launches_run_v`` to ``launches_run_y``
+   and kernel 6's rows at these runs' shapes (phase 3: D 256 window,
+   whisper's encoder, decoder and cross calls, phi-3's padded heads,
+   each beside SDPA with the same mask).
+
+Each phase's start is logged with the seconds since the script began.
 
 Checkpoints go to ``build/chip_smoke/`` and are deleted after loading.
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -564,8 +595,10 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
     """Kernel 6 against its plain version. ``bound_ms``: q, k, v and the
     output moved once, against 4·D operations for each (query, key) pair
     the mask lets through at the input type's peak; ``library_ms``:
-    ``scaled_dot_product_attention`` on the (B, H, S, D) views, in causal
-    mode with ``Sq == Skv`` only (its causal mask is the same there)."""
+    ``scaled_dot_product_attention`` on the (B, H, S, D) views with the
+    same mask — ``is_causal`` (top-left aligned, as the kernel's), none
+    in full mode, the window as a boolean ``attn_mask`` — with the kernels
+    PyTorch picked for it named."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -586,15 +619,21 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
     pairs = B * H * attention_pairs(Sq, Skv, mode, window)
     b_ms, b_by = bound(es * (2 * B * Sq * H * D + 2 * B * Skv * KV * D),
                        4.0 * D * pairs, dname)
-    lib_ms = lib_err = None
-    if mode == "causal" and Sq == Skv:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        lib_err = float((lib.transpose(1, 2).float() - want.float()).abs()
-                        .max())
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(enable_gqa=True)
+    if mode == "causal":
+        kw["is_causal"] = True
+    elif mode == "window":
+        qi = torch.arange(Sq, device="cuda")[:, None]
+        kj = torch.arange(Skv, device="cuda")[None, :]
+        kw["attn_mask"] = (kj <= qi) & (kj > qi - window)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                    .max())
+    lib_ms = time_ms(lib, iters)
+    lib_kernels = [n for n, _ in traced_round(lib, top=3)["top_kernels_ms"]]
     kern = lambda: flash_attention(q, k, v, mode=mode,       # noqa: E731
                                    window=window)
     return dict(name="flash_attention", shape=[B, Sq, Skv, H, KV, D],
@@ -604,7 +643,8 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(
                     q, k, v, mode=mode, window=window), iters),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library_max_abs_err=lib_err, gflop=4.0 * D * pairs / 1e9)
+                library_kernels=lib_kernels, library_max_abs_err=lib_err,
+                gflop=4.0 * D * pairs / 1e9)
 
 
 # ------------------------------------------------------------------ slice
@@ -732,13 +772,14 @@ def arch_cut(arch: str, n_layers: int, **changes):
     return dataclasses.replace(get_config(arch), n_layers=n_layers, **changes)
 
 
-def in_model_flash_errs(run) -> list:
+def in_model_flash_errs(run, calls: list = None) -> list:
     """Call ``run()`` with every kernel-6 call that the model makes held
     against the plain version on the same inputs: the model's own q, k and
     v after the rope, the cast to the compute type and ``.contiguous()``;
-    a padded call (MLA's heads) against the plain version on its unpadded
-    q, k and v at the call's scale. Returns each call's max abs err;
-    raises outside the tolerance."""
+    a padded call (MLA's and phi-3's heads) against the plain version on
+    its unpadded q, k and v at the call's scale. Returns each call's max
+    abs err; raises outside the tolerance. ``calls`` receives each call's
+    ``(padded, mode, window, q shape, k shape)``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models import attention
@@ -755,6 +796,9 @@ def in_model_flash_errs(run) -> list:
             tol = (FLASH_F32_TOL if q.dtype == torch.float32
                    else FLASH_BF16_TOL)
             errs.append(close(out, want, **tol))
+            if calls is not None:
+                calls.append((kernel is kernels["flash_kernel_padded"], mode,
+                              window, tuple(q.shape), tuple(k.shape)))
             return out
         return checked
 
@@ -768,26 +812,89 @@ def in_model_flash_errs(run) -> list:
     return errs
 
 
-def filled(cache) -> list:
-    """Per cache tensor ``(L, B, C, ...)`` (GQA's K and V, MLA's latents),
-    which ``(L, B, C)`` slots hold a nonzero entry."""
-    return [t.abs().flatten(3).amax(-1) > 0
-            for t in cache["layers"].values()]
+def attention_caches(cfg, cache) -> list:
+    """The stacked attention caches ``(L, B, C, ...)`` of a decode cache:
+    GQA's K and V (and a ring's positions) or MLA's latents; the hybrid's
+    local-attention sub-layers, the audio decoder's self-attention (its
+    cross K/V are the encoder's, all filled); none in the SSM."""
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [cache["layers"][f"sub{i}"]
+                for i, kind in enumerate(cfg.rglru.pattern) if kind == "attn"]
+    if cfg.family == "audio":
+        return [cache["layers"]["self"]]
+    return [cache["layers"]]
+
+
+def filled(entry) -> list:
+    """Per tensor ``(L, B, C, ...)`` of an attention cache (not a ring's
+    positions), which ``(L, B, C)`` slots hold a nonzero entry."""
+    return [t.abs().flatten(3).amax(-1) > 0 for k, t in entry.items()
+            if k != "pos"]
+
+
+def check_filled(cfg, cache, n: int, tag: str) -> None:
+    """After ``n`` tokens each attention cache of C slots holds min(n, C):
+    a linear cache its first ones, a ring (``pos``) the last min(n, C)
+    positions, each at slot ``pos % C``."""
+    import torch
+    for entry in attention_caches(cfg, cache):
+        C = next(iter(entry.values())).shape[2]
+        take = min(n, C)
+        for f in filled(entry):
+            if "pos" in entry:
+                want = torch.zeros(C, dtype=torch.bool, device=f.device)
+                want[torch.arange(n - take, n, device=f.device) % C] = True
+                ok = bool((f == want).all())
+                ok = ok and int(entry["pos"].max()) == n - 1
+            else:
+                ok = bool(f[:, :, :take].all()) and not bool(
+                    f[:, :, take:].any())
+            require(ok, f"{cfg.name}: {tag} cache not filled")
+
+
+def cache_nbytes(cache) -> int:
+    from repro_torch.core.pytree import leaves
+    return sum(t.numel() * t.element_size() for t in
+               leaves({k: v for k, v in cache.items() if k != "index"}))
+
+
+def family_inputs(cfg, B: int, S: int, seed: int, device: str) -> dict:
+    """A serving batch: B prompts of S tokens (``synthetic_lm_batch``)
+    and, per family, the stub frontends' inputs drawn from ``seed`` on
+    ``device`` as the reference's ``input_specs`` shapes them: the audio
+    encoder's (B, n_frames, d_model) frame embeddings, the VLM's (B,
+    n_image_tokens, d_model) image embeddings, standard normal."""
+    import torch
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    batch = {k: t.to(device) for k, t in
+             synthetic_lm_batch(seed, cfg.vocab_size, B, S).items()}
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (B, cfg.encdec.n_frames, cfg.d_model), generator=g,
+            device=device)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (B, cfg.vlm.n_image_tokens, cfg.d_model), generator=g,
+            device=device)
+    return batch
 
 
 def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
                      steps: int = 16, spy=None) -> tuple:
     """``cfg``'s weights drawn on the card from ``seed``, a warm-up
     prefill, then a timed prefill of B prompts of S tokens
-    (``synthetic_lm_batch``) and ``steps`` greedy decode steps, each ended
+    (:func:`family_inputs`) and ``steps`` greedy decode steps, each ended
     by a synchronize. Launch counters (``_lib`` and kernel 6's routes) are
     zeroed just before the prefill and read after it, and again around the
-    decode, which must launch nothing; the prefill fills the cache's first
-    S slots and the decode the rest. Returns (params, batch,
-    measurements)."""
+    decode, which must launch nothing; the prefill fills each attention
+    cache's first S slots (a ring its last positions) and the decode the
+    rest, and leaves the cache's bytes as they were (the recurrent states
+    are O(1)). Returns (params, batch, measurements)."""
     import torch
     from repro_torch import models
-    from repro_torch.data.pipeline import synthetic_lm_batch
     from repro_torch.kernels import _lib
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
@@ -795,8 +902,7 @@ def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
         torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = {k: t.cuda() for k, t in
-             synthetic_lm_batch(0, cfg.vocab_size, B, S).items()}
+    batch = family_inputs(cfg, B, S, 0, "cuda")
     models.prefill(params, cfg, batch, S + steps)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -811,8 +917,9 @@ def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
     counts_prefill = (_lib.counts(), dict(fa.ROUTE_LAUNCHES))
     require(tuple(logits.shape) == (B, cfg.padded_vocab), "logits shape")
     require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    require(cache["index"] == S and all(bool(f[:, :, :S].all()) and not bool(
-        f[:, :, S:].any()) for f in filled(cache)), "prefill cache not filled")
+    require(cache["index"] == S, "prefill cache index")
+    check_filled(cfg, cache, S, "prefill")
+    cache_bytes = cache_nbytes(cache)
     routing = spy.rows() if spy is not None else None
     _lib.reset_launches()
     fa.ROUTE_LAUNCHES.clear()
@@ -829,11 +936,10 @@ def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
     counts_decode = (_lib.counts(), dict(fa.ROUTE_LAUNCHES))
     require(counts_decode == ({}, {}),
             f"{cfg.name}: decode launches {counts_decode}")
-    require(cache["index"] == S + steps
-            and all(bool(f.all()) for f in filled(cache)),
-            "decode did not fill the cache")
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for t in cache["layers"].values())
+    require(cache["index"] == S + steps, "decode cache index")
+    check_filled(cfg, cache, S + steps, "decode")
+    require(cache_nbytes(cache) == cache_bytes,
+            f"{cfg.name}: the cache grew in decode")
     out = dict(arch=cfg.name, n_layers=cfg.n_layers,
                params=models.param_count(params), batch=B, prompt=S,
                decode_steps=steps, init_s=init_s, prefill_s=prefill_s,
@@ -851,15 +957,15 @@ def serve_full_width(cfg, seed: int, B: int = 4, S: int = 1024,
 
 
 def run_lm_serving() -> dict:
-    """Run (f): deepseek-coder-33b at full width, 16 layers, serving 4
+    """Run (f): deepseek-coder-33b at full width, 8 layers, serving 4
     prompts of 1,024 tokens then 16 greedy decode steps on the card
     (:func:`serve_full_width`); after the counts and the peak were read,
     one more prefill holds each layer's kernel-6 call against the plain
     version at the model's own inputs."""
     from repro_torch import models
-    cfg = arch_cut("deepseek-coder-33b", 16)
+    cfg = arch_cut("deepseek-coder-33b", 8)
     params, batch, out = serve_full_width(cfg, seed=0)
-    require(out["params"] == 8_947_735_552,
+    require(out["params"] == 4_705_082_368,
             f"run (f) holds {out['params']} parameters")
     require(out["launches_prefill"] == {"flash_attention": cfg.n_layers},
             f"run (f) prefill launches {out['launches_prefill']}")
@@ -2533,13 +2639,13 @@ def run_serve_loop(launches: dict) -> list:
 
 
 # ------------------------------------------------- LMDeltaTask at width (q)
-LM_Q = dict(arch="stablelm_1_6b", n_layers=6, clients=2, seqs=8,
+LM_Q = dict(arch="stablelm_1_6b", n_layers=2, clients=2, seqs=8,
             seq_len=512, batch=4)
 LM_AE = dict(chunk_size=256, hidden=(32,), latent_chunk=8)
 
 
 def lm_delta_arch(reduced: bool):
-    """Run (q)'s model: stablelm-1.6b at full width, 6 of its 24 layers
+    """Run (q)'s model: stablelm-1.6b at full width, 2 of its 24 layers
     (remat on, the config's), float32 parameters, its own bf16 compute;
     ``reduced`` is the same
     architecture at the config's narrow widths in float32 compute."""
@@ -2852,7 +2958,7 @@ def check_flash_padded(B: int, S: int, H: int, D: int, Dv: int, dtype,
                 gflop=(2.0 * D + 2.0 * Dv) * pairs / 1e9)
 
 
-def run_mla_serving(n_layers: int = 62) -> dict:
+def run_mla_serving(n_layers: int) -> dict:
     """Run (r): minicpm3-4b at full width (MLA: q_lora 768, kv_lora 256,
     heads of 64 + 32 over a value head of 64; tied embeddings), its own
     dtypes, serving 4 prompts of 1,024 tokens then 16 greedy decode steps.
@@ -3201,9 +3307,202 @@ def run_moe_train_step(n_layers: int = 1) -> dict:
     return out
 
 
+# ------------------------------- SSM, hybrid, audio and VLM (runs v-y)
+def ssd_state_check(params, cfg, batch) -> dict:
+    """Run (v)'s SSD state and conv tail: layer 0's mixer in float32
+    compute on its own prefill input (4 prompts of 1,024 tokens, 4 chunks
+    of 256), the chunked dual form's outputs, final SSD state and conv
+    tail (``mamba2_forward``) against ``mamba2_decode`` stepped over every
+    token from a zero state, at the reference's SSD tolerance (``atol=1e-4,
+    rtol=1e-3``, ``tests/test_model_consistency.py:100``)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.model import _layer
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    lp = _layer(params, 0)
+    tol = dict(atol=1e-4, rtol=1e-3)
+    with torch.no_grad():
+        x = apply_norm(lp["ln"], params["embed"][batch["tokens"]], c32)
+        y, st = ssm.mamba2_forward(lp["mixer"], x, c32)
+        step = ssm.init_mamba2_state(c32, x.shape[0], device="cuda")
+        ys = []
+        for t in range(x.shape[1]):
+            y_t, step = ssm.mamba2_decode(lp["mixer"], x[:, t:t + 1], c32,
+                                          step)
+            ys.append(y_t)
+        return dict(tokens=int(x.shape[1]),
+                    out_max_abs_err=close(y, torch.cat(ys, 1), **tol),
+                    ssm_state_max_abs_err=close(st["ssm"], step["ssm"],
+                                                **tol),
+                    conv_tail_max_abs_err=close(st["conv"], step["conv"],
+                                                **tol),
+                    ssm_state_abs_max=float(st["ssm"].abs().max()))
+
+
+def run_ssm_serving() -> dict:
+    """Run (v): mamba2-2.7b at full width (d_model 2560, 80 SSD heads of
+    64, state 128, chunk 256), all 64 layers, its own dtypes, serving 4
+    prompts of 1,024 tokens then 16 greedy decode steps. No kernel
+    launches: the SSD scan is plain torch, as the reference's is jnp. The
+    decode cache is the conv tails and SSD states, O(1) in the sequence;
+    layer 0's state and tail are held against the recurrence
+    (:func:`ssd_state_check`). A last prefill runs under
+    ``torch.profiler`` (device idle share, the costliest kernels)."""
+    import gc
+    import torch
+    from repro_torch import models
+    from repro_torch.models.ssm import _dims
+    cfg = arch_cut("mamba2-2.7b", 64)
+    params, batch, out = serve_full_width(cfg, seed=0)
+    require(out["params"] == 2_702_968_320,
+            f"run (v) holds {out['params']} parameters")
+    require(out["launches_prefill"] == {} and out["routes_prefill"] == {},
+            f"run (v) prefill launches {out['launches_prefill']}")
+    ssm, _, H, conv_ch = _dims(cfg)
+    state_bytes = 64 * 4 * 4 * ((ssm.conv_width - 1) * conv_ch
+                                + H * ssm.head_dim * ssm.d_state)
+    require(out["cache_bytes"] == state_bytes,
+            f"run (v) cache bytes {out['cache_bytes']}")
+    out["ssd_check"] = ssd_state_check(params, cfg, batch)
+    out["prefill_trace"] = traced_round(
+        lambda: models.prefill(params, cfg, batch, 1024 + 16))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_family_serving(arch: str, B: int, S: int, want_calls: dict,
+                       route: str) -> dict:
+    """Runs (w), (x), (y): ``arch`` at full width, all layers, its own
+    dtypes, serving B prompts of S tokens (with the stub frontend's inputs
+    from the seed) then 16 greedy decode steps (:func:`serve_full_width`).
+    Kernel 6 launches ``sum(want_calls.values())`` times a prefill, all on
+    ``route``, never in decode; one more prefill holds each call against
+    the plain version at the model's own inputs and counts the calls by
+    ``(mode, window, q shape, k shape)``, which must equal
+    ``want_calls``; a last one runs under ``torch.profiler`` (device idle
+    share, the costliest kernels)."""
+    import collections
+    import gc
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    params, batch, out = serve_full_width(cfg, seed=0, B=B, S=S)
+    n = sum(want_calls.values())
+    require(out["launches_prefill"] == {"flash_attention": n}
+            and out["routes_prefill"] == {route: n},
+            f"{arch}: prefill launches {out['launches_prefill']} routes "
+            f"{out['routes_prefill']}")
+    calls = []
+    errs = in_model_flash_errs(
+        lambda: models.prefill(params, cfg, batch, S + 16), calls)
+    seen = collections.Counter((m, w, q, k) for _, m, w, q, k in calls)
+    require(dict(seen) == want_calls and len(errs) == n,
+            f"{arch}: in-model kernel-6 calls {dict(seen)}")
+    require(all(padded == route.endswith("_padded")
+                for padded, *_ in calls), f"{arch}: padded route")
+    out["attention_in_model_max_abs_err"] = errs
+    out["attention_calls"] = [dict(mode=m, window=w, q=list(q), k=list(k),
+                                   count=c)
+                              for (m, w, q, k), c in seen.items()]
+    out["prefill_trace"] = traced_round(
+        lambda: models.prefill(params, cfg, batch, S + 16))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_runs(launches: dict) -> dict:
+    """Runs (w), (x) and (y) with the launches and kernel-6 calls each
+    prefill must make; adds ``flash_attention_run_*`` to ``launches``."""
+    out = {}
+    # (w) recurrentgemma-9b: 12 (R, R, A) groups, each A a local attention
+    # over a 2,048 window, 16 heads of 256 over one kv head
+    q, k = (2, 4096, 16, 256), (2, 4096, 1, 256)
+    out["w"] = run_family_serving("recurrentgemma-9b", 2, 4096,
+                                  {("window", 2048, q, k): 12}, "wgmma")
+    ring = out["w"]
+    require(ring["params"] == 10_444_984_320,
+            f"run (w) holds {ring['params']} parameters")
+    # (x) whisper-medium: 24 encoder layers over 1,500 frames, 24 decoder
+    # layers of causal self-attention and cross-attention over the frames
+    enc, dec = (4, 1500, 16, 64), (4, 448, 16, 64)
+    out["x"] = run_family_serving(
+        "whisper-medium", 4, 448,
+        {("full", None, enc, enc): 24, ("causal", None, dec, dec): 24,
+         ("full", None, dec, enc): 24}, "wgmma")
+    require(out["x"]["params"] == 811_569_152,
+            f"run (x) holds {out['x']['params']} parameters")
+    # (y) phi-3-vision-4.2b: 32 layers of 32 heads of 96 (padded to 128)
+    qy = (4, 1024, 32, 96)
+    out["y"] = run_family_serving("phi-3-vision-4.2b", 4, 1024,
+                                  {("causal", None, qy, qy): 32},
+                                  "wgmma_padded")
+    require(out["y"]["params"] == 3_822_259_200,
+            f"run (y) holds {out['y']['params']} parameters")
+    for x in "wxy":
+        launches[f"flash_attention_run_{x}"] = out[x]["launches_prefill"][
+            "flash_attention"]
+    return out
+
+
+def family_card_vs_cpu(arch: str, n_attn: int) -> dict:
+    """The reduced copies of runs (v)-(y): ``arch``'s reduced config
+    (float32) on the card and the CPU from the same weights, 2 prompts of
+    80 tokens (the hybrid's window of 64 binds and its ring wraps) with
+    the stub frontend's inputs, 3 decode steps (the CPU fed the card's
+    tokens): prefill and decode logits and every cache leaf in the golden
+    band; the card's prefill launches kernel 6 ``n_attn`` times, once an
+    attention call."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import flatten, tree_map
+    from repro_torch.kernels import _lib
+    cfg = get_config(arch).reduced()
+    cparams = models.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), cparams)
+    batch = family_inputs(cfg, 2, 80, 3, "cpu")
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    _lib.reset_launches()
+    glogits, gcache = models.prefill(gparams, cfg, gbatch, 83)
+    torch.cuda.synchronize()
+    counts = _lib.counts()
+    require(counts == ({"flash_attention": n_attn} if n_attn else {}),
+            f"{arch} reduced: prefill launches {counts}")
+    clogits, ccache = models.prefill(cparams, cfg, batch, 83)
+    errs = [close(glogits.cpu(), clogits, **GOLDEN_BAND)]
+    for _ in range(3):
+        token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+        clogits, ccache = models.decode_step(cparams, cfg, token.cpu(),
+                                             ccache)
+        errs.append(close(glogits.cpu(), clogits, **GOLDEN_BAND))
+    require(gcache["index"] == ccache["index"] == 83, "cache index")
+    g_leaves, g_def = flatten({k: v for k, v in gcache.items()
+                               if k != "index"})
+    c_leaves, c_def = flatten({k: v for k, v in ccache.items()
+                               if k != "index"})
+    require(g_def == c_def, f"{arch} reduced: cache trees differ")
+    cache_err = max(close(g.cpu(), c, **GOLDEN_BAND)
+                    for g, c in zip(g_leaves, c_leaves))
+    return dict(arch=cfg.name, prefill_launches=counts,
+                logits_max_abs_err=errs, cache_max_abs_err=cache_err)
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
+    t_start = time.perf_counter()
+
+    def at(tag: str) -> None:
+        """Logs the seconds since the script started, at a phase's start."""
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase {tag}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3223,6 +3522,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # ----------------------------------------------------------- 2. build
+    at("2. build")
     path, secs, ptxas = _lib.build()
     log(f"build: {len(_lib.SOURCES)} sources -> {path.name} in {secs:.1f} s")
     entry, spills = "?", ""
@@ -3236,6 +3536,7 @@ def main() -> int:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
 
     # -------------------------------------------------- 3. kernels vs plain
+    at("3. kernels vs plain")
     slice_rows = {}
     slice_rows.update(check_quantize(63, 8, 0, 200))        # 15,910 / 256
     check_quantize(189, 4, 1, 20)                           # 4-bit ties
@@ -3340,9 +3641,9 @@ def main() -> int:
     # over 256 clients' 256 chunks, its kernel-4 reduce); the q8 rows'
     # dequantize at K 65,536 (one block of 2^10 a client) and at K 256
     # (256 blocks of 256 a client; K 4,096's is the (2^20, 256) above);
-    # run (q)'s LM path at 6 layers: the
+    # run (q)'s LM path at 2 layers: the
     # q8 of the embedding group (1,605,632 blocks of 256) and of the
-    # attention group (393,216), the mlp group's chunked AE over 811,008
+    # attention group (131,072), the mlp group's chunked AE over 270,336
     # chunks (encode 256 -> 32 -> 8, EF decode 8 -> 32 -> 256), the
     # server's hidden layer over both clients' chunks and its reduce, and
     # evaluate's attention (2 x 512 tokens, 32 heads of 64, bf16, causal)
@@ -3352,15 +3653,15 @@ def main() -> int:
         + list(check_quantize(65_536, 8, 59, 10, block=1024).values())
         + list(check_quantize(65_536, 8, 60, 10).values())
         + list(check_quantize(1_605_632, 8, 50, 5).values())
-        + list(check_quantize(393_216, 8, 51, 10).values())
-        + [check_fused_dense(811_008, 256, 32, "relu", torch.float32, 52,
+        + list(check_quantize(131_072, 8, 51, 10).values())
+        + [check_fused_dense(270_336, 256, 32, "relu", torch.float32, 52,
                              5),
-           check_fused_dense(811_008, 32, 8, "relu", torch.float32, 53, 5),
-           check_fused_dense(811_008, 8, 32, "relu", torch.float32, 54, 5),
-           check_fused_dense(811_008, 32, 256, "linear", torch.float32, 55,
+           check_fused_dense(270_336, 32, 8, "relu", torch.float32, 53, 5),
+           check_fused_dense(270_336, 8, 32, "relu", torch.float32, 54, 5),
+           check_fused_dense(270_336, 32, 256, "linear", torch.float32, 55,
                              5),
-           check_fused_dense(1_622_016, 8, 32, "relu", torch.float32, 56, 5),
-           check_decode_agg(2, 811_008, 32, 256, 57, 5),
+           check_fused_dense(540_672, 8, 32, "relu", torch.float32, 56, 5),
+           check_decode_agg(2, 270_336, 32, 256, 57, 5),
            check_flash(2, 512, 512, 32, 32, 64, "causal", None,
                        torch.bfloat16, 58, 10)])
     # runs (r) and (t): MLA's attention through kernel 6's padded route
@@ -3380,13 +3681,30 @@ def main() -> int:
                 check_fused_dense(3_072_000, 8, 32, "relu", torch.float32,
                                   67, 3),
                 check_decode_agg(2, 1_536_000, 32, 256, 68, 3)])
+    # runs (w), (x), (y): kernel 6 at head dim 256 (recurrentgemma-9b's
+    # local attention, window 2,048, 16 heads over one kv head), whisper's
+    # encoder (full over 1,500 frames), its decoder's self-attention
+    # (causal) and cross-attention (full, 448 queries over 1,500 frames),
+    # phi-3's heads of 96 through the padded route, all bf16
+    fam = dict(
+        d256_window_run_w=check_flash(2, 4096, 4096, 16, 1, 256, "window",
+                                      2048, torch.bfloat16, 71, 5),
+        encoder_run_x=check_flash(4, 1500, 1500, 16, 16, 64, "full", None,
+                                  torch.bfloat16, 72, 10),
+        decoder_run_x=check_flash(4, 448, 448, 16, 16, 64, "causal", None,
+                                  torch.bfloat16, 73, 10),
+        cross_run_x=check_flash(4, 448, 1500, 16, 16, 64, "full", None,
+                                torch.bfloat16, 74, 10),
+        padded_run_y=check_flash_padded(4, 1024, 32, 96, 96, torch.bfloat16,
+                                        75, 10))
     for r in (fd[1:] + grouped + cohort + client
               + [slice_rows["flash_attention"]] + flash + runtime + rate_n
-              + serve_lm + mla + mla_t):
+              + serve_lm + mla + mla_t + list(fam.values())):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
     # ------------------------------------------------------------ 4. slice
+    at("4. slice")
     launches = {}
     _lib.reset_launches()
     run_a, hist_a = run_golden("cuda")
@@ -3469,10 +3787,12 @@ def main() -> int:
             f"(params max abs err {err_off!r})")
 
     # ----------------------------------------------------- 5. LM serving
+    at("5. LM serving")
     lm = run_lm_serving()
     launches["flash_attention"] = lm["launches_prefill"]["flash_attention"]
     log("lm (f) " + json.dumps(lm))
-    log(f"lm (f) deepseek-coder-33b x16 layers: prefill 4 x 1024 tokens in "
+    log(f"lm (f) deepseek-coder-33b x{lm['n_layers']} layers: prefill 4 x "
+        f"1024 tokens in "
         f"{lm['prefill_s']:.4f} s, decode step median "
         f"{lm['decode_step_median_s']:.4f} s, peak "
         f"{lm['peak_memory_bytes'] / 2**30:.2f} GiB; flash_attention "
@@ -3486,6 +3806,7 @@ def main() -> int:
         + json.dumps(lm_g))
 
     # ------------------------------------------------- 6. cohort round
+    at("6. cohort round")
     gc.collect()
     torch.cuda.empty_cache()
     run_cohort_round("cuda", cohort=2)                   # warm-up
@@ -3519,6 +3840,7 @@ def main() -> int:
         "+ stack + decode_and_aggregate, ended by a synchronize)")
 
     # ------------------------------------------------ 7. scalable runtime
+    at("7. scalable runtime")
     gc.collect()
     torch.cuda.empty_cache()
     _lib.reset_launches()
@@ -3665,6 +3987,7 @@ def main() -> int:
         del resumed
 
     # ---------------------------------------- 8. lifecycle and resume (k)
+    at("8. lifecycle and resume (k)")
     gc.collect()
     torch.cuda.empty_cache()
     # cuDNN's conv weight gradient may add with atomics; a resume is held
@@ -3842,6 +4165,7 @@ def main() -> int:
     del runs_kr, hists_kr, fits
 
     # ------------------------------- 9. the paper's §5.2 federation (l)
+    at("9. the paper's §5.2 federation (l)")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3907,20 +4231,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------ 10. k-means and entropy
+    at("10. k-means and entropy")
     log("kmeans KMeansSpec(550586, k=16, iters=8) card vs cpu: "
         + json.dumps(check_kmeans()))
 
     # -------------------------------- 11. the rate-control frontier (m)
+    at("11. the rate-control frontier (m)")
     run_rate_frontier()
 
     # -------------------- 12. a per-partition ladder on kernel 5 (n)
+    at("12. a per-partition ladder on kernel 5 (n)")
     routes_n = run_rate_cnn(launches)
 
     # ------------------------------------------- 13. the serve loop (o)
+    at("13. the serve loop (o)")
     for row in run_serve_loop(launches):
         log("serve (o) " + json.dumps(row))
 
     # ------------------------------------- 14. LMDeltaTask at width (q)
+    at("14. LMDeltaTask at width (q)")
     lm_q = run_lm_delta(launches)
     log(f"lm delta (q) stablelm-1.6b x{LM_Q['n_layers']} layers "
         + json.dumps(lm_q))
@@ -3928,9 +4257,10 @@ def main() -> int:
         + json.dumps(lm_delta_replay()))
 
     # ---------------------------------------------- 15. MLA serving (r)
+    at("15. MLA serving (r)")
     gc.collect()
     torch.cuda.empty_cache()
-    lm_r = run_mla_serving()
+    lm_r = run_mla_serving(16)
     launches["flash_attention_run_r"] = lm_r["launches_prefill"][
         "flash_attention"]
     log("mla (r) " + json.dumps(lm_r))
@@ -3946,6 +4276,7 @@ def main() -> int:
         + json.dumps(mla_card_vs_cpu()))
 
     # ---------------------------------------------- 16. MoE serving (s)
+    at("16. MoE serving (s)")
     gc.collect()
     torch.cuda.empty_cache()
     for arch, n in (("dbrx-132b", 2), ("llama4-maverick-400b-a17b", 1)):
@@ -3956,14 +4287,41 @@ def main() -> int:
             "dispatch masks equal: " + json.dumps(moe_card_vs_cpu(arch)))
 
     # ------------------------------ 17. MLA training with remat (t)
+    at("17. MLA training with remat (t)")
     lm_t = run_mla_delta(launches)
     log("lm delta (t) minicpm3-4b x8 layers " + json.dumps(lm_t))
 
     # --------------------------------- 18. an MoE training step (u)
+    at("18. an MoE training step (u)")
     lm_u = run_moe_train_step()
     log("moe train (u) dbrx-132b x1 layer " + json.dumps(lm_u))
 
-    # --------------------------------------------------------- 19. report
+    # --------------------- 19. SSM, hybrid, audio and VLM serving (v-y)
+    at("19. SSM, hybrid, audio and VLM serving (v-y)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_v = run_ssm_serving()
+    launches["flash_attention_run_v"] = 0
+    log("ssm (v) " + json.dumps(lm_v))
+    fam_runs = family_runs(launches)
+    for x, tag in (("w", "hybrid (w) recurrentgemma-9b"),
+                   ("x", "audio (x) whisper-medium"),
+                   ("y", "vlm (y) phi-3-vision-4.2b")):
+        log(f"{tag} " + json.dumps(fam_runs[x]))
+    for x, r in [("v", lm_v)] + list(fam_runs.items()):
+        log(f"family ({x}) {r['arch']} x{r['n_layers']} layers, {r['batch']} "
+            f"x {r['prompt']} tokens: prefill {r['prefill_s']:.4f} s, decode "
+            f"step median {r['decode_step_median_s']:.4f} s, peak "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, cache "
+            f"{r['cache_bytes']} B; kernel 6 {r['routes_prefill']} in "
+            "prefill, none in decode")
+    for arch, n_attn in (("mamba2_2_7b", 0), ("recurrentgemma_9b", 1),
+                         ("whisper_medium", 6), ("phi3_vision_4_2b", 2)):
+        log(f"family {arch} reduced cuda == cpu in the golden band: "
+            + json.dumps(family_card_vs_cpu(arch, n_attn)))
+
+    # --------------------------------------------------------- 20. report
+    at("20. report")
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -3981,9 +4339,9 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         r = slice_rows[name]
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
-                 for x in "hijknopqrt" if f"{name}_run_{x}" in launches}
+                 for x in "hijknopqrtvwxy" if f"{name}_run_{x}" in launches}
         if name == "flash_attention":
-            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1])
+            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1], **fam)
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,

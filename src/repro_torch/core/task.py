@@ -162,9 +162,9 @@ def _lm_step(arch_cfg, optimizer: str, lr: float, prox_mu: float,
 
 @dataclasses.dataclass
 class LMDeltaTask(ClientTask):
-    """Federated delta fine-tuning of a ``configs/`` zoo model: the dense
-    family (llama3-8b, stablelm-1.6b, deepseek-coder-33b, minicpm3-4b with
-    MLA) and the MoE family (dbrx-132b, llama4-maverick) are ported. Each client shard is a token corpus ``{"tokens":
+    """Federated delta fine-tuning of any ``configs/`` zoo model (dense,
+    MLA, MoE, SSM, hybrid RG-LRU, audio, VLM). Each client shard is a token
+    corpus ``{"tokens":
     (n, S), "labels": (n, S)}`` (``data.pipeline.synthetic_lm_batch``); a
     local round runs ``cfg.local_epochs`` epochs of next-token training in
     the ``batch_indices`` order the classifier path uses. The task needs

@@ -32,24 +32,31 @@
 // arrived) and an "empty" one (8 consumer warps done). Tensor maps,
 // encoded on the host per call, address the strided (B, S, heads, D)
 // layouts directly, zero-fill rows past Sq and Skv, and swizzle to the
-// wgmma layout: 128 B at D >= 64 (D = 128 as two 64-column panels), 64 B
-// at D = 32, 32 B at D = 16. S = Q K^T is wgmma m64n64k16 with both
-// operands K-major in shared memory; bf16 products are exact in float32,
-// so S matches the reference up to summation order. Mask, row max (over
-// the 4 lanes of a quad), exp2 of the scores prescaled by D^-0.5 log2(e),
-// and the rescale run on the accumulator fragment in registers; l sums the
-// float32 P. P V runs as two register-A wgmmas against V (MN-major):
-// P_hi = bf16(P) and P_lo = bf16(P - P_hi), accumulated in float32. A
+// wgmma layout: 128 B at D >= 64 (D = 128 as two 64-column panels, D =
+// 256 as four), 64 B at D = 32, 32 B at D = 16. S = Q K^T is wgmma
+// m64n64k16 with both operands K-major in shared memory; bf16 products
+// are exact in float32, so S matches the reference up to summation
+// order. Mask, row max (over the 4 lanes of a quad), exp2 of the scores
+// prescaled by D^-0.5 log2(e), and the rescale run on the accumulator
+// fragment in registers; l sums the float32 P. P V runs as two
+// register-A wgmmas against V (MN-major): P_hi = bf16(P) and
+// P_lo = bf16(P - P_hi), accumulated in float32. A
 // single bf16 P rounds P by up to 2^-9 relative, which at run (f)'s shape
 // puts some outputs past two bf16 ulps of the float32-P reference; the
 // split leaves P's error near 2^-17. So P V costs twice S's tensor work,
 // and the kernel does 1.5 times the reference's operations. Registers
-// (the fragments: 32 floats of S, D / 2 of O, 32 bf16 pairs of P), not
+// (the fragments: 32 floats of S, min(D, 128) / 2 of O, 32 bf16 pairs
+// of P), not
 // shared memory (99 KB at D = 128), hold it to one block an SM. Rows past
 // Sq are not stored; a q tile's later consumer warpgroup skips kv tiles
 // that are masked for all of its rows, the earlier one those masked for
 // its rows, and both wait on and release every stage. Later q tiles,
-// which see more keys in causal mode, are launched first.
+// which see more keys in causal mode, are launched first. At D = 256 (the
+// local attention of recurrentgemma-9b) a 64-row O would take 128
+// registers a thread, so a block owns 64 q rows and its two consumer
+// warpgroups split O's columns (128 each), each computing the whole S:
+// QK^T's tensor work doubles, and shared memory holds Q (32 KB) and two
+// stages of K and V (128 KB).
 //
 // float32: the first version, kept for float32 inputs (wgmma would round
 // them to TF32): one block per (b, h, 64-row q tile), 256 threads as
@@ -61,7 +68,8 @@
 // way into shared memory; P goes through shared memory between S = Q K^T
 // and acc += P V. Float32 FMA from shared memory, one float at a time (8
 // loads per 16 FMA in Q K^T), so shared-memory bandwidth limits it. IEEE
-// expf and division: no --use_fast_math.
+// expf and division: no --use_fast_math. At D = 256 its tiles take 213,760
+// B of shared memory (the opt-in allows 232,448).
 #include <cuda.h>            // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -260,6 +268,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
                                   window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, mode,
                                     window, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, mode,
+                                    window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -271,15 +281,23 @@ constexpr int BQ = 128, WQ = 64, BKV = 64, NSTAGE = 2;
 constexpr int NCONSUMER = 256, NTHREADS = NCONSUMER + 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory: Q (BQ rows), then NSTAGE x (K, V) tiles (BKV rows each),
+// Shared memory: Q (BQT rows), then NSTAGE x (K, V) tiles (BKV rows each),
 // then the mbarriers. A tile is D / EPR panels of rows x EPR bf16, one
 // ROWB-byte swizzled row per key or query; every panel starts on 1 KB.
+// SPLIT (D = 256): a 64 x 256 float32 O is 128 registers a thread, which
+// with S and P would not fit beside the producer warp, so both consumer
+// warpgroups take the same 64 q rows (BQT = 64), each computes the whole
+// S (identical instructions on identical tiles, so identical m and l) and
+// accumulates its own DO = 128 output columns, as at D = 128.
 template <int D> struct Geo {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BQT = SPLIT ? WQ : BQ;          // q rows a block
+  static constexpr int DO = SPLIT ? D / 2 : D;         // O columns a consumer
   static constexpr int EPR = D < 64 ? D : 64;
   static constexpr int ROWB = EPR * 2;                 // 32, 64 or 128 B
   static constexpr int NPANEL = D / EPR;
   static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
-  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int Q_BYTES = BQT * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;
   static constexpr int K_OFF = Q_BYTES;                // stage s: K, then V
   static constexpr int BAR_OFF = Q_BYTES + NSTAGE * 2 * KV_BYTES;
@@ -465,13 +483,14 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+// acc (64 x N) += P (registers) * V's N columns at db; N = Geo<D>::DO
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 16) wgmma_rs_n16(acc, a, db);
-  else if constexpr (D == 32) wgmma_rs_n32(acc, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(acc, a, db);
+  if constexpr (N == 16) wgmma_rs_n16(acc, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(acc, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(acc, a, db);
   else wgmma_rs_n128(acc, a, db);
 }
 
@@ -507,12 +526,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 8 + 8 * NSTAGE;
 
   const int tid = threadIdx.x;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // long tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * G::BQT;   // long tiles first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int n_kv = (Skv + BKV - 1) / BKV;
   int tb0, te0, tb1, te1;
   tile_range(q0, min(q0 + WQ, Sq), n_kv, mode, window, &tb0, &te0);
-  tile_range(q0 + WQ, min(q0 + BQ, Sq), n_kv, mode, window, &tb1, &te1);
+  if (G::SPLIT) {                                   // the same rows
+    tb1 = tb0;
+    te1 = te0;
+  } else {
+    tile_range(q0 + WQ, min(q0 + BQ, Sq), n_kv, mode, window, &tb1, &te1);
+  }
   const int kt_begin = tb0, kt_end = max(te0, te1);
 
   if (tid == 0) {
@@ -529,7 +553,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == NCONSUMER) {
       mbar_expect_tx(bar_q, G::Q_BYTES);
       for (int p = 0; p < G::NPANEL; ++p)
-        tma_load(base + p * BQ * G::ROWB, &tm_q, p * G::EPR, h, q0, b,
+        tma_load(base + p * G::BQT * G::ROWB, &tm_q, p * G::EPR, h, q0, b,
                  bar_q);
       for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
         const int s = it % NSTAGE;
@@ -547,18 +571,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  // consumer warpgroup c: q rows [lo, lo + 64); this thread's rows r0, r1
+  // consumer warpgroup c: q rows [lo, lo + 64) and O columns [c0, c0 +
+  // DO); this thread's rows r0, r1
   const int c = tid / 128, wq = (tid % 128) / 32, lane = tid % 32;
-  const int lo = q0 + WQ * c;
+  const int lo = q0 + (G::SPLIT ? 0 : WQ * c);
+  const int c0 = G::SPLIT ? G::DO * c : 0;
   const int r0 = lo + 16 * wq + lane / 4, r1 = r0 + 8;
   const int my_b = c ? tb1 : tb0, my_e = c ? te1 : te0;
   const float sl2 = scale * kLog2e;                 // scores in log2 units
-  const uint32_t qa = base + WQ * c * G::ROWB;
+  const uint32_t qa = base + (lo - q0) * G::ROWB;
   constexpr uint32_t SBO = 8 * G::ROWB;
 
-  float acc[D / 2];
+  float acc[G::DO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < G::DO / 2; ++i) acc[i] = 0.f;
   float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
   mbar_wait(bar_q, 0);
 
@@ -567,13 +593,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_full + 8 * s, (it / NSTAGE) & 1);
     if (kt >= my_b && kt < my_e) {
       const uint32_t ka = base + G::K_OFF + s * 2 * G::KV_BYTES;
-      const uint32_t va = ka + G::KV_BYTES;
+      const uint32_t va = ka + G::KV_BYTES + (c0 / G::EPR) * BKV * G::ROWB;
       float sc[32];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int p = kk * 16 / G::EPR, off = (kk * 16 % G::EPR) * 2;
-        wgmma_ss_n64(sc, desc(qa + p * BQ * G::ROWB + off, 16, SBO, G::LAYOUT),
+        wgmma_ss_n64(sc, desc(qa + p * G::BQT * G::ROWB + off, 16, SBO,
+                              G::LAYOUT),
                      desc(ka + p * BKV * G::ROWB + off, 16, SBO, G::LAYOUT),
                      kk > 0);
       }
@@ -614,7 +641,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      const float f0 = exp2f(m0 - mn0), f1 = exp2f(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
       float s0 = 0.f, s1 = 0.f;
@@ -629,14 +656,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         ph[i] = bf16x2_bits(hi);
         pl[i] = bf16x2_bits(__floats2bfloat162_rn(pa - hf.x, pb - hf.y));
       }
-      l0 = l0 * c0 + s0;                            // quad-partial sums
-      l1 = l1 * c1 + s1;
+      l0 = l0 * f0 + s0;                            // quad-partial sums
+      l1 = l1 * f1 + s1;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j] *= c0;
-        acc[4 * j + 1] *= c0;
-        acc[4 * j + 2] *= c1;
-        acc[4 * j + 3] *= c1;
+      for (int j = 0; j < G::DO / 8; ++j) {
+        acc[4 * j] *= f0;
+        acc[4 * j + 1] *= f0;
+        acc[4 * j + 2] *= f1;
+        acc[4 * j + 3] *= f1;
       }
       // the S fragment of keys 16 kk .. 16 kk + 15 is the A fragment of
       // P V's k-step kk: registers 4 kk .. 4 kk + 3 of ph / pl
@@ -649,8 +676,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 ph[4 * kk + 3]};
         const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
                                 pl[4 * kk + 3]};
-        wgmma_pv<D>(acc, ah, db);
-        wgmma_pv<D>(acc, al, db);
+        wgmma_pv<G::DO>(acc, ah, db);
+        wgmma_pv<G::DO>(acc, al, db);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -667,9 +694,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const long long qs = (long long)H * D;
-  __nv_bfloat16* ob = o + ((long long)b * Sq * H + h) * D + 2 * (lane % 4);
+  __nv_bfloat16* ob =
+      o + ((long long)b * Sq * H + h) * D + c0 + 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < G::DO / 8; ++j) {
     if (r0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * qs + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
@@ -735,7 +763,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, int mode, int window, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int rc = encode<D>(&tq, q, B, Sq, H, BQ);
+  int rc = encode<D>(&tq, q, B, Sq, H, Geo<D>::BQT);
   if (rc == 0) rc = encode<D>(&tk, k, B, Skv, KV, BKV);
   if (rc == 0) rc = encode<D>(&tv, v, B, Skv, KV, BKV);
   if (rc != 0) return rc;
@@ -748,7 +776,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
+  dim3 grid((unsigned)((Sq + Geo<D>::BQT - 1) / Geo<D>::BQT), (unsigned)H,
+            (unsigned)B);
   flash_wgmma_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, mode, window, scale);
   return (int)cudaGetLastError();
@@ -765,6 +794,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
                                scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
+                                 scale, s);
+    case 256: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
                                  scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

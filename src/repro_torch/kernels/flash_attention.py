@@ -10,8 +10,9 @@ The dtype picks the kernel: bfloat16 the wgmma kernel fed by TMA (its
 tensor maps need 16-byte aligned q, k and v), float32 the FMA kernel.
 
 :func:`flash_attention_padded` takes the head dims the kernel has no
-instantiation for — ``D`` outside :data:`HEAD_DIMS`, or a value head
-``Dv != D`` (MLA's 96-wide query/key head over a 64-wide value head): it
+instantiation for — ``D`` outside :data:`HEAD_DIMS` (phi-3's 96, a 192
+padded to 256), or a value head ``Dv != D`` (MLA's 96-wide query/key head
+over a 64-wide value head): it
 zero-pads q, k and v on the last axis to the smallest of ``HEAD_DIMS``
 that holds both, launches the kernel with the scale of the unpadded ``D``
 and returns the first ``Dv`` columns. The zero columns add exact zeros to
@@ -30,7 +31,7 @@ import torch
 from repro_torch.kernels import _lib, ref
 
 MODES = {"causal": 0, "window": 1, "full": 2}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches per route, reset with ``ROUTE_LAUNCHES.clear()``

@@ -1,7 +1,8 @@
 """Attention (port of ``repro.models.attention``): full-sequence flash
-attention for training and prefill, single-token decode attention against
-a linear or ring cache, the GQA module and MLA (multi-head latent
-attention, MiniCPM3 / DeepSeek-V2 style).
+attention for training, prefill, the audio encoder and cross-attention,
+single-token decode attention against a linear or ring cache, the GQA
+module and MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2
+style).
 
 ``flash_attention`` keeps the reference's whole signature. On the CPU it
 runs the reference's chunked online-softmax math
@@ -19,7 +20,9 @@ dims the kernel has no instantiation for (``D`` outside its
 ``HEAD_DIMS``, ``Dv != D``) and an explicit scale take its padded route
 (``flash_attention_padded``: q, k and v zero-padded to the next head dim
 it has, the unpadded scale, the output sliced), which is how MLA's
-prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width) reaches the kernel.
+prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width) and phi-3-vision's
+heads of 96 reach the kernel; recurrentgemma-9b's heads of 256 take it
+directly.
 ``decode_attention`` and ``mla_decode`` are plain torch on every device,
 as the reference runs no kernel there.
 """
@@ -185,16 +188,23 @@ def gqa_forward(
     positions: Optional[torch.Tensor] = None,  # (B, S) absolute positions
     mode: str = "causal",
     window: Optional[int] = None,
+    kv_x: Optional[torch.Tensor] = None,       # cross-attention source
+    kv_positions: Optional[torch.Tensor] = None,
+    cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence self-attention (train / prefill). Returns (out, (k, v))
-    so prefill can build the cache. The reference's cross-attention
-    arguments (``kv_x``, ``kv_positions``, ``cached_kv``) come with the
-    audio family."""
+    """Full-sequence attention (train / prefill / encoder / cross).
+    Returns (out, (k, v)) so prefill can build the cache and
+    cross-attention can reuse the projected encoder K/V."""
     B, S, _ = x.shape
     q = (x @ cast(p["wq"], cfg)).reshape(B, S, cfg.n_heads, cfg.head_dim)
     if cfg.rope_theta > 0 and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-    k, v = gqa_project_kv(p, x, cfg, positions)
+    if cached_kv is not None:
+        k, v = cached_kv
+    else:
+        src = x if kv_x is None else kv_x
+        pos = positions if kv_x is None else kv_positions
+        k, v = gqa_project_kv(p, src, cfg, pos)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                           mode=mode, window=window,
                           softcap=cfg.attn_logit_softcap)

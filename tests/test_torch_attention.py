@@ -175,8 +175,8 @@ def test_kernel_contract():
     reason): the check, as a function, on the shapes of a call. Head dims
     the kernel has no instantiation for and ``Dv != D`` are in the
     contract, as is any scale (``kernel_padded`` sends these to the padded
-    route); softcap, ``extra_qk``, ``q_offset`` and head dims above 128
-    are not."""
+    route: a D of 192 is padded to 256); softcap, ``extra_qk``,
+    ``q_offset`` and head dims above 256 are not."""
     q = torch.zeros((1, 8, 4, 32))
     v = torch.zeros((1, 8, 2, 32))
     assert tattn.kernel_contract(q, v) is None
@@ -186,8 +186,16 @@ def test_kernel_contract():
     assert tattn.kernel_contract(q, torch.zeros((1, 8, 2, 16))) is None
     assert tattn.kernel_contract(torch.zeros((1, 8, 4, 96)),
                                  torch.zeros((1, 8, 2, 64))) is None
+    assert tattn.kernel_contract(torch.zeros((1, 8, 4, 192)),
+                                 torch.zeros((1, 8, 2, 128))) is None
+    assert tattn.kernel_padded(torch.zeros((1, 8, 4, 192)),
+                               torch.zeros((1, 8, 2, 192)))
+    assert not tattn.kernel_padded(torch.zeros((1, 8, 4, 256)),
+                                   torch.zeros((1, 8, 2, 256)))
     assert "head dims" in tattn.kernel_contract(
-        torch.zeros((1, 8, 4, 192)), torch.zeros((1, 8, 2, 128)))
+        torch.zeros((1, 8, 4, 320)), torch.zeros((1, 8, 2, 128)))
+    assert "head dims" in tattn.kernel_contract(
+        torch.zeros((1, 8, 4, 128)), torch.zeros((1, 8, 2, 264)))
     assert not tattn.kernel_padded(q, v)
     assert not tattn.kernel_padded(q, v, scale=32 ** -0.5)
     assert tattn.kernel_padded(q, v, scale=0.1)
@@ -202,6 +210,7 @@ def test_kernel_contract():
     (2, 37, 4, 2, 96, 64, "window", 9),
     (2, 24, 2, 2, 32, 32, "causal", None),   # the reduced MLA config's
     (1, 20, 4, 2, 48, 48, "causal", None),   # D off the kernel's dims
+    (1, 21, 2, 1, 192, 192, "window", 7),    # padded to 256
 ])
 def test_padded_route_arithmetic(B, S, H, KV, D, Dv, mode, window):
     """Kernel 6's padded route on the CPU: zero-pad q, k and v to the next
@@ -214,7 +223,7 @@ def test_padded_route_arithmetic(B, S, H, KV, D, Dv, mode, window):
     q, k, v = (torch.from_numpy(a) for a in
                _qkv(D + Dv + S, B, S, S, H, KV, D, Dv))
     P = padded_head_dim(D, Dv)
-    assert P == min(p for p in (16, 32, 64, 128) if p >= max(D, Dv))
+    assert P == min(p for p in (16, 32, 64, 128, 256) if p >= max(D, Dv))
     pad = torch.nn.functional.pad
     got = ref.flash_attention_ref(pad(q, (0, P - D)), pad(k, (0, P - D)),
                                   pad(v, (0, P - Dv)), mode=mode,

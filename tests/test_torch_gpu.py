@@ -1312,3 +1312,137 @@ def test_sgdm_bf16_step_on_card_equals_cpu():
         for a, b in zip(leaves(pa) + leaves(sa["mu"]),
                         leaves(pb) + leaves(sb["mu"]), strict=True):
             assert torch.equal(a.cpu(), b), key
+
+
+# =====================================================================
+# kernel 6 at head dim 256 and the SSM, hybrid, audio and VLM families
+# =====================================================================
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,mode,window", [
+    (2, 77, 77, 4, 1, "causal", None),
+    (1, 300, 300, 4, 1, "window", 40),
+    (2, 130, 203, 4, 1, "full", None),       # Sq < Skv (cross-attention)
+    (1, 203, 130, 2, 2, "full", None),       # Sq > Skv
+    (1, 459, 459, 8, 2, "causal", None),     # eight 64-row q tiles, ragged
+    (1, 333, 517, 6, 1, "window", 70),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_d256_matches_plain(B, Sq, Skv, H, KV, mode, window,
+                                            dtype):
+    """Kernel 6 at head dim 256 (recurrentgemma-9b's local attention):
+    the float32 FMA kernel and the bfloat16 wgmma kernel, whose two
+    consumer warpgroups split O's columns; causal, window and full,
+    ragged lengths, Sq != Skv, MQA (one kv head) and GQA; against the
+    plain version at ``FLASH_TOL``, one launch a call."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(Sq * H + Skv)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, Sq, H, 256), (B, Skv, KV, 256),
+                             (B, Skv, KV, 256)))
+    before = _lib.counts().get("flash_attention", 0)
+    r0 = fa.ROUTE_LAUNCHES[fa.kernel_route(dtype)]
+    got = flash_attention(q, k, v, mode=mode, window=window)
+    torch.cuda.synchronize()
+    assert _lib.counts()["flash_attention"] == before + 1
+    assert fa.ROUTE_LAUNCHES[fa.kernel_route(dtype)] == r0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, mode=mode,
+                                             window=window).float(),
+        **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_attention_d256_model_routes():
+    """At the model level a head dim of 256 launches the kernel directly,
+    one of 192 takes the padded route (to 256), and one above 256 is
+    refused naming ROADMAP item 11i."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_attention as model_flash
+    g = torch.Generator(device="cuda").manual_seed(192)
+    for D, route in ((256, "wgmma"), (192, "wgmma_padded")):
+        q, k, v = (torch.randn((1, 150, 4, D), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        r0 = fa.ROUTE_LAUNCHES[route]
+        got = model_flash(q, k, v, mode="window", window=64)
+        torch.cuda.synchronize()
+        assert fa.ROUTE_LAUNCHES[route] == r0 + 1
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_ref(
+                q, k, v, mode="window", window=64).float(),
+            **FLASH_TOL[torch.bfloat16])
+    q = torch.zeros((1, 16, 2, 320), device="cuda")
+    with pytest.raises(NotImplementedError, match="11i"):
+        model_flash(q, q, q)
+
+
+def _family_batch(cfg, seq, seed):
+    """Tokens and, per family, the stub frontend's inputs, on the CPU."""
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    batch = synthetic_lm_batch(seed, cfg.vocab_size, 2, seq)
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encdec.n_frames, cfg.d_model),
+                                      generator=g)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.vlm.n_image_tokens, cfg.d_model), generator=g)
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_attn", [
+    ("mamba2_2_7b", 0), ("recurrentgemma_9b", 1), ("whisper_medium", 6),
+    ("phi3_vision_4_2b", 2)])
+def test_new_family_reduced_on_card_matches_cpu(arch, n_attn):
+    """Reduced SSM, hybrid, audio and VLM configs (float32) on the card
+    against the CPU from the same weights: prefill of 2 x 80 tokens (the
+    hybrid's window of 64 binds, its ring wraps) and 3 greedy decode steps,
+    the CPU fed the card's tokens, logits and every cache leaf in the
+    golden band; prefill launches kernel 6 once an attention call, decode
+    never; then ``train_loss``'s gradient, every leaf in the golden band,
+    with no kernel launch (the attention's differentiable route)."""
+    _card()
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import flatten, tree_map, value_and_grad
+    cfg = get_config(arch).reduced()
+    params = models.init_params(torch.Generator().manual_seed(4), cfg, "cpu")
+    gparams = tree_map(lambda t: t.cuda(), params)
+    batch = _family_batch(cfg, 80, 5)
+    del batch["labels"]
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    _lib.reset_launches()
+    glogits, gcache = models.prefill(gparams, cfg, gbatch, 83)
+    torch.cuda.synchronize()
+    assert _lib.counts() == ({"flash_attention": n_attn} if n_attn else {})
+    logits, cache = models.prefill(params, cfg, batch, 83)
+    torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+    for _ in range(3):
+        token = glogits[:, :cfg.vocab_size].argmax(-1)[:, None]
+        glogits, gcache = models.decode_step(gparams, cfg, token, gcache)
+        logits, cache = models.decode_step(params, cfg, token.cpu(), cache)
+        torch.testing.assert_close(glogits.cpu(), logits, **BAND)
+    torch.cuda.synchronize()
+    assert _lib.counts() == ({"flash_attention": n_attn} if n_attn else {})
+    gl, gdef = flatten({k: v for k, v in gcache.items() if k != "index"})
+    cl, cdef = flatten({k: v for k, v in cache.items() if k != "index"})
+    assert gdef == cdef and len(gl) > 0
+    for a, b in zip(gl, cl, strict=True):
+        torch.testing.assert_close(a.cpu(), b, **BAND)
+
+    tbatch = _family_batch(cfg, 24, 6)
+    gtbatch = {k: v.cuda() for k, v in tbatch.items()}
+
+    def loss_fn(p, bt):
+        return models.train_loss(p, cfg, bt)
+    gloss, _, ggrads = value_and_grad(loss_fn, gparams, gtbatch)
+    torch.cuda.synchronize()
+    assert _lib.counts() == ({"flash_attention": n_attn} if n_attn else {})
+    loss, _, grads = value_and_grad(loss_fn, params, tbatch)
+    torch.testing.assert_close(gloss.cpu(), loss, **BAND)
+    for a, b in zip(flatten(ggrads)[0], flatten(grads)[0], strict=True):
+        torch.testing.assert_close(a.cpu(), b, **BAND)

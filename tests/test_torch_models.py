@@ -30,8 +30,10 @@ against a live JAX run on the CPU.
   ``torch.equal`` for a dense, an MLA and an MoE reduced config, and
   prefill never checkpoints;
 * the full-width minicpm3-4b and dbrx-132b trees against
-  ``jax.eval_shape`` (``FakeTensorMode``);
-* the families not ported yet raise, naming their ROADMAP item.
+  ``jax.eval_shape`` (``FakeTensorMode``).
+
+The SSM, hybrid, audio and VLM families are held in
+``tests/test_torch_families.py``.
 """
 import dataclasses
 
@@ -206,18 +208,6 @@ def test_full_width_tree_matches_jax_eval_shape():
     assert got == want
     assert n == sum(int(np.prod(s.shape)) for _, s in jleaves) \
         == 33_342_991_360
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2_2_7b", "11e"), ("recurrentgemma_9b", "11f"),
-    ("whisper_medium", "11g"), ("phi3_vision_4_2b", "11h")])
-def test_unported_families_raise(arch, item):
-    cfg = tconfigs.get_config(arch).reduced()
-    match = f"ROADMAP Queue A item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        tmodels.init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tmodels.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_params_seeded_and_distributed():
