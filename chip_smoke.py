@@ -27,8 +27,14 @@ Phases, each reported on its own lines:
    attention in bf16). Kernel 6's padded route runs at MLA's heads (40 ×
    q/k 96, v 64, bf16, causal) at run (r)'s prefill and run (t)'s
    evaluate, beside ``scaled_dot_product_attention`` at the unpadded
-   shapes (the kernels PyTorch picked named). Kernels 3 to 6 have routes,
-   named
+   shapes (the kernels PyTorch picked named). Kernel 6's whole argument
+   list: ``softcap`` 50 at run (f)'s shape (SDPA has no softcap, so no
+   library call there), a chunked prefill (Sq 256 at the end of Skv
+   1,024, ``q_offset`` 768) causal and in a 512 window, both in float32
+   at D 64 on the FMA kernel, and ``extra_qk`` at minicpm3-4b's
+   decomposed MLA scores (40 heads, nope 64 + rope 32 against a shared
+   ``k_rope``, v 64, 4 x 1,024: the concatenation's copies timed apart,
+   as the pads). Kernels 3 to 6 have routes, named
    in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
    32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
@@ -155,7 +161,9 @@ Phases, each reported on its own lines:
    that round are printed), loss, accuracy and parameters in the golden
    band; accuracy, bytes, switches and λ printed a row. No kernel runs;
 12. a per-partition ladder on kernel 5 — (n) ``SyncFedAvg`` over the
-   CIFAR CNN, 8 clients of 64 images, 6 rounds x 1 epoch, payload
+   CIFAR CNN, 8 clients of 64 images, 3 rounds x 1 epoch (6 until PR
+   23, whose runs (z)-(ab) needed the time: the round-3 refit took ~59 s
+   a play, three plays), payload
    "weights", ``use_grouped_kernel=True``; ``by_layer_partition`` into
    ``dense0`` (461,088 values: a kernel-path chunked AE (256, (32,)) at
    latent 4, at latent 8, then q8; each AE fitted once on the card and
@@ -170,7 +178,7 @@ Phases, each reported on its own lines:
    until the first switch-time refit, which must buy latent 8, ship the
    refit decoders and move the refit lanes' bucket to the batched-params
    route (every round's kernel-5 buckets are the lanes sharing a
-   decoder); a rerun and a resume (saved after round 3) ``torch.equal``;
+   decoder); a rerun and a resume (saved after round 1) ``torch.equal``;
    a reduced copy (2 clients, 3 rounds) on the card and the CPU, the CPU
    encoding the card's trained local models in place of its own:
    payloads, global params a round, loss, accuracy and the controllers'
@@ -279,7 +287,33 @@ Phases, each reported on its own lines:
    record carries the counts as ``launches_run_v`` to ``launches_run_y``
    and kernel 6's rows at these runs' shapes (phase 3: D 256 window,
    whisper's encoder, decoder and cross calls, phi-3's padded heads,
-   each beside SDPA with the same mask).
+   each beside SDPA with the same mask);
+20. the pod-axis FL round and the sharded server paths, on a one-rank
+   NCCL group (a gloo group beside it for CPU tensors): (z)
+   ``build_fl_round_step`` on stablelm-1.6b at full width, all 24 layers
+   (float32 parameters, bf16 compute, remat, ``adamw``), ``DEFAULT_AE``
+   (4096 -> 512 -> 8), 4 x 1,024 tokens a round, 3 rounds: loss and host s
+   a round, the peak of ``max_memory_allocated`` (the need reckoned from
+   the tree checked first against what earlier phases hold), the latent
+   bytes all-reduced a round against the gradient bytes (equal to
+   ``compressed_fraction``), one more round under ``torch.profiler``
+   (device idle share, device ms by ``fl_round.*`` phase); its reduced
+   config's round on the card and the CPU (the LM band). (ab)
+   ``decode_and_aggregate_sharded`` at run (h)'s cohort (64 clients, 2^20
+   values, the kernel-path chunked AE, through kernels 3 and 4) and run
+   (o)'s q8 K 4,096, and 3 ``run_serve`` rounds at ``serve_q8_c256``'s
+   shape with ``ServeConfig(shard=True)``, their launches counted alone;
+   then each against the unsharded call on the card, the two serves'
+   rounds a second as run (o)'s (median of three windows of at least
+   1 s). Then two processes share the card over gloo
+   (``repro_torch.launch.local.spawn``; a child's failure fails the
+   script): each repeats (ab) over the two-rank group, and (aa) runs the FL
+   round on stablelm-1.6b at full width, 2 of 24 layers, each rank on its
+   half of a 4 x 1,024-token batch, 2 rounds; rank 0 then composes the
+   same two rounds in one process (each half's latents, their mean,
+   decode, the optimizer's step) and holds the pods' params to it in the
+   golden band, reporting whether the bits are equal. The record carries
+   the one-rank (ab)'s counts of its sharded calls as ``launches_run_ab``.
 
 Each phase's start is logged with the seconds since the script began.
 
@@ -580,25 +614,44 @@ def check_grouped_decode_agg(shapes, K: int, N: int, dec_idx, seed: int,
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def attention_pairs(Sq: int, Skv: int, mode: str, window) -> int:
-    """(query, key) pairs the mask lets through, for one (batch, head)."""
+def attention_pairs(Sq: int, Skv: int, mode: str, window,
+                    q_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through, for one (batch, head);
+    query row i sits at key position i + q_offset."""
     total = 0
-    for i in range(Sq):
+    for i in range(q_offset, Sq + q_offset):
         hi = Skv if mode == "full" else min(i + 1, Skv)
         lo = max(0, i - window + 1) if mode == "window" else 0
         total += max(0, hi - lo)
     return total
 
 
+def sdpa_mask(Sq: int, Skv: int, mode: str, window, q_offset: int = 0):
+    """The boolean ``attn_mask`` of ``scaled_dot_product_attention`` for
+    kernel 6's mask (None in full mode)."""
+    import torch
+    if mode == "full":
+        return None
+    qi = torch.arange(Sq, device="cuda")[:, None] + q_offset
+    kj = torch.arange(Skv, device="cuda")[None, :]
+    m = kj <= qi
+    if mode == "window":
+        m &= kj > qi - window
+    return m
+
+
 def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
-                mode: str, window, dtype, seed: int, iters: int) -> dict:
+                mode: str, window, dtype, seed: int, iters: int,
+                q_offset: int = 0, softcap: float = 0.0) -> dict:
     """Kernel 6 against its plain version. ``bound_ms``: q, k, v and the
     output moved once, against 4·D operations for each (query, key) pair
     the mask lets through at the input type's peak; ``library_ms``:
     ``scaled_dot_product_attention`` on the (B, H, S, D) views with the
     same mask — ``is_causal`` (top-left aligned, as the kernel's), none
-    in full mode, the window as a boolean ``attn_mask`` — with the kernels
-    PyTorch picked for it named."""
+    in full mode, the window (and any ``q_offset``) as a boolean
+    ``attn_mask`` — with the kernels PyTorch picked for it named. SDPA has
+    no softcap: with one, ``library_ms`` is None and ``library_call``
+    says why."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -608,43 +661,46 @@ def check_flash(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
     q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
-    got = flash_attention(q, k, v, mode=mode, window=window)
-    want = ref.flash_attention_ref(q, k, v, mode=mode, window=window)
+    kw6 = dict(mode=mode, window=window, q_offset=q_offset, softcap=softcap)
+    got = flash_attention(q, k, v, **kw6)
+    want = ref.flash_attention_ref(q, k, v, **kw6)
     torch.cuda.synchronize()
     require(got.dtype == dtype and got.shape == q.shape, "flash output")
     tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     err = close(got, want, **tol)
     es = q.element_size()
     dname = "float32" if dtype == torch.float32 else "bfloat16"
-    pairs = B * H * attention_pairs(Sq, Skv, mode, window)
+    pairs = B * H * attention_pairs(Sq, Skv, mode, window, q_offset)
     b_ms, b_by = bound(es * (2 * B * Sq * H * D + 2 * B * Skv * KV * D),
                        4.0 * D * pairs, dname)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kw = dict(enable_gqa=True)
-    if mode == "causal":
-        kw["is_causal"] = True
-    elif mode == "window":
-        qi = torch.arange(Sq, device="cuda")[:, None]
-        kj = torch.arange(Skv, device="cuda")[None, :]
-        kw["attn_mask"] = (kj <= qi) & (kj > qi - window)
+    lib = dict(library_ms=None,
+               library_call="none: SDPA has no softcap")
+    if softcap == 0.0:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kw = dict(enable_gqa=True)
+        if mode == "causal" and q_offset == 0:
+            kw["is_causal"] = True
+        elif mode != "full":
+            kw["attn_mask"] = sdpa_mask(Sq, Skv, mode, window, q_offset)
 
-    def lib():
-        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
-    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
-                    .max())
-    lib_ms = time_ms(lib, iters)
-    lib_kernels = [n for n, _ in traced_round(lib, top=3)["top_kernels_ms"]]
-    kern = lambda: flash_attention(q, k, v, mode=mode,       # noqa: E731
-                                   window=window)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        lib = dict(
+            library_ms=time_ms(sdpa, iters),
+            library_kernels=[n for n, _ in
+                             traced_round(sdpa, top=3)["top_kernels_ms"]],
+            library_max_abs_err=float((sdpa().transpose(1, 2).float()
+                                       - want.float()).abs().max()))
+    kern = lambda: flash_attention(q, k, v, **kw6)           # noqa: E731
     return dict(name="flash_attention", shape=[B, Sq, Skv, H, KV, D],
-                mode=mode, window=window, dtype=dname,
+                mode=mode, window=window, q_offset=q_offset,
+                softcap=softcap, dtype=dname,
                 kernel_route=kernel_route(dtype), max_abs_err=err,
                 ms=time_ms(kern, iters), host_ms=host_ms(kern, iters),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, mode=mode, window=window), iters),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library_kernels=lib_kernels, library_max_abs_err=lib_err,
-                gflop=4.0 * D * pairs / 1e9)
+                    q, k, v, **kw6), iters),
+                bound_ms=b_ms, bound_by=b_by, gflop=4.0 * D * pairs / 1e9,
+                **lib)
 
 
 # ------------------------------------------------------------------ slice
@@ -788,11 +844,13 @@ def in_model_flash_errs(run, calls: list = None) -> list:
     errs = []
 
     def held(kernel):
-        def checked(q, k, v, *, mode, window, scale=None):
-            kw = {} if scale is None else {"scale": scale}
-            out = kernel(q, k, v, mode=mode, window=window, **kw)
+        def checked(q, k, v, *, mode, window, scale=None, q_offset=0,
+                    softcap=0.0):
+            kw = dict(q_offset=q_offset, softcap=softcap)
+            out = kernel(q, k, v, mode=mode, window=window,
+                         **kw, **({} if scale is None else {"scale": scale}))
             want = ref.flash_attention_ref(q, k, v, mode=mode, window=window,
-                                           scale=scale)
+                                           scale=scale, **kw)
             tol = (FLASH_F32_TOL if q.dtype == torch.float32
                    else FLASH_BF16_TOL)
             errs.append(close(out, want, **tol))
@@ -1586,6 +1644,9 @@ CNN_RATE_CHUNK = 256
 CNN_RATE_HIDDEN = (32,)
 CNN_RATE_RD = dict(cooldown=2, min_snapshots=2, refit_epochs=5,
                    refit_batch=4)
+# run (n)'s depth: 3 rounds (6 until PR 23; its round-3 switch-time refit
+# took ~59 s a play, the first, at round 1, is kept)
+CNN_RATE_ROUNDS = 3
 
 
 def prepass_rate_ladder(device: str):
@@ -2200,7 +2261,8 @@ def ae_buckets(run, name: str = "dense0") -> tuple:
 
 
 def run_rate_cnn(launches: dict) -> dict:
-    """Phase 12, run (n): the shared AE rungs fitted on the card, 6 rounds
+    """Phase 12, run (n): the shared AE rungs fitted on the card,
+    ``CNN_RATE_ROUNDS`` rounds
     of :func:`build_rate_cnn` on the card (per round its launches, routes,
     kernel-5 buckets, probes, switches, refits and decoder ships), a rerun
     and a resume held to ``torch.equal``, the reduced copy on the card and
@@ -2228,8 +2290,8 @@ def run_rate_cnn(launches: dict) -> dict:
     fd_mod.ROUTE_LAUNCHES.clear()
     plays_n = []
     with CohortSpy() as spy_n, GroupedSpy() as gspy, ProbeSpy() as probes:
-        run_n = build_rate_cnn(fit_n, "cuda")
-        for _ in range(6):
+        run_n = build_rate_cnn(fit_n, "cuda", rounds=CNN_RATE_ROUNDS)
+        for _ in range(CNN_RATE_ROUNDS):
             g0, want = len(gspy.calls), ae_buckets(run_n)
             plays_n += play(run_n, 1, "cuda", spy_n)
             plays_n[-1].update(grouped=gspy.calls[g0:], routing=want)
@@ -2298,20 +2360,21 @@ def run_rate_cnn(launches: dict) -> dict:
             f"{rec.bytes_decoder!r}, refits {p['refits']}, lambda "
             f"{dict(rc_n.lambda_trace).get(rec.round)!r}, loss "
             f"{rec.global_metrics['loss']!r}")
-    run_n2 = build_rate_cnn(fit_n, "cuda")
-    play(run_n2, 6, "cuda")
+    run_n2 = build_rate_cnn(fit_n, "cuda", rounds=CNN_RATE_ROUNDS)
+    play(run_n2, CNN_RATE_ROUNDS, "cuda")
     check_resume("run (n) rerun", run_n, run_n2, 0)
     controller_state_equal("run (n) rerun", rc_n, run_n2.ratecontrol)
     del run_n2
     res_n, plays_nr, nbytes_n, save_n, load_n = resume_via_checkpoint(
-        "run_n", lambda n: build_rate_cnn(fit_n, "cuda", rounds=n), 4, 2,
-        "cuda")
-    check_resume("run (n) resume", run_n, res_n, 4)
+        "run_n", lambda n: build_rate_cnn(fit_n, "cuda", rounds=n),
+        CNN_RATE_ROUNDS - 1, 1, "cuda")
+    check_resume("run (n) resume", run_n, res_n, CNN_RATE_ROUNDS - 1)
     controller_state_equal("run (n) resume", rc_n, res_n.ratecontrol)
     k5_nr = [p["launches"].get("grouped_fused_decode_agg", 0)
              for p in plays_nr]
-    log(f"rate (n) saved after round 3 ({nbytes_n} B, {save_n!r} s), "
-        f"loaded into a fresh run ({load_n!r} s), rounds 4-5 "
+    log(f"rate (n) saved after round {CNN_RATE_ROUNDS - 2} ({nbytes_n} B, "
+        f"{save_n!r} s), loaded into a fresh run ({load_n!r} s), round "
+        f"{CNN_RATE_ROUNDS - 1} "
         f"({[p['s'] for p in plays_nr]!r} s, kernel-5 launches "
         f"{k5_nr}): params, codec params, snapshot rings, controller "
         "state and "
@@ -2447,6 +2510,46 @@ SERVE_WINDOW_S = 1.0      # the least host-clock window a throughput reading
 SERVE_WINDOWS = 3         # readings a row: their median and range
 
 
+def serve_windows(cfg, params, us: float, rounds: int, group=None) -> dict:
+    """``SERVE_WINDOWS`` fresh ``run_serve`` calls (warm-up 1) that each
+    timed at least ``SERVE_WINDOW_S`` seconds of rounds: the median
+    reading, the range and the windows. ``us`` (an earlier reading's µs a
+    round) sizes the first window. A sharded step over more than one rank
+    agrees with the other ranks on each window's rounds (the most any rank
+    asks) and on whether a reading counts (every rank's filled its
+    window), so the ranks' all-reduces pair up."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.serve import run_serve
+    world = dist.get_world_size(group) if cfg.shard else 1
+
+    def agree(x: float, op) -> float:
+        if world == 1:
+            return x
+        t = torch.tensor([float(x)], dtype=torch.float64)
+        dist.all_reduce(t, op=op, group=group)
+        return t.item()
+    reads = []
+    while len(reads) < SERVE_WINDOWS:
+        # as many rounds as the last reading says fill the window with a
+        # fifth to spare; a reading that still falls short is taken again
+        window = int(agree(max(rounds, math.ceil(
+            1.2 * SERVE_WINDOW_S * 1e6 / us)), dist.ReduceOp.MAX))
+        x = run_serve(cfg, window, params, warmup=1, group=group)[1]
+        us = x["us_per_round"]
+        if agree(window * us / 1e6, dist.ReduceOp.MIN) >= SERVE_WINDOW_S:
+            reads.append(dict(x, window_rounds=window,
+                              window_s=window * us / 1e6))
+    reads.sort(key=lambda x: x["rounds_per_sec"])
+    timed = {key: reads[len(reads) // 2][key] for key in
+             ("rounds_per_sec", "bytes_per_sec", "us_per_round")}
+    for key in list(timed):
+        timed[key + "_range"] = [min(x[key] for x in reads),
+                                 max(x[key] for x in reads)]
+    return dict(timed, window_rounds=[x["window_rounds"] for x in reads],
+                window_s=[x["window_s"] for x in reads])
+
+
 def serve_row(name, spec, params, n: int, k: int, rounds: int) -> dict:
     """One row of run (o): ``run_serve`` (warm-up 1, ``rounds`` timed); the
     same rounds again one at a time, each round's host time (the step's
@@ -2505,25 +2608,8 @@ def serve_row(name, spec, params, n: int, k: int, rounds: int) -> dict:
     require(math.isfinite(float(holder[0]["global_flat"].abs().max())),
             f"{name}: global model not finite")
     del holder, st, final, step
-    reads, us = [], report["us_per_round"]
-    while len(reads) < SERVE_WINDOWS:
-        # as many rounds as the last reading says fill the window with a
-        # fifth to spare; a reading that still falls short is taken again
-        window = max(rounds, math.ceil(1.2 * SERVE_WINDOW_S * 1e6 / us))
-        x = run_serve(cfg, window, params, warmup=1)[1]
-        us = x["us_per_round"]
-        if window * us / 1e6 >= SERVE_WINDOW_S:
-            reads.append(dict(x, window_rounds=window,
-                              window_s=window * us / 1e6))
-    reads.sort(key=lambda x: x["rounds_per_sec"])
-    timed = {key: reads[len(reads) // 2][key] for key in
-             ("rounds_per_sec", "bytes_per_sec", "us_per_round")}
-    for key in list(timed):
-        timed[key + "_range"] = [min(x[key] for x in reads),
-                                 max(x[key] for x in reads)]
+    timed = serve_windows(cfg, params, report["us_per_round"], rounds)
     return dict(name=name, n_clients=n, cohort=k, full_timed_rounds=rounds,
-                window_rounds=[x["window_rounds"] for x in reads],
-                window_s=[x["window_s"] for x in reads],
                 **timed, round_bytes=report["round_bytes"],
                 sim_time=report["sim_time"],
                 round_host_ms=[p["host_ms"] for p in per],
@@ -3495,6 +3581,461 @@ def family_card_vs_cpu(arch: str, n_attn: int) -> dict:
                 logits_max_abs_err=errs, cache_max_abs_err=cache_err)
 
 
+# ------------------------------------- kernel 6's extra_qk (item A.2)
+def check_flash_extra(B: int, S: int, H: int, D: int, P2: int, Dv: int,
+                      dtype, seed: int, iters: int) -> dict:
+    """Kernel 6 on the reference's ``extra_qk`` scores at MLA's decomposed
+    heads: q (B, S, H, D), k (B, S, H, D), v (B, S, H, Dv), q2 (B, S, H,
+    P2) and a shared k2 (B, S, P2), causal, through the model-level
+    ``flash_attention`` (``flash_attention_extra``: ``[q | q2]`` and ``[k
+    | k2]`` concatenated, then the padded route at q's own scale
+    ``D ** -0.5``), against the plain chunked math of the reference's scan.
+    ``ms`` is the whole route; ``concat_ms`` the two concatenations,
+    ``pad_ms`` the three pads and ``launch_ms`` the kernel on the padded
+    operands, each timed alone. ``bound_ms`` counts the unpadded work: q,
+    k, q2, k2, v and the output moved once, against ``2·(D + P2) + 2·Dv``
+    operations a (query, key) pair the causal mask lets through.
+    ``library_ms`` is ``scaled_dot_product_attention(is_causal=True,
+    scale=D ** -0.5)`` on the concatenated, unpadded operands (the
+    concatenation not timed), the kernels PyTorch picked named."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import flash_attention as model_flash
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, q2, k2 = (
+        torch.randn(shape, generator=g, device="cuda").to(dtype)
+        for shape in ((B, S, H, D), (B, S, H, D), (B, S, H, Dv),
+                      (B, S, H, P2), (B, S, P2)))
+    n0 = fa.ROUTE_LAUNCHES.copy()
+    with torch.no_grad():
+        got = model_flash(q, k, v, extra_qk=(q2, k2))
+    want = ref.chunked_attention_ref(q, k, v, extra_qk=(q2, k2))
+    torch.cuda.synchronize()
+    routes = dict(fa.ROUTE_LAUNCHES - n0)
+    require(got.dtype == dtype and tuple(got.shape) == (B, S, H, Dv),
+            "extra_qk output")
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    err = close(got, want, **tol)
+    scale = D ** -0.5
+    qc, kc = fa.concat_extra(q, k, (q2, k2))
+    P = fa.padded_head_dim(D + P2, Dv)
+    pads = ((qc, P - D - P2), (kc, P - D - P2), (v, P - Dv))
+    qp, kp, vp = (F.pad(t, (0, n)) for t, n in pads)
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    pairs = B * H * attention_pairs(S, S, "causal", None)
+    es = q.element_size()
+    b_ms, b_by = bound(es * (2 * B * S * H * D + B * S * H * P2
+                             + B * S * P2 + 2 * B * S * H * Dv),
+                       (2.0 * (D + P2) + 2.0 * Dv) * pairs, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale)
+    route = lambda: fa.flash_attention_extra(q, k, v, (q2, k2))  # noqa: E731
+    return dict(name="flash_attention", shape=[B, S, S, H, H, D, P2, Dv],
+                mode="causal", window=None, dtype=dname,
+                kernel_route=fa.kernel_route(dtype) + "_padded",
+                routes=routes, padded_head_dim=P, max_abs_err=err,
+                ms=time_ms(route, iters),
+                concat_ms=time_ms(lambda: fa.concat_extra(q, k, (q2, k2)),
+                                  iters),
+                pad_ms=time_ms(lambda: [F.pad(t, (0, n)) for t, n in pads],
+                               iters),
+                launch_ms=time_ms(lambda: fa.flash_attention(
+                    qp, kp, vp, scale=scale), iters),
+                host_ms=host_ms(route, iters),
+                plain_ms=time_ms(lambda: ref.chunked_attention_ref(
+                    q, k, v, extra_qk=(q2, k2)), iters),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters),
+                library_call="scaled_dot_product_attention on [q | q2], "
+                             "[k | k2] (unpadded), scale=D**-0.5",
+                library_kernels=[n for n, _ in
+                                 traced_round(lib, top=3)["top_kernels_ms"]],
+                library_max_abs_err=float((lib().transpose(1, 2).float()
+                                           - want.float()).abs().max()),
+                gflop=(2.0 * (D + P2) + 2.0 * Dv) * pairs / 1e9)
+
+
+# ------------------------------ the pod-axis FL round (z), (aa), (ab)
+FL_Z = dict(arch="stablelm_1_6b", batch=4, seq=1024, rounds=3)
+FL_AA = dict(arch="stablelm_1_6b", n_layers=2, batch=4, seq=1024, rounds=2)
+FL_PHASES = ("fl_round.forward_backward", "fl_round.encode",
+             "fl_round.all_reduce", "fl_round.decode", "fl_round.optimizer")
+
+
+def fl_batch(cfg, r: int, batch: int, seq: int) -> dict:
+    import torch
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    return {k: v.to("cuda") for k, v in synthetic_lm_batch(
+        100 + r, cfg.vocab_size, batch, seq).items()}
+
+
+def fl_setup(cfg, seed: int = 0):
+    """Full-width params drawn on the card from ``seed``, the default
+    chunked AE from ``seed + 1``, the config's optimizer state."""
+    import torch
+    from repro_torch.core.autoencoder import init_chunked_ae
+    from repro_torch.core.distributed import DEFAULT_AE
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import make_optimizer
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg, "cuda")
+    ae = init_chunked_ae(torch.Generator().manual_seed(seed + 1),
+                         DEFAULT_AE, "cuda")
+    opt = make_optimizer(cfg.optimizer, cfg.learning_rate,
+                         weight_decay=cfg.weight_decay,
+                         grad_clip=cfg.grad_clip)
+    return params, ae, opt, opt.init(params)
+
+
+def fl_phase_split(prof) -> dict:
+    """Device ms under each ``fl_round.*`` range of one traced round: the
+    union of the kernels that start inside the range's device span (the
+    ``gpu_user_annotation`` events ``torch.profiler`` records for
+    ``record_function``); the all-reduce, which launches no kernel inside
+    its range's device span, as the union of the NCCL kernels."""
+    import torch
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in cuda if e.name in FL_PHASES]
+    kern = [e for e in cuda if e.name not in FL_PHASES]
+    out = {}
+    for name in FL_PHASES:
+        mine = [e for e in spans if e.name == name]
+        if not mine and name == "fl_round.all_reduce":
+            out[name] = busy_ms([k for k in kern if "nccl" in k.name.lower()])
+            continue
+        if not mine:
+            out[name] = "not measured (no device span recorded)"
+            continue
+        inside = [k for k in kern for sp in mine
+                  if sp.time_range.start <= k.time_range.start
+                  < sp.time_range.end]
+        out[name] = busy_ms(inside)
+    return out
+
+
+def run_fl_round_z(launches: dict) -> dict:
+    """Run (z): ``build_fl_round_step`` on stablelm-1.6b at full width,
+    all 24 layers (float32 parameters, bf16 compute, remat, ``adamw``),
+    ``DEFAULT_AE`` (4096 -> 512 -> 8), on the one-rank NCCL group; 4 x
+    1,024 tokens a round, 3 rounds (loss, host s, the latent bytes
+    all-reduced against the gradient bytes), then one more round under
+    ``torch.profiler`` (device idle share; device ms by phase)."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.distributed import (DEFAULT_AE,
+                                              build_fl_round_step,
+                                              compressed_fraction)
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import _lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(FL_Z["arch"])
+    held = torch.cuda.memory_allocated()
+    params, ae, opt, state = fl_setup(cfg)
+    n_params = sum(p.numel() for p in leaves(params))
+    p_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    # reckoned from the tree: params, gradients, two adamw moments, the
+    # decoded tree, the largest leaf's chunks through the AE, the logits
+    biggest = max(p.numel() for p in leaves(params))
+    logits = 4 * FL_Z["batch"] * FL_Z["seq"] * cfg.padded_vocab * 4
+    need = (5 * p_bytes + 4 * (biggest // 4096 + 1) * (2 * 4096 + 512)
+            + logits)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"fl (z) {cfg.name} x{cfg.n_layers} layers, {n_params} parameters "
+        f"({p_bytes} B); reckoned need {need} B beside {held} B held "
+        f"before the run, of {total} B")
+    require(held + need < total, "run (z) would not fit on the card")
+    bundle = build_fl_round_step(
+        cfg, ShapeConfig("z", FL_Z["seq"], FL_Z["batch"], "train"), None,
+        DEFAULT_AE)
+    frac = compressed_fraction(params, DEFAULT_AE)
+    lat_bytes = sum(-(-p.numel() // DEFAULT_AE.chunk_size)
+                    * DEFAULT_AE.latent_chunk * 4 for p in leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    rounds = []
+    for r in range(FL_Z["rounds"]):
+        batch = fl_batch(cfg, r, FL_Z["batch"], FL_Z["seq"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = bundle.fn(params, state, ae, batch)
+        torch.cuda.synchronize()
+        last = bundle.stats["last_round"]
+        rounds.append(dict(round=r, loss=float(m["loss"]),
+                           accuracy=float(m["accuracy"]),
+                           host_s=time.perf_counter() - t0,
+                           latent_bytes=last["latent_bytes"],
+                           grad_bytes=last["grad_bytes"]))
+        require(math.isfinite(rounds[-1]["loss"]), "run (z): loss")
+        require(last["grad_bytes"] == 4 * n_params
+                and last["latent_bytes"] == lat_bytes
+                and abs(last["latent_bytes"] / last["grad_bytes"] - frac)
+                < 1e-12,
+                f"run (z): latent bytes {last} against compressed_fraction "
+                f"{frac!r}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = _lib.counts()
+    batch = fl_batch(cfg, FL_Z["rounds"], FL_Z["batch"], FL_Z["seq"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = bundle.fn(params, state, ae, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in FL_PHASES]
+    busy = busy_ms(kern)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, n_params=n_params,
+               tokens_a_round=FL_Z["batch"] * FL_Z["seq"], ae=str(DEFAULT_AE),
+               rounds=rounds, compressed_fraction=frac,
+               peak_memory_bytes=peak, launches=counts,
+               traced=dict(wall_ms=wall, device_busy_ms=busy,
+                           device_idle_share=1.0 - busy / wall,
+                           device_kernels=len(kern),
+                           device_ms_by_phase=fl_phase_split(prof),
+                           loss=float(m["loss"])))
+    del params, state, ae, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fl_card_vs_cpu(gloo) -> dict:
+    """Run (z)'s reduced copy: one FL round of stablelm-1.6b's reduced
+    config (float32) on the card (the NCCL group) and on the CPU (the gloo
+    group) from the same params, AE and batch; loss, accuracy and params
+    within the LM band ``atol=1e-4, rtol=1e-3`` (``PERF.md`` §2)."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.autoencoder import (ChunkedAEConfig,
+                                              init_chunked_ae)
+    from repro_torch.core.distributed import build_fl_round_step
+    from repro_torch.core.pytree import leaves, tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import make_optimizer
+    cfg = get_config(FL_Z["arch"]).reduced()
+    ae_cfg = ChunkedAEConfig(256, (32,), 8)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ae = init_chunked_ae(torch.Generator().manual_seed(1), ae_cfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in
+             synthetic_lm_batch(7, cfg.vocab_size, 4, 128).items()}
+    out = {}
+    for dev, group in (("cuda", None), ("cpu", gloo)):
+        bundle = build_fl_round_step(cfg, ShapeConfig("z", 128, 4, "train"),
+                                     group, ae_cfg)
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        opt = make_optimizer(cfg.optimizer, cfg.learning_rate,
+                             weight_decay=cfg.weight_decay,
+                             grad_clip=cfg.grad_clip)
+        out[dev] = bundle.fn(p, opt.init(p), tree_map(lambda t: t.to(dev),
+                                                      ae),
+                             {k: v.to(dev) for k, v in batch.items()})
+    (gp, _, gm), (cp, _, cm) = out["cuda"], out["cpu"]
+    errs = dict(loss=close(gm["loss"].cpu(), cm["loss"], 1e-4, 1e-3),
+                accuracy=close(gm["accuracy"].cpu(), cm["accuracy"], 1e-4,
+                               1e-3))
+    errs["params"] = max(close(a.cpu(), b, 1e-4, 1e-3)
+                         for a, b in zip(leaves(gp), leaves(cp)))
+    return errs
+
+
+def sharded_cases(device: str):
+    """Run (ab)'s decode→aggregate inputs: run (h)'s cohort (64 clients,
+    2^20 values, the kernel-path chunked AE (256, (32,), 8)) and run (o)'s
+    q8 K 4,096 (2^16 values, block 256), payloads drawn from seeds."""
+    import torch
+    from repro_torch.core import codec, serve
+    from repro_torch.core.autoencoder import (ChunkedAEConfig,
+                                              init_chunked_ae)
+    cfg = ChunkedAEConfig(256, (32,), 8)
+    ae = init_chunked_ae(torch.Generator().manual_seed(3), cfg,
+                         device)
+    cases = []
+    for name, spec, p, C in (
+            ("chunked_ae_run_h", codec.ChunkedAESpec(size=1 << 20, cfg=cfg,
+                                                     use_kernel=True), ae,
+             64),
+            ("q8_run_o_c4096", codec.QuantizeSpec(size=1 << 16, bits=8,
+                                                  block=256), None, 4096)):
+        g = torch.Generator(device=device).manual_seed(C)
+        stacked = serve.synthetic_payloads(spec, p, C, g)
+        w = torch.rand((C,), generator=g, device=device) + 0.1
+        cases.append((name, spec, p, stacked, w / w.sum()))
+    return cases
+
+
+AB_KERNELS = ("dequantize_blocks_2d", "fused_dense", "fused_decode_agg")
+
+
+def sharded_paths(group=None) -> dict:
+    """Run (ab) on ``group``. First the sharded paths alone, their kernel
+    launches counted from 0: one ``decode_and_aggregate_sharded`` at each
+    of :func:`sharded_cases` and 3 rounds (after 1 of warm-up) of
+    ``run_serve`` at ``serve_q8_c256``'s shape with ``shard=True``; each
+    of ``AB_KERNELS`` must have launched (kernel 2 for q8, kernels 3 and 4
+    for the chunked AE's kernel-terminal route). Then what they are held
+    against: ``decode_and_aggregate`` on the same card (golden band;
+    host-clock ms a call, CUDA events around 5 calls, both) and the
+    unsharded serve (times, seqs, versions exact; ``global_flat`` in the
+    golden band), and the two serves' rounds a second, each by
+    :func:`serve_windows` (median of three windows of at least 1 s). The
+    sharded call's ``all_reduce`` is timed alone too, at each case's
+    size, as ``all_reduce_ms``."""
+    import torch
+    from repro_torch.core import codec, serve
+    from repro_torch.core.collectives import all_reduce_sum, group_size
+    from repro_torch.kernels import _lib
+    cases = sharded_cases("cuda")
+    q8 = codec.QuantizeSpec(size=1 << 16, bits=8, block=256)
+    kw = dict(n_clients=SERVE_N, buffer_k=256, spec=q8, **SERVE_CFG)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    got = [codec.decode_and_aggregate_sharded(spec, p, stacked, w,
+                                              group=group)
+           for _, spec, p, stacked, w in cases]
+    shard, rs = serve.run_serve(serve.ServeConfig(shard=True, **kw), 3,
+                                group=group)
+    torch.cuda.synchronize()
+    counts = _lib.counts()
+    for k in AB_KERNELS:
+        require(counts.get(k, 0) > 0, f"run (ab) never launched {k}")
+    out = {"world": group_size(group), "launches": counts,
+           "all_reduce_ms": {}}
+    for g in got:
+        buf = torch.zeros_like(g)
+        out["all_reduce_ms"][g.numel()] = host_ms(
+            lambda: all_reduce_sum(buf, group), 5)
+    for (name, spec, p, stacked, w), g in zip(cases, got):
+        want = codec.decode_and_aggregate(spec, p, stacked, w)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            max_abs_err=close(g, want, **GOLDEN_BAND),
+            equal=bool(torch.equal(g, want)),
+            sharded_ms=host_ms(lambda: codec.decode_and_aggregate_sharded(
+                spec, p, stacked, w, group=group), 5),
+            unsharded_ms=host_ms(lambda: codec.decode_and_aggregate(
+                spec, p, stacked, w), 5))
+    plain, rp = serve.run_serve(serve.ServeConfig(**kw), 3)
+    for key in ("times", "seqs", "versions"):
+        require(torch.equal(plain[key], shard[key]),
+                f"run (ab): sharded serve {key} differ")
+    out["serve_q8_c256"] = dict(
+        max_abs_err=close(shard["global_flat"], plain["global_flat"],
+                          **GOLDEN_BAND),
+        sharded=serve_windows(serve.ServeConfig(shard=True, **kw), None,
+                              rs["us_per_round"], 3, group),
+        unsharded=serve_windows(serve.ServeConfig(**kw), None,
+                                rp["us_per_round"], 3))
+    return out
+
+
+def pods_child(rank: int, world: int, aa: dict) -> dict:
+    """A rank of runs (aa) and (ab) in a two-process gloo group sharing
+    the card: (ab) :func:`sharded_paths` over the group; (aa) the FL round
+    on stablelm-1.6b at full width, ``aa["n_layers"]`` layers, each rank
+    on its half of each round's batch; then rank 0 composes the same two
+    rounds in this one process (each half's gradients and latents, their
+    mean, decode, the optimizer's step) and compares."""
+    import sys
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core.distributed import (DEFAULT_AE,
+                                              build_fl_round_step,
+                                              leaf_decode, leaf_encode)
+    from repro_torch.core.pytree import flatten, leaves, unflatten
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import grads_of_train_loss
+    from repro_torch.models import model as model_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _lib.load()
+    out = {"ab": sharded_paths(None)}
+    cfg = arch_cut(aa["arch"], aa["n_layers"])
+    B, S, half = aa["batch"], aa["seq"], aa["batch"] // world
+    bundle = build_fl_round_step(cfg, ShapeConfig("aa", S, B, "train"),
+                                 None, DEFAULT_AE)
+    params, ae, opt, state = fl_setup(cfg)
+    metrics, host = [], []
+    for r in range(aa["rounds"]):
+        b = fl_batch(cfg, r, B, S)
+        mine = {k: v[rank * half:(rank + 1) * half] for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = bundle.fn(params, state, ae, mine)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["aa"] = dict(metrics=metrics, host_s=host,
+                     last=bundle.stats["last_round"])
+    if rank != 0:
+        return out
+    got = leaves(params)
+    del state
+    params2, _, _, state2 = fl_setup(cfg)
+    comp = []
+    with torch.no_grad():
+        for r in range(aa["rounds"]):
+            b = fl_batch(cfg, r, B, S)
+            lat_sum, likes, ms = None, None, []
+            for i in range(world):
+                h = {k: v[i * half:(i + 1) * half] for k, v in b.items()}
+                frozen = dict(params2, embed=params2["embed"].detach())
+                h0 = model_lib._embed_inputs(
+                    frozen, cfg, h, model_lib._positions(half, S, "cuda"))
+                with torch.enable_grad():
+                    m, g = grads_of_train_loss(cfg, params2,
+                                               dict(h, h0=h0),
+                                               grad_dtype=torch.float32)
+                gl, td = flatten(g)
+                lat = [leaf_encode(ae, DEFAULT_AE, x) for x in gl]
+                lat_sum = lat if lat_sum is None else [
+                    a + c for a, c in zip(lat_sum, lat)]
+                likes = likes or [(x.shape, x.dtype) for x in gl]
+                ms.append(m)
+                del g, gl
+            decoded = unflatten(td, [
+                leaf_decode(ae, DEFAULT_AE, z / world,
+                            torch.empty(sh, dtype=dt, device="meta"))
+                for z, (sh, dt) in zip(lat_sum, likes)])
+            params2, state2 = opt.update(params2, decoded, state2,
+                                         inplace=True)
+            comp.append({k: float(sum(m[k] for m in ms) / world)
+                         for k in ("loss", "accuracy")})
+    want = leaves(params2)
+    out["aa"]["composed_metrics"] = comp
+    out["aa"]["bits_equal"] = all(torch.equal(a, c)
+                                  for a, c in zip(got, want))
+    out["aa"]["max_abs_err"] = max(close(a, c, **GOLDEN_BAND)
+                                   for a, c in zip(got, want))
+    for a, c in zip(metrics, comp):
+        for k in ("loss", "accuracy"):
+            close(torch.tensor(a[k]), torch.tensor(c[k]), **GOLDEN_BAND)
+    return out
+
+
+def run_pods() -> dict:
+    """Runs (aa) and (ab) on two processes sharing the card over gloo
+    (``repro_torch.launch.local.spawn``); a child's failure raises."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.local import spawn
+    t0 = time.perf_counter()
+    res = spawn("chip_smoke:pods_child", 2, {"aa": FL_AA},
+                ROOT / "build" / "chip_smoke" / "pods", backend="gloo",
+                timeout=400, path=[str(ROOT)])
+    return dict(wall_s=time.perf_counter() - t0, ranks=res)
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -3697,9 +4238,29 @@ def main() -> int:
                                 torch.bfloat16, 74, 10),
         padded_run_y=check_flash_padded(4, 1024, 32, 96, 96, torch.bfloat16,
                                         75, 10))
+    # kernel 6's whole argument list: softcap 50 at run (f)'s shape; a
+    # chunked prefill, Sq 256 at the end of Skv 1,024 (q_offset 768),
+    # causal and window 512; both in float32 at D 64 on the FMA kernel;
+    # extra_qk at minicpm3-4b's decomposed MLA scores (40 heads, nope 64 +
+    # rope 32 against a shared k_rope, v 64, 4 x 1,024, bf16 causal)
+    args6 = dict(
+        softcap_run_f=check_flash(4, 1024, 1024, 56, 8, 128, "causal", None,
+                                  torch.bfloat16, 76, 10, softcap=50.0),
+        q_offset_causal=check_flash(4, 256, 1024, 56, 8, 128, "causal",
+                                    None, torch.bfloat16, 77, 10,
+                                    q_offset=768),
+        q_offset_window=check_flash(4, 256, 1024, 56, 8, 128, "window",
+                                    512, torch.bfloat16, 78, 10,
+                                    q_offset=768),
+        q_offset_softcap_f32=check_flash(2, 256, 512, 32, 32, 64, "causal",
+                                         None, torch.float32, 79, 10,
+                                         q_offset=256, softcap=30.0),
+        extra_qk_minicpm3=check_flash_extra(4, 1024, 40, 64, 32, 64,
+                                            torch.bfloat16, 80, 10))
     for r in (fd[1:] + grouped + cohort + client
               + [slice_rows["flash_attention"]] + flash + runtime + rate_n
-              + serve_lm + mla + mla_t + list(fam.values())):
+              + serve_lm + mla + mla_t + list(fam.values())
+              + list(args6.values())):
         log("kernel " + json.dumps(r))
     log("kernels vs plain: all within tolerance")
 
@@ -4320,8 +4881,52 @@ def main() -> int:
         log(f"family {arch} reduced cuda == cpu in the golden band: "
             + json.dumps(family_card_vs_cpu(arch, n_attn)))
 
-    # --------------------------------------------------------- 20. report
-    at("20. report")
+    # ------------- 20. the pod-axis FL round and sharded paths (z)-(ab)
+    at("20. the pod-axis FL round and the sharded server paths (z)-(ab)")
+    import datetime
+    import torch.distributed as dist
+    store = ROOT / "build" / "chip_smoke" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}",
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        gloo = dist.new_group(backend="gloo")
+        fl_z = run_fl_round_z(launches)
+        log("fl (z) " + json.dumps(fl_z))
+        for r in fl_z["rounds"]:
+            log(f"fl (z) round {r['round']}: loss {r['loss']!r}, "
+                f"{r['host_s']!r} s (host clock), latents all-reduced "
+                f"{r['latent_bytes']} B of {r['grad_bytes']} B of "
+                f"gradients ({r['latent_bytes'] / r['grad_bytes']!r}; "
+                f"compressed_fraction {fl_z['compressed_fraction']!r})")
+        log(f"fl (z) peak {fl_z['peak_memory_bytes'] / 2**30:.2f} GiB; "
+            f"traced round: {json.dumps(fl_z['traced'])}")
+        log("fl (z) reduced cuda == cpu within atol=1e-4 rtol=1e-3: "
+            + json.dumps(fl_card_vs_cpu(gloo)))
+        ab1 = sharded_paths(None)
+        for k in AB_KERNELS:
+            launches[k + "_run_ab"] = ab1["launches"][k]
+        log("sharded (ab) one-rank NCCL " + json.dumps(ab1))
+    finally:
+        dist.destroy_process_group()
+    pods = run_pods()
+    for r, res in enumerate(pods["ranks"]):
+        log(f"sharded (ab) two-process gloo, rank {r} "
+            + json.dumps(res["ab"]))
+        log(f"pods (aa) rank {r} " + json.dumps(res["aa"]))
+    aa0 = pods["ranks"][0]["aa"]
+    log(f"pods (aa) two pods on one card over gloo, stablelm-1.6b x"
+        f"{FL_AA['n_layers']} layers at full width, {FL_AA['rounds']} rounds "
+        f"({pods['wall_s']!r} s with the processes' start): against one "
+        f"process composing the same math, max abs err "
+        f"{aa0['max_abs_err']!r} (golden band), bits equal "
+        f"{aa0['bits_equal']}")
+
+    # --------------------------------------------------------- 21. report
+    at("21. report")
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -4341,7 +4946,10 @@ def main() -> int:
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
                  for x in "hijknopqrtvwxy" if f"{name}_run_{x}" in launches}
         if name == "flash_attention":
-            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1], **fam)
+            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1], **fam,
+                         **args6)
+        if f"{name}_run_ab" in launches:
+            extra["launches_run_ab"] = launches[f"{name}_run_ab"]
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,

@@ -10,5 +10,9 @@ a card they raise instead of falling back (:func:`repro_torch.device.resolve`).
 The five codec kernels of the ported paths and the flash-attention kernel
 of the LM's prefill are hand-written CUDA for Hopper (``csrc/``), each
 beside its plain PyTorch version (``kernels/ref.py``).
-This package never imports ``jax`` or anything of ``repro``.
+The federated round over a ``torch.distributed`` pod group
+(``core/distributed.py``), the sharded server paths, the sharding rules
+(``models/sharding.py``), the launchers (``launch/``) and the roofline on
+the H100's constants (``roofline/``) complete the port of the JAX
+package. This package never imports ``jax`` or anything of ``repro``.
 """

@@ -127,8 +127,8 @@ class ArchConfig:
     long_context_window: Optional[int] = 8192
 
     # training policy
-    # sequence-shard the residual stream during training too (the JAX
-    # package's sharded runs read it; the port has no sharding yet)
+    # sequence-shard the residual stream during training too
+    # (launch/steps.py::_activation_axes)
     train_seq_shard: bool = False
     grad_reduce_dtype: str = "float32"   # bfloat16 halves grad all-reduces
     optimizer: str = "adamw"       # adamw | adam | sgdm | sgdm_bf16

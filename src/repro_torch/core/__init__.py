@@ -55,6 +55,7 @@ from repro_torch.core.codec import (  # noqa: F401
     ae_spec,
     composed_chain,
     decode_and_aggregate,
+    decode_and_aggregate_sharded,
     decode_batched,
     is_shape_static,
     measured_bytes,
@@ -132,4 +133,14 @@ from repro_torch.core.task import (  # noqa: F401
     ClassifierTask,
     ClientTask,
     LMDeltaTask,
+)
+from repro_torch.core.collectives import CountingGroup  # noqa: F401
+from repro_torch.core.distributed import (  # noqa: F401
+    DEFAULT_AE,
+    build_fl_round_step,
+    compressed_fraction,
+    decode_tree,
+    encode_tree,
+    leaf_decode,
+    leaf_encode,
 )

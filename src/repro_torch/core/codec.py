@@ -892,14 +892,18 @@ def _chunked_dec_chunks(spec: ChunkedAESpec, params: Params,
 def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
                          stacked: Payload, weights: torch.Tensor,
                          base: Optional[torch.Tensor] = None, *,
-                         params_batched: bool = False) -> torch.Tensor:
+                         params_batched: bool = False,
+                         partial: bool = False) -> torch.Tensor:
     """Decode the stacked cohort payloads and FedAvg-reduce along the
     client axis → mean flat update ``(size,)``.
 
     ``weights`` must already be normalized (Σ=1; see
     ``aggregate.normalize_weights``). ``base`` (the flat global params
     under the weights-payload protocol) is subtracted after the reduction
-    (Σw=1). Routes, in the reference's order:
+    (Σw=1). ``partial=True`` takes a slice of a normalized cohort's
+    weights (Σw ≤ 1, ``base`` is None) and returns that slice's weighted
+    sum, the share :func:`decode_and_aggregate_sharded` all-reduces.
+    Routes, in the reference's order:
 
     * partitioned homogeneous cohort: one fused reduction per group, each
       by the routes below, scattered back (mixed partitioned cohorts go
@@ -924,6 +928,8 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
       product (DESIGN.md §7.1);
     * everything else: batched decode + einsum over the client axis."""
     w = weights.float()
+    if partial and base is not None:
+        raise ValueError("a partial sum takes no base")
     if is_partitioned(spec):
         part = _partition_mod()
         means = {}
@@ -932,13 +938,14 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
             base_g = None if base is None else part.gather(slices, base)
             means[name] = decode_and_aggregate(
                 cspec, p, stacked[name], w, base_g,
-                params_batched=params_batched and p is not None)
+                params_batched=params_batched and p is not None,
+                partial=partial)
         return part.scatter_groups(spec.structure, means, spec.size)
     if isinstance(spec, ComposedSpec):
         return decode_and_aggregate(
             composed_chain(spec), (params, None),
             _composed_unwrap_payload(stacked), w, base,
-            params_batched=params_batched)
+            params_batched=params_batched, partial=partial)
     if not params_batched:
         if (isinstance(spec, ChainSpec)
                 and isinstance(spec.vector_stages[0], TopKSpec)
@@ -954,7 +961,8 @@ def decode_and_aggregate(spec: CodecSpec, params: Optional[Params],
         kspec = kernel_terminal_ae(spec)
         if kspec is not None:
             z, ae_prm = kernel_chain_latents(spec, params, stacked)
-            mean = _fused_chunked_decode_agg(kspec, ae_prm, z, w)
+            mean = _fused_chunked_decode_agg(kspec, ae_prm, z, w,
+                                             w.sum() if partial else None)
             return mean if base is None else mean - base
     rows = decode_batched(spec, params, stacked,
                           params_batched=params_batched)
@@ -978,16 +986,57 @@ def chunked_hidden(spec: ChunkedAESpec, params: Params,
 
 def _fused_chunked_decode_agg(spec: ChunkedAESpec, params: Params,
                               z: torch.Tensor,
-                              weights: torch.Tensor) -> torch.Tensor:
+                              weights: torch.Tensor,
+                              weight_sum: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Per-client work stays latent-sided (the hidden stack output
     ``(C, n_chunks, hidden)``); the chunk-wide expansion happens once,
-    inside the weighted-accumulation kernel."""
+    inside the weighted-accumulation kernel. The denorm's mean term is
+    taken ``weight_sum`` times (``None``: once, Σw=1)."""
     from repro_torch.kernels.fused_decode_agg import fused_decode_agg
     dec = params["dec"]
     h = chunked_hidden(spec, params, z)
     chunks = fused_decode_agg(h.contiguous(), weights.contiguous(),
                               dec[-1]["w"], dec[-1]["b"])
     norm = params["norm"]                             # (nc, chunk_size)
-    chunks = chunks * norm["std"] + norm["mean"]      # Σw=1 ⇒ mean denorm
+    mean = norm["mean"] if weight_sum is None else weight_sum * norm["mean"]
+    chunks = chunks * norm["std"] + mean              # Σw=1 ⇒ mean denorm
     return chunks.reshape(-1)[:spec.size]
 
+
+
+# =====================================================================
+# the client axis split across ranks (DESIGN.md §7.2)
+# =====================================================================
+@torch.no_grad()
+def decode_and_aggregate_sharded(spec: CodecSpec, params: Optional[Params],
+                                 stacked: Payload, weights: torch.Tensor,
+                                 base: Optional[torch.Tensor] = None,
+                                 group=None) -> torch.Tensor:
+    """Large-cohort variant (the reference's ``shard_map`` over a 1-D
+    ``clients`` mesh): the cohort is zero-weight padded to a multiple of
+    the size of ``group`` (``None``: the initialised world group); each
+    rank reduces its contiguous slice by :func:`decode_and_aggregate`'s
+    routes to a weighted sum (``partial=True``: weights are globally
+    pre-normalized, so no renormalization is needed; codec params are the
+    same on every rank), and one ``all_reduce(SUM)`` makes the cohort mean
+    on every rank. Every rank passes the whole stacked cohort. Zero
+    payloads decode to finite values for every codec, so padded rows add
+    exactly 0. ``base`` is subtracted after the reduction."""
+    from repro_torch.core import collectives
+    from repro_torch.core.pytree import tree_map
+    n = collectives.group_size(group)
+    rank = collectives.group_rank(group)
+    C = weights.shape[0]
+    pad = (-C) % n
+    if pad:
+        stacked = tree_map(lambda x: torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1) + (0, pad)), stacked)
+        weights = torch.nn.functional.pad(weights, (0, pad))
+    per = (C + pad) // n
+    sl = slice(rank * per, (rank + 1) * per)
+    mean = decode_and_aggregate(spec, params,
+                                tree_map(lambda x: x[sl], stacked),
+                                weights[sl], partial=True).contiguous()
+    collectives.all_reduce_sum(mean, group)
+    return mean if base is None else mean - base

@@ -30,8 +30,13 @@ are module-level seams, as in the reference: :func:`synthetic_payloads`
 and :func:`_uniform` (the latency model's uniform draw). Tests feed both
 packages identical draws through them.
 
-``ServeConfig(shard=True)`` (the reference's ``shard_map`` over a device
-mesh) raises: it is ``torch.distributed`` work, ROADMAP Queue A item 12.
+``ServeConfig(shard=True)`` splits the cohort over the ranks of a
+``torch.distributed`` process group (the reference's ``shard_map`` over a
+1-D ``clients`` device mesh): every rank runs the same step, reduces its
+``buffer_k / world`` slice of the cohort to a weighted sum and one
+``all_reduce`` makes the mean (``codec.decode_and_aggregate_sharded``).
+``buffer_k`` must divide over the group's ranks. The group is :func:`make_step`'s and
+:func:`run_serve`'s ``group`` (``None``: the initialised world group).
 """
 from __future__ import annotations
 
@@ -71,11 +76,6 @@ class ServeConfig:
 
     def __post_init__(self):
         assert 0 < self.buffer_k <= self.n_clients
-        if self.shard:
-            raise NotImplementedError(
-                "ServeConfig(shard=True) splits the cohort over a device "
-                "mesh, which is torch.distributed work not ported yet "
-                "(ROADMAP Queue A item 12)")
 
 
 def _uniform(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -181,9 +181,15 @@ class _Step:
     (module docstring). Host work is a fixed number of launches."""
 
     def __init__(self, cfg: ServeConfig, codec_params: Optional[Tree],
-                 dev: torch.device):
+                 dev: torch.device, group=None):
         n, k = cfg.n_clients, cfg.buffer_k
         self.cfg, self.params, self.dev = cfg, codec_params, dev
+        self.group = group
+        if cfg.shard:
+            from repro_torch.core.collectives import group_size
+            world = group_size(group)
+            assert k % world == 0, (
+                f"buffer_k={k} must divide over {world} ranks")
         self.gen = torch.Generator(device=dev)
         self.arange_k = torch.arange(k, dtype=torch.int32, device=dev)
 
@@ -226,7 +232,12 @@ class _Step:
 
         self.gen.manual_seed(_seed(cfg, next_seq))
         stacked = synthetic_payloads(cfg.spec, self.params, k, self.gen)
-        mean = codec.decode_and_aggregate(cfg.spec, self.params, stacked, w)
+        if cfg.shard:
+            mean = codec.decode_and_aggregate_sharded(
+                cfg.spec, self.params, stacked, w, group=self.group)
+        else:
+            mean = codec.decode_and_aggregate(cfg.spec, self.params, stacked,
+                                              w)
         torch.add(g_in, cfg.server_lr * mean, out=out["global_flat"])
 
         # re-dispatch exactly the drained cohort with the new model
@@ -245,12 +256,13 @@ class _Step:
 
 
 def make_step(cfg: ServeConfig, codec_params: Optional[Tree] = None,
-              device: DeviceLike = None):
+              device: DeviceLike = None, group=None):
     """Build the serve step on ``device``: state → state, one ingest round
-    (pop, payload synthesis, fused decode→aggregate, model update,
-    re-dispatch). The passed state is consumed; each round's result lands
-    in the generation the round before read from."""
-    return _Step(cfg, codec_params, resolve(device))
+    (pop, payload synthesis, fused decode→aggregate — sharded over
+    ``group`` when ``cfg.shard`` — model update, re-dispatch). The passed
+    state is consumed; each round's result lands in the generation the
+    round before read from."""
+    return _Step(cfg, codec_params, resolve(device), group)
 
 
 def round_bytes(cfg: ServeConfig,
@@ -269,7 +281,7 @@ def run_serve(cfg: ServeConfig, n_rounds: int,
               codec_params: Optional[Tree] = None,
               warmup: int = 1,
               global_flat: Optional[torch.Tensor] = None,
-              device: DeviceLike = None
+              device: DeviceLike = None, group=None
               ) -> Tuple[State, Dict[str, float]]:
     """Drive the serve loop for ``n_rounds`` timed rounds after ``warmup``
     untimed ones and report sustained throughput on the host clock (each
@@ -277,7 +289,7 @@ def run_serve(cfg: ServeConfig, n_rounds: int,
     uplink), ``us_per_round``, ``round_bytes`` and ``sim_time``. The state
     is rebound to each step's return; the consumed one is never read."""
     dev = resolve(device)
-    step = make_step(cfg, codec_params, dev)
+    step = make_step(cfg, codec_params, dev, group)
     state = init_state(cfg, codec_params, global_flat=global_flat,
                        device=dev)
     for _ in range(max(warmup, 1)):

@@ -4,8 +4,11 @@
 // src/repro/kernels/flash_attention.py: q (B, Sq, H, D), k and v
 // (B, Skv, KV, D), float32 or bfloat16; head h reads kv head h / G with
 // G = H / KV, so K and V are never replicated. Scores are float32,
-// scaled by D^-0.5 and masked to -1e30 (kv padding k < Skv; causal k <= q;
-// window k > q - window); the online softmax (m, l, acc) runs over kv
+// scaled (by D^-0.5 unless the caller gives a scale), capped to
+// tanh(s / softcap) * softcap when softcap > 0, and masked to -1e30 (kv
+// padding k < Skv; causal k <= q; window k > q - window, with query row i
+// at position q = i + q_offset among the keys), in the reference's order
+// (models/attention.py:100-111); the online softmax (m, l, acc) runs over kv
 // tiles in float32 and the output, acc / max(l, 1e-30), is written in q's
 // type. Like the reference, the (q tile x kv tile) score and probability
 // tiles never reach device memory. The TPU kernel walks kv blocks as a
@@ -15,7 +18,9 @@
 //
 // Tile skipping (both kernels): a kv tile that the mask empties for every
 // row of a q tile is skipped (in causal mode the tiles past the tile's last
-// row, in window mode also those before its first row's window). That is
+// row, in window mode also those before its first row's window; both
+// bounds are taken at the rows' positions, row + q_offset, so a chunk of
+// queries at the end of a longer cache keeps every live tile). That is
 // exact: a row that has seen only masked scores holds m = -1e30, and its
 // first unmasked score multiplies the garbage in l and acc by
 // exp(-1e30 - m_new) = 0. Partly masked tiles always run. The wrapper
@@ -37,8 +42,10 @@
 // m64n64k16 with both operands K-major in shared memory; bf16 products
 // are exact in float32, so S matches the reference up to summation
 // order. Mask, row max (over the 4 lanes of a quad), exp2 of the scores
-// prescaled by D^-0.5 log2(e), and the rescale run on the accumulator
-// fragment in registers; l sums the float32 P. P V runs as two
+// prescaled by scale * log2(e) (with a cap, tanh(s * scale / softcap) *
+// softcap * log2(e); the capped and uncapped bodies are separate
+// instantiations, so an uncapped call runs no tanh), and the rescale run
+// on the accumulator fragment in registers; l sums the float32 P. P V runs as two
 // register-A wgmmas against V (MN-major): P_hi = bf16(P) and
 // P_lo = bf16(P - P_hi), accumulated in float32. A
 // single bf16 P rounds P by up to 2^-9 relative, which at run (f)'s shape
@@ -95,12 +102,14 @@ constexpr int smem_floats() {
   return BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1);
 }
 
-// mode: 0 causal, 1 window, 2 full
-template <typename T, int D>
+// mode: 0 causal, 1 window, 2 full; CAP: softcap > 0 (a template flag, as
+// in the bf16 kernel, so an uncapped instantiation carries no tanh)
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int KV, int mode, int window, float scale) {
+                 int H, int KV, int mode, int window, int q_offset,
+                 float scale, float softcap) {
   constexpr int QS = D + 1;          // padded row stride of the q, k tiles
   constexpr int PS = BKV + 1;        // padded row stride of the P tile
   constexpr int DC = D / 16;         // output columns per thread
@@ -129,11 +138,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_kv = (Skv + BKV - 1) / BKV;
   int kt_begin = 0, kt_end = n_kv;
   if (mode != 2) {                   // no key after the tile's last row
-    const int q_last = min(q0 + BQ, Sq) - 1;
+    const int q_last = min(q0 + BQ, Sq) - 1 + q_offset;
     kt_end = min(n_kv, q_last / BKV + 1);
   }
   if (mode == 1) {                   // no key at or before q0 - window
-    const int first = q0 - window + 1;
+    const int first = q0 + q_offset - window + 1;
     kt_begin = first > 0 ? first / BKV : 0;
   }
 
@@ -177,7 +186,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      const int qi = q0 + ty + 16 * i + q_offset;    // the row's position
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -185,7 +194,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bool ok = kj < Skv;
         if (mode != 2) ok = ok && kj <= qi;
         if (mode == 1) ok = ok && kj > qi - window;
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        float x = s[i][j] * scale;
+        if constexpr (CAP) x = tanhf(x / softcap) * softcap;
+        s[i][j] = ok ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -235,41 +246,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int mode, int window, float scale,
-           cudaStream_t stream) {
+           int Sq, int Skv, int H, int KV, int mode, int window, int q_offset,
+           float scale, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   static bool attr_set = false;      // above 48 KB needs the opt-in
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_fwd_kernel<T, D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
+  flash_fwd_kernel<T, D, CAP><<<grid, NT, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, KV, mode,
-      window, scale);
+      window, q_offset, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+#define REPRO_FLASH_ARGS \
+  q, k, v, o, B, Sq, Skv, H, KV, mode, window, q_offset, scale, softcap, s
+
+template <typename T, bool CAP>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int H, int KV, int D, int mode, int window,
-             float scale, cudaStream_t s) {
+             int q_offset, float scale, float softcap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, mode,
-                                  window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, mode,
-                                  window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, mode,
-                                  window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, mode,
-                                    window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, mode,
-                                    window, scale, s);
+    case 16: return launch<T, 16, CAP>(REPRO_FLASH_ARGS);
+    case 32: return launch<T, 32, CAP>(REPRO_FLASH_ARGS);
+    case 64: return launch<T, 64, CAP>(REPRO_FLASH_ARGS);
+    case 128: return launch<T, 128, CAP>(REPRO_FLASH_ARGS);
+    case 256: return launch<T, 256, CAP>(REPRO_FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -498,27 +507,32 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// kv tiles [*tb, *te) that rows [lo, hi) of a q tile need (empty if none).
-__device__ __forceinline__ void tile_range(int lo, int hi, int n_kv, int mode,
-                                           int window, int* tb, int* te) {
+// kv tiles [*tb, *te) that rows [lo, hi) of a q tile need (empty if none);
+// row i sits at position i + qo among the keys.
+__device__ __forceinline__ void tile_range(int lo, int hi, int qo, int n_kv,
+                                           int mode, int window, int* tb,
+                                           int* te) {
   *tb = 0;
   *te = hi > lo ? n_kv : 0;
   if (hi <= lo) return;
-  if (mode != 2) *te = min(n_kv, (hi - 1) / BKV + 1);
+  if (mode != 2) *te = min(n_kv, (hi - 1 + qo) / BKV + 1);
   if (mode == 1) {
-    const int first = lo - window + 1;
+    const int first = lo + qo - window + 1;
     *tb = first > 0 ? first / BKV : 0;
   }
 }
 
-// mode: 0 causal, 1 window, 2 full
-template <int D>
+// mode: 0 causal, 1 window, 2 full. CAP: softcap > 0, a template flag so
+// that the instantiations without the cap carry no tanh (D 256 is near
+// the register limit).
+template <int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                   int KV, int mode, int window, float scale) {
+                   int KV, int mode, int window, int qo, float scale,
+                   float softcap) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -530,12 +544,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int n_kv = (Skv + BKV - 1) / BKV;
   int tb0, te0, tb1, te1;
-  tile_range(q0, min(q0 + WQ, Sq), n_kv, mode, window, &tb0, &te0);
+  tile_range(q0, min(q0 + WQ, Sq), qo, n_kv, mode, window, &tb0, &te0);
   if (G::SPLIT) {                                   // the same rows
     tb1 = tb0;
     te1 = te0;
   } else {
-    tile_range(q0 + WQ, min(q0 + BQ, Sq), n_kv, mode, window, &tb1, &te1);
+    tile_range(q0 + WQ, min(q0 + BQ, Sq), qo, n_kv, mode, window, &tb1,
+               &te1);
   }
   const int kt_begin = tb0, kt_end = max(te0, te1);
 
@@ -579,6 +594,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = lo + 16 * wq + lane / 4, r1 = r0 + 8;
   const int my_b = c ? tb1 : tb0, my_e = c ? te1 : te0;
   const float sl2 = scale * kLog2e;                 // scores in log2 units
+  const float cl2 = softcap * kLog2e;               // the cap, in log2 units
   const uint32_t qa = base + (lo - q0) * G::ROWB;
   constexpr uint32_t SBO = 8 * G::ROWB;
 
@@ -608,20 +624,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       reg_fence(sc);
 
-      // scale (log2 units) and mask; fragment: sc[4 j + e] is row e < 2 ?
-      // r0 : r1, key k0 + 8 j + 2 (lane % 4) + e % 2
+      // scale (log2 units), cap and mask; fragment: sc[4 j + e] is row
+      // e < 2 ? r0 : r1, key k0 + 8 j + 2 (lane % 4) + e % 2; rows sit at
+      // positions row + qo
       const int k0 = kt * BKV;
       const bool need_mask = k0 + BKV > Skv ||
-                             (mode != 2 && k0 + BKV - 1 > lo) ||
-                             (mode == 1 && k0 <= lo + WQ - 1 - window);
+                             (mode != 2 && k0 + BKV - 1 > lo + qo) ||
+                             (mode == 1 && k0 <= lo + qo + WQ - 1 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float v = sc[4 * j + e] * sl2;
+          float v;
+          if constexpr (CAP)
+            v = tanhf(sc[4 * j + e] * scale / softcap) * cl2;
+          else
+            v = sc[4 * j + e] * sl2;
           if (need_mask) {
             const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-            const int row = e < 2 ? r0 : r1;
+            const int row = (e < 2 ? r0 : r1) + qo;
             bool ok = col < Skv;
             if (mode != 2) ok = ok && col <= row;
             if (mode == 1) ok = ok && col > row - window;
@@ -758,10 +779,10 @@ int encode(CUtensorMap* map, const void* ptr, int B, int seq, int heads,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int mode, int window, float scale,
-           cudaStream_t stream) {
+           int Sq, int Skv, int H, int KV, int mode, int window, int q_offset,
+           float scale, float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = encode<D>(&tq, q, B, Sq, H, Geo<D>::BQT);
   if (rc == 0) rc = encode<D>(&tk, k, B, Skv, KV, BKV);
@@ -771,32 +792,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_wgmma_kernel<D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   dim3 grid((unsigned)((Sq + Geo<D>::BQT - 1) / Geo<D>::BQT), (unsigned)H,
             (unsigned)B);
-  flash_wgmma_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, mode, window, scale);
+  flash_wgmma_kernel<D, CAP><<<grid, NTHREADS, bytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, mode, window, q_offset,
+      scale, softcap);
   return (int)cudaGetLastError();
 }
 
+template <bool CAP>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int H, int KV, int D, int mode, int window,
-             float scale, cudaStream_t s) {
+             int q_offset, float scale, float softcap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
-                               scale, s);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
-                               scale, s);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
-                               scale, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
-                                 scale, s);
-    case 256: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, mode, window,
-                                 scale, s);
+    case 16: return launch<16, CAP>(REPRO_FLASH_ARGS);
+    case 32: return launch<32, CAP>(REPRO_FLASH_ARGS);
+    case 64: return launch<64, CAP>(REPRO_FLASH_ARGS);
+    case 128: return launch<128, CAP>(REPRO_FLASH_ARGS);
+    case 256: return launch<256, CAP>(REPRO_FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -805,19 +824,26 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel). mode: 0
-// causal, 1 window, 2 full. Non-zero return: a cudaError_t, or
+// causal, 1 window, 2 full; query row i sits at key position i + q_offset;
+// softcap > 0 caps the scaled scores. Non-zero return: a cudaError_t, or
 // kNoEncoder / kEncodeFailed for the bf16 tensor maps.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Skv, int H, int KV, int D, int mode,
-                                     int window, float scale, int dtype,
-                                     void* stream) {
+                                     int window, int q_offset, float scale,
+                                     float softcap, int dtype, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && softcap > 0.f)
+    return dispatch<float, true>(q, k, v, o, B, Sq, Skv, H, KV, D, mode,
+                                 window, q_offset, scale, softcap, s);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, Sq, Skv, H, KV, D, mode, window,
-                           scale, s);
+    return dispatch<float, false>(q, k, v, o, B, Sq, Skv, H, KV, D, mode,
+                                  window, q_offset, scale, softcap, s);
+  if (dtype == 1 && softcap > 0.f)
+    return wg::dispatch<true>(q, k, v, o, B, Sq, Skv, H, KV, D, mode, window,
+                              q_offset, scale, softcap, s);
   if (dtype == 1)
-    return wg::dispatch(q, k, v, o, B, Sq, Skv, H, KV, D, mode, window,
-                        scale, s);
+    return wg::dispatch<false>(q, k, v, o, B, Sq, Skv, H, KV, D, mode,
+                               window, q_offset, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,6 @@ def resolve(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):       # meta: shapes only
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -4,7 +4,10 @@
 
 q: (B, Sq, H, D), k and v: (B, Skv, KV, D) with ``H % KV == 0``; modes
 ``causal``, ``window`` and ``full``; scale ``D ** -0.5`` unless given; the
-output has q's shape and dtype. A CPU tensor takes the plain version
+reference scan's ``q_offset`` (query row ``i`` sits at key position ``i +
+q_offset``: a chunk of queries at the end of a longer cache) and
+``softcap`` (``tanh(s / softcap) * softcap`` after the scale, before the
+mask); the output has q's shape and dtype. A CPU tensor takes the plain version
 (``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises.
 The dtype picks the kernel: bfloat16 the wgmma kernel fed by TMA (its
 tensor maps need 16-byte aligned q, k and v), float32 the FMA kernel.
@@ -17,14 +20,24 @@ zero-pads q, k and v on the last axis to the smallest of ``HEAD_DIMS``
 that holds both, launches the kernel with the scale of the unpadded ``D``
 and returns the first ``Dv`` columns. The zero columns add exact zeros to
 every float32 dot product, so this is the attention of the unpadded
-inputs. Each launch counts one for ``flash_attention`` in ``_lib`` and one
+inputs.
+
+:func:`flash_attention_extra` takes the reference's ``extra_qk=(q2 (B, Sq,
+H, P2), k2 (B, Skv, P2))``, a second score term shared by the kv heads
+(the decomposed MLA scores): ``q·k + q2·k2`` is ``[q | q2] · [k | k2]``
+with ``k2`` broadcast over the kv heads, so it concatenates the operands
+(:func:`concat_extra`) and launches the kernel on them, at the scale of q's
+own head dim, ``D ** -0.5`` (the reference's default), through the padded
+route when ``D + P2`` or ``Dv`` asks for it.
+
+Each launch counts one for ``flash_attention`` in ``_lib`` and one
 for its route in :data:`ROUTE_LAUNCHES` (``wgmma``, ``fma``, or
 ``wgmma_padded``/``fma_padded`` for the padded calls).
 """
 from __future__ import annotations
 
 import collections
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,12 +58,13 @@ def kernel_route(dtype: torch.dtype) -> str:
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 mode: str, window: Optional[int]) -> None:
+                 mode: str, window: Optional[int], q_offset: int = 0) -> None:
     """Raise unless the call is one the kernel (and the reference it ports)
     computes: matching batch and head dims, ``Dv == D``, a known mode, and
-    a key that every query row can see — in window mode ``window >= 1``
-    and ``Sq < Skv + window`` (a row with no visible key would average the
-    reference's zero padding)."""
+    a key that every query row can see — outside full mode ``q_offset >=
+    0``, in window mode ``window >= 1`` and ``Sq + q_offset < Skv +
+    window`` (a row with no visible key would average the reference's zero
+    padding)."""
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"flash_attention: expected q (B, Sq, H, D) and k, v "
                          f"(B, Skv, KV, D); got {tuple(q.shape)}, "
@@ -66,10 +80,14 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"KV={KV}, or no keys (Skv={Skv})")
     if mode not in MODES:
         raise ValueError(f"flash_attention: unknown mode {mode!r}")
+    if mode != "full" and q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset={q_offset} leaves the "
+                         "first query rows without a key")
     if mode == "window" and (window is None or window < 1
-                             or Sq >= Skv + window):
+                             or Sq + q_offset >= Skv + window):
         raise ValueError(f"flash_attention: window={window} leaves a query "
-                         f"row without a key (Sq={Sq}, Skv={Skv})")
+                         f"row without a key (Sq={Sq}, Skv={Skv}, "
+                         f"q_offset={q_offset})")
 
 
 def padded_head_dim(D: int, Dv: int) -> Optional[int]:
@@ -80,14 +98,16 @@ def padded_head_dim(D: int, Dv: int) -> Optional[int]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mode: str = "causal", window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    return _flash(q, k, v, mode, window, scale, "")
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    return _flash(q, k, v, mode, window, scale, q_offset, softcap, "")
 
 
 def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, mode: str = "causal",
                            window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, q_offset: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
     """Attention of q, k (B, S, *, D) and v (B, Skv, KV, Dv) through the
     kernel at the padded head dim (see the module docstring); ``scale``
     defaults to the unpadded ``D ** -0.5``."""
@@ -99,15 +119,48 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
     pad = torch.nn.functional.pad
     out = _flash(pad(q, (0, P - D)), pad(k, (0, P - D)), pad(v, (0, P - Dv)),
                  mode, window, D ** -0.5 if scale is None else scale,
-                 "_padded")
+                 q_offset, softcap, "_padded")
     return out[..., :Dv]
 
 
-def _flash(q, k, v, mode, window, scale, route_tag: str) -> torch.Tensor:
-    check_shapes(q, k, v, mode, window)
+def concat_extra(q: torch.Tensor, k: torch.Tensor,
+                 extra_qk: Tuple[torch.Tensor, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[q | q2]`` (B, Sq, H, D + P2) and ``[k | k2]`` (B, Skv, KV, D +
+    P2), ``k2`` (B, Skv, P2) repeated for every kv head: the operands whose
+    product is the reference's ``q·k + q2·k2``."""
+    q2, k2 = extra_qk
+    B, Skv, KV, _ = k.shape
+    k2h = k2[:, :, None, :].expand(B, Skv, KV, k2.shape[-1])
+    return torch.cat([q, q2], dim=-1), torch.cat([k, k2h], dim=-1)
+
+
+def flash_attention_extra(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          extra_qk: Tuple[torch.Tensor, torch.Tensor], *,
+                          mode: str = "causal",
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None, q_offset: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """The reference's ``extra_qk`` scores through the kernel (see the
+    module docstring); ``scale`` defaults to q's own ``D ** -0.5``."""
+    qc, kc = concat_extra(q, k, extra_qk)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if qc.shape[-1] in HEAD_DIMS and v.shape[-1] == qc.shape[-1]:
+        return flash_attention(qc, kc, v, mode=mode, window=window,
+                               scale=scale, q_offset=q_offset,
+                               softcap=softcap)
+    return flash_attention_padded(qc, kc, v, mode=mode, window=window,
+                                  scale=scale, q_offset=q_offset,
+                                  softcap=softcap)
+
+
+def _flash(q, k, v, mode, window, scale, q_offset, softcap,
+           route_tag: str) -> torch.Tensor:
+    check_shapes(q, k, v, mode, window, q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, mode=mode, window=window,
-                                       scale=scale)
+                                       scale=scale, q_offset=q_offset,
+                                       softcap=softcap)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -129,7 +182,8 @@ def _flash(q, k, v, mode, window, scale, route_tag: str) -> torch.Tensor:
     if B and Sq and H:
         _lib.launch("flash_attention", "repro_flash_attention", q, k, v, o,
                     B, Sq, Skv, H, KV, D, MODES[mode],
-                    window if mode == "window" else 0,
-                    D ** -0.5 if scale is None else scale, DTYPES[q.dtype])
+                    window if mode == "window" else 0, int(q_offset),
+                    D ** -0.5 if scale is None else scale, float(softcap),
+                    DTYPES[q.dtype])
         ROUTE_LAUNCHES[kernel_route(q.dtype) + route_tag] += 1
     return o

@@ -170,12 +170,16 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, mode: str = "causal", window=None,
-                        kv_block: int = 128, scale=None) -> torch.Tensor:
-    """Forward attention the way ``flash_attention_pallas`` computes it:
-    ``chunked_attention_ref`` inside the kernel's contract (one query chunk,
-    kv blocks of ``kv_block``, no ``q_offset``, softcap or ``extra_qk``),
-    which is block for block the Pallas kernel's online softmax. ``scale``
-    defaults to ``D ** -0.5``, the Pallas kernel's."""
+                        kv_block: int = 128, scale=None, q_offset: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Forward attention the way kernel 6 computes it:
+    ``chunked_attention_ref`` in one query chunk over kv blocks of
+    ``kv_block``, which at ``q_offset == 0``, ``softcap == 0`` is block for
+    block the Pallas kernel's online softmax (``flash_attention_pallas``).
+    ``scale`` defaults to ``D ** -0.5``; ``q_offset`` and ``softcap`` are
+    the reference scan's (``models.attention.flash_attention``), which the
+    CUDA kernel also takes."""
     return chunked_attention_ref(q, k, v, mode=mode, window=window,
                                  q_chunk=q.shape[1], kv_chunk=kv_block,
-                                 scale=scale)
+                                 scale=scale, q_offset=q_offset,
+                                 softcap=softcap)

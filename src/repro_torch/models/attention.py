@@ -13,9 +13,12 @@ training path (autograd recording through q, k or v) takes the same
 chunked math on the card, which is differentiable — the reference's
 model-level ``flash_attention`` is that math, and its Pallas kernel has no
 backward, so it never runs where a gradient is taken. Every other call
-launches kernel 6 (``kernels/flash_attention.py``) when it is inside
-:func:`kernel_contract` — ``softcap == 0``, no ``extra_qk``,
-``q_offset == 0`` — and raises ``NotImplementedError`` outside it. Head
+launches kernel 6 (``kernels/flash_attention.py``), which takes the whole
+argument list: ``softcap`` and ``q_offset`` in the kernel itself, and
+``extra_qk`` (the decomposed MLA scores) as ``[q | q2] · [k | k2]`` on
+concatenated operands (``flash_attention_extra``). Outside
+:func:`kernel_contract` (head dims above 256, a dtype other than bfloat16
+or float32) a CUDA call raises. Head
 dims the kernel has no instantiation for (``D`` outside its
 ``HEAD_DIMS``, ``Dv != D``) and an explicit scale take its padded route
 (``flash_attention_padded``: q, k and v zero-padded to the next head dim
@@ -23,6 +26,9 @@ it has, the unpadded scale, the output sliced), which is how MLA's
 prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width) and phi-3-vision's
 heads of 96 reach the kernel; recurrentgemma-9b's heads of 256 take it
 directly.
+On the meta device (the dry-run's shapes-only run) the chunked math runs
+as one query chunk over one kv chunk: the same products, counted once,
+without the Python loop over chunk pairs.
 ``decode_attention`` and ``mla_decode`` are plain torch on every device,
 as the reference runs no kernel there.
 """
@@ -35,32 +41,28 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, flash_attention as flash_kernel,
+    DTYPES, HEAD_DIMS, flash_attention as flash_kernel,
+    flash_attention_extra as flash_kernel_extra,
     flash_attention_padded as flash_kernel_padded, padded_head_dim)
 from repro_torch.models.common import (apply_norm, apply_rope, cast,
                                        dense_init, init_norm,
                                        masked_softmax, pdt)
 
-# where the arguments outside kernel 6's contract will be ported
-_LATER = ("ROADMAP Queue A item 11i: the flash_attention arguments outside "
-          "kernel 6's contract (softcap, extra_qk, q_offset) on the card")
-
 
 # =====================================================================
 # Flash-style chunked attention (training / prefill)
 # =====================================================================
-def kernel_contract(q: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
-                    softcap: float = 0.0, extra_qk=None) -> Optional[str]:
+def kernel_contract(q: torch.Tensor, v: torch.Tensor, *,
+                    extra_qk=None) -> Optional[str]:
     """Why a call lies outside kernel 6's contract, or None when the kernel
-    computes it (directly, or through its padded route; any scale is in
-    the contract, the kernel takes it as an argument)."""
+    computes it (directly, or through its padded route). Any scale,
+    ``q_offset`` and ``softcap`` are in the contract, the kernel takes them
+    as arguments; ``extra_qk`` widens the score head dim to ``D + P2``."""
     D, Dv = q.shape[-1], v.shape[-1]
-    if softcap != 0.0:
-        return f"softcap={softcap}"
     if extra_qk is not None:
-        return "extra_qk (decomposed MLA scores)"
-    if q_offset != 0:
-        return f"q_offset={q_offset}"
+        D += extra_qk[0].shape[-1]
+    if q.dtype not in DTYPES:
+        return f"dtype {q.dtype} (the kernel takes bfloat16 and float32)"
     if padded_head_dim(D, Dv) is None:
         return f"head dims D={D}, Dv={Dv} above {HEAD_DIMS[-1]}"
     return None
@@ -104,16 +106,19 @@ def flash_attention(
     """``extra_qk=(q2 (B,Sq,H,P2), k2 (B,Skv,P2))`` adds a second,
     head-shared score term (the decomposed MLA formulation)."""
     if q.device.type == "cuda" and attention_route(q, k, v) == "kernel":
-        why = kernel_contract(q, v, q_offset=q_offset, softcap=softcap,
-                              extra_qk=extra_qk)
+        why = kernel_contract(q, v, extra_qk=extra_qk)
         if why is not None:
-            raise NotImplementedError(
-                f"flash_attention on CUDA: {why} is outside kernel 6's "
-                f"contract; see {_LATER}")
+            raise ValueError(f"flash_attention on CUDA: {why} is outside "
+                             "kernel 6's contract")
+        kw = dict(mode=mode, window=window, q_offset=q_offset,
+                  softcap=softcap)
+        if extra_qk is not None:
+            return flash_kernel_extra(q, k, v, extra_qk, scale=scale, **kw)
         if kernel_padded(q, v, scale):
-            return flash_kernel_padded(q, k, v, mode=mode, window=window,
-                                       scale=scale)
-        return flash_kernel(q, k, v, mode=mode, window=window)
+            return flash_kernel_padded(q, k, v, scale=scale, **kw)
+        return flash_kernel(q, k, v, **kw)
+    if q.device.type == "meta":
+        q_chunk, kv_chunk = q.shape[1], k.shape[1]
     return ref.chunked_attention_ref(q, k, v, mode=mode, q_offset=q_offset,
                                      window=window, softcap=softcap,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk,

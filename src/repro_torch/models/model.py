@@ -33,8 +33,10 @@ What differs from the reference, and why:
   transient copy. The VLM's image embeddings replace the first rows with
   ``torch.cat`` (the reference's ``dynamic_update_slice``), out of place,
   so the gradient reaches the token embeddings after them.
-* ``constrain_activations`` (a no-op without a sharding context) is
-  dropped. ``_maybe_remat`` is per unit of a stack: where ``cfg.remat`` is
+* ``constrain_activations`` (``models/partition_ctx.py``) is called where
+  the reference calls it; it is the identity on a plain tensor and
+  redistributes a ``DTensor`` residual stream inside a sharding context.
+  ``_maybe_remat`` is per unit of a stack: where ``cfg.remat`` is
   set, the trunk is run for training and autograd is recording, each
   layer (each hybrid group and tail layer, each encoder and decoder layer)
   runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
@@ -67,6 +69,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (apply_mlp, apply_norm, cast,
                                        cross_entropy_loss, dt, embed_init,
                                        init_mlp, init_norm, pdt)
+from repro_torch.models.partition_ctx import constrain_activations
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -217,9 +220,10 @@ def _attn_full(p, x, cfg, positions, mode="causal", window=None):
 def _dense_block_full(p, x, cfg, positions, window=None):
     """Returns (x, (kv_for_cache, moe_aux)) — ``moe_aux`` a float32
     scalar, zero outside the MoE family."""
+    x = constrain_activations(x)
     a, kv = _attn_full(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
                        positions, window=window)
-    x = x + a
+    x = constrain_activations(x + a)
     h = apply_norm(p["ln2"], x, cfg)
     if cfg.family == "moe":
         f, aux = moe_lib.apply_moe(p["ffn"], h, cfg,
@@ -230,12 +234,14 @@ def _dense_block_full(p, x, cfg, positions, window=None):
 
 
 def _ssm_block_full(p, x, cfg):
+    x = constrain_activations(x)
     m, state = ssm_lib.mamba2_forward(p["mixer"],
                                       apply_norm(p["ln"], x, cfg), cfg)
     return x + m, state
 
 
 def _hybrid_sub_full(p, x, cfg, positions, kind):
+    x = constrain_activations(x)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "rglru":
         m, state = rglru_lib.rglru_forward(p["mixer"], h, cfg)
@@ -256,6 +262,7 @@ def _hybrid_group_full(gp, x, cfg, positions):
 
 
 def _dec_block_full(lp, x, cfg, positions, window, enc_out):
+    x = constrain_activations(x)
     a, kv = attn.gqa_forward(lp["self_attn"], apply_norm(lp["ln1"], x, cfg),
                              cfg, positions=positions, mode="causal",
                              window=window)
@@ -269,6 +276,7 @@ def _dec_block_full(lp, x, cfg, positions, window, enc_out):
 
 
 def _enc_block_full(lp, x, cfg):
+    x = constrain_activations(x)
     a, _ = attn.gqa_forward(lp["attn"], apply_norm(lp["ln1"], x, cfg), cfg,
                             positions=None, mode="full")
     x = x + a
@@ -349,6 +357,10 @@ def _encode_audio(params: Params, frames: torch.Tensor, cfg: ArchConfig,
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   positions: torch.Tensor) -> torch.Tensor:
+    if "h0" in batch:
+        # precomputed input embeddings: the FL round computes the token
+        # gather with the embedding detached (core/distributed.py)
+        return batch["h0"].to(dt(cfg))
     h = cast(params["embed"][batch["tokens"]], cfg)
     if cfg.family == "vlm" and "image_embeds" in batch:
         img = batch["image_embeds"].to(h.dtype)

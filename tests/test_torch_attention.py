@@ -171,18 +171,22 @@ def test_masks_match_jax(q_len, kv_len, q_offset, window):
 
 def test_kernel_contract():
     """What a CUDA call of the model-level ``flash_attention`` hands to
-    kernel 6, and what it refuses (``NotImplementedError`` naming the
-    reason): the check, as a function, on the shapes of a call. Head dims
-    the kernel has no instantiation for and ``Dv != D`` are in the
-    contract, as is any scale (``kernel_padded`` sends these to the padded
-    route: a D of 192 is padded to 256); softcap, ``extra_qk``,
-    ``q_offset`` and head dims above 256 are not."""
+    kernel 6, and what it refuses (a ``ValueError`` naming the reason):
+    the check, as a function, on the shapes of a call. Head dims the
+    kernel has no instantiation for and ``Dv != D`` are in the contract,
+    as is any scale, ``q_offset`` and ``softcap`` (``kernel_padded`` sends
+    the first three to the padded route: a D of 192 is padded to 256);
+    ``extra_qk`` widens the score head dim to ``D + P2``; head dims above
+    256 and dtypes other than bfloat16 and float32 are out."""
     q = torch.zeros((1, 8, 4, 32))
     v = torch.zeros((1, 8, 2, 32))
     assert tattn.kernel_contract(q, v) is None
-    assert "softcap" in tattn.kernel_contract(q, v, softcap=50.0)
-    assert "extra_qk" in tattn.kernel_contract(q, v, extra_qk=(q, v))
-    assert "q_offset" in tattn.kernel_contract(q, v, q_offset=3)
+    q2 = torch.zeros((1, 8, 4, 16))
+    assert tattn.kernel_contract(q, v, extra_qk=(q2, q2[:, :, 0])) is None
+    assert "head dims" in tattn.kernel_contract(
+        torch.zeros((1, 8, 4, 192)), torch.zeros((1, 8, 2, 128)),
+        extra_qk=(torch.zeros((1, 8, 4, 96)), torch.zeros((1, 8, 96))))
+    assert "dtype" in tattn.kernel_contract(q.half(), v.half())
     assert tattn.kernel_contract(q, torch.zeros((1, 8, 2, 16))) is None
     assert tattn.kernel_contract(torch.zeros((1, 8, 4, 96)),
                                  torch.zeros((1, 8, 2, 64))) is None
@@ -365,3 +369,69 @@ def test_bf16_route_p_split_within_two_ulps():
         worst[split] = float(((got - want).abs() / limit).max())
     assert worst[True] <= 1.0, worst
     assert worst[False] > 1.0, worst
+
+
+@pytest.mark.parametrize("Sq,Skv,H,KV,D,P2,Dv,mode,window,q_offset,softcap", [
+    (40, 40, 4, 2, 32, 0, 32, "causal", None, 0, 30.0),   # softcap, direct
+    (12, 40, 4, 2, 32, 0, 32, "causal", None, 28, 0.0),   # late queries
+    (12, 40, 4, 2, 32, 0, 32, "window", 9, 28, 0.0),
+    (12, 40, 6, 2, 16, 0, 16, "window", 9, 28, 20.0),     # all three
+    (20, 50, 4, 4, 96, 0, 96, "causal", None, 30, 10.0),  # padded 96 -> 128
+    (33, 33, 4, 4, 16, 16, 32, "causal", None, 0, 0.0),   # extra: 16 + 16
+    (24, 40, 4, 4, 64, 32, 64, "causal", None, 16, 0.0),  # minicpm3's heads
+    (24, 24, 4, 4, 64, 32, 64, "full", None, 0, 25.0),
+    (16, 48, 4, 4, 16, 8, 16, "window", 12, 32, 0.0),     # 24 -> padded 32
+])
+def test_kernel_arguments_match_jax(Sq, Skv, H, KV, D, P2, Dv, mode, window,
+                                    q_offset, softcap):
+    """Kernel 6's whole argument list through its wrapper on CPU tensors
+    (the plain version a CUDA launch is held against): ``softcap`` and
+    ``q_offset`` in the kernel call, the padded route, and ``extra_qk`` as
+    the concatenated operands ``[q | q2] · [k | k2]`` at q's own scale
+    (``flash_attention_extra``), against the reference's scan
+    ``models.attention.flash_attention`` in the golden band. No launch."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_extra, flash_attention_padded)
+    q, k, v = _qkv(Sq * Skv + D + P2, 2, Sq, Skv, H, KV, D, Dv)
+    kw = dict(mode=mode, window=window, q_offset=q_offset, softcap=softcap)
+    jkw = {}
+    rs = np.random.RandomState(D + P2)
+    if P2:
+        q2 = rs.randn(2, Sq, H, P2).astype(np.float32)
+        k2 = rs.randn(2, Skv, P2).astype(np.float32)
+        jkw["extra_qk"] = (jnp.asarray(q2), jnp.asarray(k2))
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), q_chunk=16, kv_chunk=16,
+                                 **kw, **jkw)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = _lib.counts()
+    if P2:
+        got = flash_attention_extra(tq, tk, tv, (torch.from_numpy(q2),
+                                                 torch.from_numpy(k2)), **kw)
+    elif D in (16, 32, 64, 128, 256) and Dv == D:
+        got = flash_kernel(tq, tk, tv, **kw)
+    else:
+        got = flash_attention_padded(tq, tk, tv, **kw)
+    assert _lib.counts() == before
+    assert tuple(got.shape) == (2, Sq, H, Dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    # the model-level call on the CPU takes the chunked math: the same
+    model = tattn.flash_attention(
+        tq, tk, tv, **kw, q_chunk=16, kv_chunk=16,
+        extra_qk=(torch.from_numpy(q2), torch.from_numpy(k2)) if P2 else None)
+    np.testing.assert_allclose(model.numpy(), np.asarray(want), **BAND)
+
+
+def test_check_shapes_q_offset():
+    """``q_offset`` in the wrapper's shape check: a negative offset leaves
+    the first rows without a key outside full mode, and in window mode
+    ``Sq + q_offset`` must stay below ``Skv + window``."""
+    q = torch.zeros((1, 8, 2, 16))
+    k = torch.zeros((1, 16, 2, 16))
+    check_shapes(q, k, k, "causal", None, 8)
+    check_shapes(q, k, k, "full", None, -3)
+    with pytest.raises(ValueError, match="q_offset"):
+        check_shapes(q, k, k, "causal", None, -1)
+    check_shapes(q, k, k, "window", 4, 11)
+    with pytest.raises(ValueError, match="window"):
+        check_shapes(q, k, k, "window", 4, 12)

@@ -355,3 +355,121 @@ def test_cohort_round_matches_jax_kernel_path():
     assert tuple(tmean.shape) == (model,)
     _close(tmean, jmean)
     assert _lib.counts() == before            # CPU tensors: plain versions
+
+
+# ------------------------------------------ the client axis over ranks
+def _sharded_cases():
+    """The reference's ``test_decode_and_aggregate_sharded_matches_fused``
+    cases: q8 (block 64) and the kernel-path chunked AE over a chunk-ragged
+    1,250 values, cohorts 1 and 5; the JAX payloads carried across, so both
+    packages decode the same codes."""
+    from repro.core.compressor import (ChunkedAECompressor as JChunked,
+                                       QuantizeCompressor as JQ)
+    n = 1250
+    jcfg = jae.ChunkedAEConfig(chunk_size=128, hidden=(32,), latent_chunk=4)
+    jparams = jae.init_chunked_ae(jax.random.PRNGKey(0), jcfg)
+    tparams = from_jax_params(_np(jparams), "cpu")
+    comps = {
+        "quantize8": (JQ(bits=8, block=64),
+                      tcodec.QuantizeSpec(n, 8, block=64), None),
+        "chunked_ae_kernel": (
+            JChunked(jparams, jcfg, use_kernel=True),
+            tcodec.ChunkedAESpec(n, tae.ChunkedAEConfig(128, (32,), 4),
+                                 use_kernel=True), tparams),
+    }
+    out = []
+    for name, (jc, tspec, tp) in comps.items():
+        jspec, jp = jc.spec(n), jc.codec_params()
+        for cohort in (1, 5):
+            stacked = jcodec.stack_payloads([jcodec.encode(
+                jspec, jp, jax.random.normal(jax.random.PRNGKey(i), (n,))
+                * (1.0 + i)) for i in range(cohort)])
+            w = jnp.asarray(jagg.normalize_weights(
+                [1.0 + i for i in range(cohort)]), jnp.float32)
+            fused = jcodec.decode_and_aggregate(jspec, jp, stacked, w)
+            sharded = jcodec.decode_and_aggregate_sharded(jspec, jp,
+                                                          stacked, w)
+            tstk = {k: torch.from_numpy(np.array(v))
+                    for k, v in stacked.items()}
+            out.append((f"{name}-{cohort}", tspec, tp, tstk,
+                        torch.from_numpy(np.array(w)), np.asarray(fused),
+                        np.asarray(sharded)))
+    return out
+
+
+def _sharded_worker(rank, world, inputs):
+    cases = torch.load(inputs, weights_only=False)
+    return [tcodec.decode_and_aggregate_sharded(spec, p, stk, w)
+            for spec, p, stk, w in cases]
+
+
+SHARDED = ["quantize8-1", "quantize8-5", "chunked_ae_kernel-1",
+           "chunked_ae_kernel-5"]
+
+
+@pytest.mark.parametrize("case", SHARDED)
+def test_decode_and_aggregate_sharded_one_rank_matches_jax(case, tmp_path):
+    """``decode_and_aggregate_sharded`` on a one-rank gloo group against
+    the reference's sharded and fused calls on its one device, in the
+    golden band; ``base`` subtracted after the reduction. No group, no
+    call."""
+    import torch.distributed as dist
+    name, spec, p, stk, w, fused, sharded = next(
+        c for c in _sharded_cases() if c[0] == case)
+    with pytest.raises(RuntimeError, match="process group"):
+        tcodec.decode_and_aggregate_sharded(spec, p, stk, w)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        got = tcodec.decode_and_aggregate_sharded(spec, p, stk, w)
+        base = torch.full((spec.size,), 0.25)
+        minus = tcodec.decode_and_aggregate_sharded(spec, p, stk, w, base)
+    finally:
+        dist.destroy_process_group()
+    _close(got, sharded)
+    _close(got, fused)
+    _close(minus, fused - 0.25)
+
+
+@pytest.mark.parametrize("case", ["quantize8-5", "chunked_ae_kernel-5"])
+def test_partial_sums_add_up_to_the_mean(case):
+    """``decode_and_aggregate(partial=True)`` over two slices of a cohort
+    (the share each rank all-reduces) sums to the whole cohort's mean in
+    the golden band, through the same route: for the kernel-path chunked
+    AE (given a normalizer with a nonzero mean) the denorm's mean term is
+    taken Σw of the slice times. Both are held against the einsum over
+    ``decode_batched``'s rows. A partial sum takes no ``base``."""
+    name, spec, p, stk, w, fused, _ = next(
+        c for c in _sharded_cases() if c[0] == case)
+    if p is not None:
+        p = dict(p, norm={"mean": torch.tensor(0.5),
+                          "std": torch.tensor(1.5)})
+    halves = [tcodec.decode_and_aggregate(
+        spec, p, {k: v[sl] for k, v in stk.items()}, w[sl], partial=True)
+        for sl in (slice(0, 2), slice(2, None))]
+    rows = torch.einsum("c,cp->p", w, tcodec.decode_batched(spec, p, stk))
+    _close(halves[0] + halves[1], rows)
+    _close(tcodec.decode_and_aggregate(spec, p, stk, w), rows)
+    with pytest.raises(ValueError, match="no base"):
+        tcodec.decode_and_aggregate(spec, p, stk, w,
+                                    torch.zeros(spec.size), partial=True)
+
+
+def test_decode_and_aggregate_sharded_two_ranks_matches_jax(tmp_path):
+    """The same four cases on two gloo ranks (two processes; cohorts 1
+    and 5 pad to 2 and 6 with zero-weight rows): each rank's result
+    against the reference's sharded and fused calls in the golden band,
+    and the two ranks' results equal."""
+    from repro_torch.launch.local import spawn
+    cases = _sharded_cases()
+    inputs = tmp_path / "cases.pt"
+    torch.save([c[1:5] for c in cases], inputs)
+    res = spawn("test_torch_codec:_sharded_worker", 2,
+                {"inputs": str(inputs)}, tmp_path / "run", backend="gloo",
+                timeout=180, path=[__file__.rsplit("/", 1)[0]])
+    for r in res:
+        for got, (name, *_, fused, sharded) in zip(r, cases, strict=True):
+            _close(got, sharded)
+            _close(got, fused)
+    for a, b in zip(*res):
+        assert torch.equal(a, b)

@@ -547,8 +547,9 @@ def test_flash_attention_kernel_refuses_what_it_cannot_compute():
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, k, k)
     from repro_torch.models.attention import flash_attention as model_flash
-    q = torch.zeros((1, 16, 4, 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="softcap"):
+    q = torch.zeros((1, 16, 4, 64), device="cuda", dtype=torch.float16)
+    k = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
         model_flash(q, k, k, softcap=30.0)
 
 
@@ -1375,7 +1376,7 @@ def test_flash_attention_d256_model_routes():
                 q, k, v, mode="window", window=64).float(),
             **FLASH_TOL[torch.bfloat16])
     q = torch.zeros((1, 16, 2, 320), device="cuda")
-    with pytest.raises(NotImplementedError, match="11i"):
+    with pytest.raises(ValueError, match="head dims"):
         model_flash(q, q, q)
 
 
@@ -1445,4 +1446,176 @@ def test_new_family_reduced_on_card_matches_cpu(arch, n_attn):
     loss, _, grads = value_and_grad(loss_fn, params, tbatch)
     torch.testing.assert_close(gloss.cpu(), loss, **BAND)
     for a, b in zip(flatten(ggrads)[0], flatten(grads)[0], strict=True):
+        torch.testing.assert_close(a.cpu(), b, **BAND)
+
+
+# =====================================================================
+# kernel 6's whole argument list: softcap, q_offset, extra_qk
+# =====================================================================
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,mode,window,q_offset,softcap", [
+    (150, 150, "causal", None, 0, 30.0),        # softcap alone
+    (70, 331, "causal", None, 261, 0.0),        # queries at the end of kv
+    (70, 331, "causal", None, 200, 0.0),        # not at the end either
+    (70, 331, "window", 90, 261, 0.0),
+    (130, 203, "full", None, 40, 25.0),         # full ignores the offset
+    (100, 400, "window", 120, 250, 40.0),       # all three
+])
+def test_flash_attention_arguments_match_plain(D, dtype, Sq, Skv, mode,
+                                               window, q_offset, softcap):
+    """Kernel 6 with the reference scan's ``q_offset`` (query row i at key
+    position i + q_offset, so the causal block skip and the window's
+    first tile shift with it) and ``softcap`` (the capped instantiations
+    of the bf16 kernel), at every head dim it instantiates: against the
+    plain version at ``FLASH_TOL``, one launch a call."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(Sq * D + q_offset)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((2, Sq, 4, D), (2, Skv, 2, D), (2, Skv, 2, D)))
+    kw = dict(mode=mode, window=window, q_offset=q_offset, softcap=softcap)
+    before = _lib.counts().get("flash_attention", 0)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _lib.counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+        **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,P2,Dv,mode,q_offset,softcap", [
+    (64, 32, 64, "causal", 0, 0.0),     # minicpm3-4b's decomposed scores
+    (64, 32, 64, "causal", 64, 30.0),
+    (96, 32, 128, "full", 0, 0.0),      # 128 wide: the direct route
+    (224, 32, 256, "causal", 0, 0.0),   # 256 wide
+])
+def test_flash_attention_extra_qk_matches_plain(dtype, D, P2, Dv, mode,
+                                                q_offset, softcap):
+    """``extra_qk`` on the card: the model-level ``flash_attention``
+    concatenates ``[q | q2]`` and ``[k | k2]`` and launches kernel 6 once
+    (padded when ``D + P2`` or ``Dv`` asks for it), at q's own scale;
+    against the plain chunked math of the reference's scan."""
+    _card()
+    from repro_torch.models.attention import flash_attention as model_flash
+    g = torch.Generator(device="cuda").manual_seed(D + P2 + q_offset)
+    B, Sq, Skv, H = 2, 96, 160, 4
+    q, k, v, q2, k2 = (
+        torch.randn(shape, generator=g, device="cuda").to(dtype)
+        for shape in ((B, Sq, H, D), (B, Skv, H, D), (B, Skv, H, Dv),
+                      (B, Sq, H, P2), (B, Skv, P2)))
+    kw = dict(mode=mode, q_offset=q_offset, softcap=softcap)
+    before = _lib.counts().get("flash_attention", 0)
+    with torch.no_grad():
+        got = model_flash(q, k, v, extra_qk=(q2, k2), **kw)
+    torch.cuda.synchronize()
+    assert _lib.counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, Sq, H, Dv)
+    want = ref.chunked_attention_ref(q, k, v, extra_qk=(q2, k2), **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+# =====================================================================
+# the pod-axis FL round and the sharded server paths on a one-rank group
+# =====================================================================
+@pytest.fixture
+def nccl_world(tmp_path):
+    """A one-rank NCCL group on the card, and a gloo group beside it for
+    CPU tensors."""
+    _card()
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    gloo = dist.new_group(backend="gloo")
+    yield gloo
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["q8", "chunked_ae"])
+def test_sharded_decode_and_serve_match_unsharded(nccl_world, kind):
+    """``decode_and_aggregate_sharded`` (cohorts 5 and 64: zero-weight
+    padding is a no-op at one rank) and ``ServeConfig(shard=True)`` (three
+    rounds) on a one-rank NCCL group against the unsharded calls on the
+    card, in the golden band; the kernels launch as in the unsharded call
+    (kernel 2 for q8; for the chunked AE the kernel-terminal route, kernel
+    3's hidden stack then kernel 4)."""
+    from repro_torch.core import codec, serve
+    from repro_torch.core.autoencoder import (ChunkedAEConfig,
+                                              init_chunked_ae)
+    if kind == "q8":
+        spec, p = codec.QuantizeSpec(size=1 << 16, bits=8, block=256), None
+    else:
+        cfg = ChunkedAEConfig(256, (32,), 8)
+        spec = codec.ChunkedAESpec(size=1 << 16, cfg=cfg, use_kernel=True)
+        p = init_chunked_ae(torch.Generator().manual_seed(0), cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for C in (5, 64):
+        stacked = serve.synthetic_payloads(spec, p, C, g)
+        w = torch.rand((C,), generator=g, device="cuda") + 0.1
+        w = w / w.sum()
+        want = codec.decode_and_aggregate(spec, p, stacked, w)
+        before = _lib.counts()
+        got = codec.decode_and_aggregate_sharded(spec, p, stacked, w)
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in _lib.counts().items()
+                    if v != before.get(k, 0)}
+        for k in (("dequantize_blocks_2d",) if kind == "q8"
+                  else ("fused_dense", "fused_decode_agg")):
+            assert launched.get(k, 0) >= 1, launched
+        torch.testing.assert_close(got, want, **BAND)
+    kw = dict(n_clients=4096, buffer_k=64, spec=spec, jitter=0.4,
+              straggler_frac=0.05)
+    plain, _ = serve.run_serve(serve.ServeConfig(**kw), 3, p, warmup=0)
+    shard, _ = serve.run_serve(serve.ServeConfig(shard=True, **kw), 3, p,
+                               warmup=0)
+    for key in ("times", "seqs", "versions"):
+        assert torch.equal(plain[key], shard[key]), key
+    torch.testing.assert_close(shard["global_flat"], plain["global_flat"],
+                               **BAND)
+
+
+@pytest.mark.gpu
+def test_fl_round_card_matches_cpu(nccl_world):
+    """One FL round of reduced stablelm-1.6b (float32) on the card over
+    the NCCL group against the same round on the CPU over the gloo group,
+    from the same params, AE and batch: loss, accuracy, optimizer moments
+    and params in the golden band, the latent bytes equal."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.autoencoder import (ChunkedAEConfig,
+                                              init_chunked_ae)
+    from repro_torch.core.pytree import flatten, tree_map
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import make_optimizer
+    cfg = get_config("stablelm-1.6b").reduced()
+    ae_cfg = ChunkedAEConfig(128, (32,), 4)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ae = init_chunked_ae(torch.Generator().manual_seed(1), ae_cfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in
+             synthetic_lm_batch(0, cfg.vocab_size, 2, 64).items()}
+    out = {}
+    for dev, group in (("cuda", None), ("cpu", nccl_world)):
+        bundle = tdist.build_fl_round_step(
+            cfg, ShapeConfig("t", 64, 2, "train"), group, ae_cfg)
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        opt = make_optimizer(cfg.optimizer, cfg.learning_rate,
+                             weight_decay=cfg.weight_decay,
+                             grad_clip=cfg.grad_clip)
+        o = opt.init(p)
+        p, o, m = bundle.fn(p, o, tree_map(lambda t: t.to(dev), ae),
+                            {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (p, o, m, bundle.stats["last_round"])
+    (gp, go, gm, gl), (cp, co, cm, cl) = out["cuda"], out["cpu"]
+    assert gl == cl
+    for k in ("loss", "accuracy"):
+        torch.testing.assert_close(gm[k].cpu(), cm[k], **BAND)
+    for a, b in zip(flatten(go["v"])[0], flatten(co["v"])[0], strict=True):
+        torch.testing.assert_close(a.cpu(), b, **BAND)
+    for a, b in zip(flatten(gp)[0], flatten(cp)[0], strict=True):
         torch.testing.assert_close(a.cpu(), b, **BAND)

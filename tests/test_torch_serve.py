@@ -7,8 +7,8 @@ run on the CPU: every case of ``tests/test_serve.py``, and a parity test.
   determinism, the double buffer (the input state consumed, round r+1
   written into the generation round r read from, allocation flat), the
   report and its bytes (equal to the reference's ``round_bytes``), a
-  caller's flat model; ``shard=True`` raises naming ROADMAP Queue A
-  item 12 (the reference's single-device ``shard_map`` case);
+  caller's flat model; ``shard=True`` needs an initialised
+  ``torch.distributed`` group and raises without one;
 * parity: under ``jax.disable_jit()`` (so a patched draw is read every
   round, not baked into one trace) ``monkeypatch`` hands the reference's
   ``synthetic_payloads`` and ``jax.random.uniform`` the same numpy draws
@@ -16,7 +16,10 @@ run on the CPU: every case of ``tests/test_serve.py``, and a parity test.
   ``serve._uniform``); six rounds of q8 and of the chunked AE (the
   port's kernel path, plain on the CPU): times, seqs and versions exact,
   ``global_flat`` and the clock in the golden band ``atol=2e-5,
-  rtol=2e-4``.
+  rtol=2e-4``; the same with ``shard=True`` on a one-rank gloo group
+  against the reference's ``shard=True`` on its one device, and on two
+  gloo ranks (two processes, each reducing half the cohort) against the
+  reference.
 """
 import numpy as np
 import pytest
@@ -155,9 +158,14 @@ def test_global_flat_seed_passthrough():
 
 def test_shard_raises_naming_item_12():
     """The reference's ``shard=True`` inlines a ``shard_map`` over a device
-    mesh; the port's counterpart is ``torch.distributed`` work."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _cfg(shard=True)
+    mesh; the port's counterpart reduces over a ``torch.distributed``
+    group, so with no initialised group building its step raises (it
+    never runs quietly as a world of one)."""
+    cfg = _cfg(shard=True)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_step(cfg, device=CPU)
+    with pytest.raises(RuntimeError, match="process group"):
+        run_serve(cfg, n_rounds=1, device=CPU)
 
 
 # ------------------------------------------------------------ parity
@@ -182,8 +190,26 @@ class _Draws:
         return np.asarray(rows).reshape(shape).astype(dtype)
 
 
+def _port_draws(seed):
+    """The port's two seams fed from one numpy stream."""
+    td = _Draws(seed)
+
+    def t_uniform(gen, shape):
+        return torch.from_numpy(td.uniform(tuple(shape))).to(gen.device)
+
+    def t_synth(spec, params, k, gen):
+        treedef, leaf_sig = serve._payload_structure(
+            spec, serve._signature(params))
+        return unflatten(treedef, [
+            torch.from_numpy(td.leaf((k, *shape),
+                                     str(dtype).replace("torch.", ""),
+                                     spec.size))
+            for shape, dtype in leaf_sig])
+    return t_uniform, t_synth
+
+
 def _patch(monkeypatch, seed):
-    jd, td = _Draws(seed), _Draws(seed)
+    jd = _Draws(seed)
 
     def j_uniform(key, shape, dtype=jnp.float32, *a, **kw):
         return jnp.asarray(jd.uniform(tuple(shape)))
@@ -197,18 +223,7 @@ def _patch(monkeypatch, seed):
             jnp.asarray(jd.leaf((k, *x.shape), str(x.dtype), spec.size))
             for x in leaves])
 
-    def t_uniform(gen, shape):
-        return torch.from_numpy(td.uniform(tuple(shape))).to(gen.device)
-
-    def t_synth(spec, params, k, gen):
-        treedef, leaf_sig = serve._payload_structure(
-            spec, serve._signature(params))
-        return unflatten(treedef, [
-            torch.from_numpy(td.leaf((k, *shape),
-                                     str(dtype).replace("torch.", ""),
-                                     spec.size))
-            for shape, dtype in leaf_sig])
-
+    t_uniform, t_synth = _port_draws(seed)
     monkeypatch.setattr(jax.random, "uniform", j_uniform)
     monkeypatch.setattr(jserve, "synthetic_payloads", j_synth)
     monkeypatch.setattr(serve, "_uniform", t_uniform)
@@ -257,3 +272,83 @@ def test_step_matches_reference_on_identical_draws(kind, monkeypatch):
                 js, ts = jstep(js), tstep(ts)
     assert int(ts["version"]) == 6
     assert float(ts["clock"]) > 0 and float(ts["global_flat"].abs().max()) > 0
+
+
+KW = dict(n_clients=48, buffer_k=6, jitter=0.4, straggler_frac=0.1,
+          seed=2, staleness_power=0.5, server_lr=0.5)
+
+
+def _reference_rounds(jspec, pj, rounds, shard):
+    jcfg = jserve.ServeConfig(spec=jspec, shard=shard, **KW)
+    with jax.disable_jit():
+        js = jserve.init_state(jcfg, pj)
+        jstep = jserve.make_step(jcfg, pj)
+        for _ in range(rounds):
+            js = jstep(js)
+    return {k: np.asarray(v) for k, v in js.items()}
+
+
+def _hold(ts, js):
+    for key in ("times", "seqs", "versions"):
+        np.testing.assert_array_equal(np.asarray(ts[key]), js[key],
+                                      err_msg=key)
+    for key in ("version", "next_seq"):
+        assert int(ts[key]) == int(js[key]), key
+    np.testing.assert_allclose(float(ts["clock"]), float(js["clock"]),
+                               **BAND)
+    np.testing.assert_allclose(np.asarray(ts["global_flat"]),
+                               js["global_flat"], **BAND)
+
+
+@pytest.mark.parametrize("kind", ["q8", "chunked_ae"])
+def test_shard_step_matches_reference_on_identical_draws(kind, monkeypatch,
+                                                         tmp_path):
+    """``ServeConfig(shard=True)`` on a one-rank gloo group against the
+    reference's ``shard=True`` (a ``shard_map`` over its one device) on
+    identical draws, four rounds."""
+    import torch.distributed as dist
+    jspec, pj, tspec, pt = _specs(kind)
+    _patch(monkeypatch, seed=11)
+    js = _reference_rounds(jspec, pj, 4, shard=True)
+    tcfg = serve.ServeConfig(spec=tspec, shard=True, **KW)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        ts = serve.init_state(tcfg, pt, device=CPU)
+        tstep = serve.make_step(tcfg, pt, device=CPU)
+        for _ in range(4):
+            ts = tstep(ts)
+    finally:
+        dist.destroy_process_group()
+    _hold(ts, js)
+
+
+def _shard_worker(rank, world, kind, rounds):
+    """One rank of a sharded serve run on the port's seams, fed the same
+    numpy draws on every rank."""
+    _, _, tspec, pt = _specs(kind)
+    serve._uniform, serve.synthetic_payloads = _port_draws(11)
+    tcfg = serve.ServeConfig(spec=tspec, shard=True, **KW)
+    ts = serve.init_state(tcfg, pt, device=CPU)
+    step = serve.make_step(tcfg, pt, device=CPU)
+    for _ in range(rounds):
+        ts = step(ts)
+    return {k: v.clone() for k, v in ts.items()}
+
+
+def test_shard_two_ranks_matches_reference(monkeypatch, tmp_path):
+    """Two gloo ranks, each reducing 3 of the 6 buffered clients: four
+    rounds of the chunked AE on identical draws, against the reference's
+    unsharded serve; both ranks hold the same state."""
+    from repro_torch.launch.local import spawn
+    jspec, pj, _, _ = _specs("chunked_ae")
+    _patch(monkeypatch, seed=11)
+    js = _reference_rounds(jspec, pj, 4, shard=False)
+    res = spawn("test_torch_serve:_shard_worker", 2,
+                {"kind": "chunked_ae", "rounds": 4}, tmp_path / "run",
+                backend="gloo", timeout=180,
+                path=[__file__.rsplit("/", 1)[0]])
+    for ts in res:
+        _hold(ts, js)
+    for k in res[0]:
+        assert torch.equal(res[0][k], res[1][k]), k

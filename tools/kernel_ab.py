@@ -8,6 +8,7 @@ edit each.
     python3 tools/kernel_ab.py probe                  # structured inputs
     python3 tools/kernel_ab.py copy NAME SRC DEST     # SRC with edit NAME
     python3 tools/kernel_ab.py slabs ROOT             # a "slabs" copy
+    python3 tools/kernel_ab.py bits ROOT ROOT         # kernel 6, same bits?
 
 ``time`` imports ``repro_torch`` from each checkout ROOT in its own process
 (a parent unpacked with ``git archive``, this checkout, a copy with one
@@ -23,7 +24,10 @@ P) at each head dim. ``copy`` writes SRC's ``src/`` to DEST with one of
 :data:`VARIANTS` applied (each edit must match SRC exactly once); ``slabs``
 times, in a copy made with ``copy slabs``, the few_rows route against a
 K-slab form of it (each block reduces hbar for its slab only; a second
-kernel adds the slabs in order). Times are device times from
+kernel adds the slabs in order). ``bits`` runs kernel 6 in each of two
+checkouts (one process each) on the same inputs, at :data:`FLASH_SHAPES`
+and every head dim in both dtypes, with no ``q_offset`` and no
+``softcap``, and prints whether the outputs are ``torch.equal``. Times are device times from
 ``chip_smoke.time_ms`` (calls captured in a CUDA graph). Needs a CUDA card
 (``copy`` does not).
 """
@@ -746,6 +750,40 @@ def probe() -> list:
     return res
 
 
+BITS_SHAPES = FLASH_SHAPES + tuple(
+    (2, 200, 331, 4, 2, D, mode, 50 if mode == "window" else None, dt)
+    for D in (16, 32, 64, 256) for mode in ("causal", "window", "full")
+    for dt in ("bfloat16", "float32"))
+
+
+def bits_root(root: Path, out: Path) -> None:
+    """Kernel 6's outputs at :data:`BITS_SHAPES` from ``root``'s
+    ``repro_torch``, inputs drawn on the CPU from fixed seeds, saved to
+    ``out``."""
+    torch = _setup(root)
+    from repro_torch.kernels.flash_attention import flash_attention
+    res = []
+    for i, (B, Sq, Skv, H, KV, D, mode, win, dt) in enumerate(BITS_SHAPES):
+        g = torch.Generator().manual_seed(i)
+        q, k, v = (torch.randn(s, generator=g).to(getattr(torch, dt)).cuda()
+                   for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+        res.append(flash_attention(q, k, v, mode=mode, window=win).cpu())
+    torch.save(res, out)
+
+
+def bits(a: Path, b: Path) -> list:
+    import torch
+    outs = []
+    for i, root in enumerate((a, b)):
+        out = HERE / "build" / "kernel_ab" / f"bits_{i}.pt"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([sys.executable, __file__, "_bits", str(root),
+                        str(out)], check=True, env=dict(os.environ))
+        outs.append(torch.load(out))
+    return [dict(shape=list(s), equal=bool(torch.equal(x, y)))
+            for s, x, y in zip(BITS_SHAPES, *outs, strict=True)]
+
+
 def main(argv) -> int:
     if len(argv) >= 3 and argv[1] == "time":
         for root in argv[2:]:
@@ -759,6 +797,16 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[1] in ("sweep", "probe"):
         for r in (sweep() if argv[1] == "sweep" else probe()):
             print(json.dumps(r), flush=True)
+        return 0
+    if len(argv) == 4 and argv[1] == "bits":
+        rows = bits(Path(argv[2]).resolve(), Path(argv[3]).resolve())
+        for r in rows:
+            print(json.dumps(r), flush=True)
+        print(json.dumps({"all_equal": all(r["equal"] for r in rows),
+                          "n": len(rows)}), flush=True)
+        return 0
+    if len(argv) == 4 and argv[1] == "_bits":
+        bits_root(Path(argv[2]).resolve(), Path(argv[3]))
         return 0
     if len(argv) == 3 and argv[1] == "slabs":
         for r in slabs(Path(argv[2]).resolve()):
