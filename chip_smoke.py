@@ -34,8 +34,14 @@ Phases, each reported on its own lines:
    at D 64 on the FMA kernel, and ``extra_qk`` at minicpm3-4b's
    decomposed MLA scores (40 heads, nope 64 + rope 32 against a shared
    ``k_rope``, v 64, 4 x 1,024: the concatenation's copies timed apart,
-   as the pads). Kernels 3 to 6 have routes, named
-   in every row as ``kernel_route``: ``fused_dense`` ``narrow`` at K <=
+   as the pads). Kernels 1 and 2 also run at 2^30 values (rows of 1024).
+   Every kernel has routes, named in every row as ``kernel_route``:
+   kernel 1 ``rows`` (16-byte loads of a row held in registers) and
+   kernel 2 ``stream`` (a flat stream of 4-code words, float4 stores) on
+   aligned inputs, each ``generic`` (a warp a row) on a block or pointer
+   they do not take, with the block size and grid as ``plan``; their rows
+   in the ``kernels`` line carry launches by route for runs (a), (o) and
+   (q); ``fused_dense`` ``narrow`` at K <=
    32, else ``splitk`` at M <= 16, else ``mma`` (bf16) or ``sgemm``
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
    M_b <= 16 and K <= 512, else ``bands`` (a mixed round at K 512, N 4096
@@ -440,6 +446,7 @@ def check_quantize(nb: int, bits: int, seed: int, iters: int,
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.quantize import (dequantize_blocks_2d,
+                                              kernel_route,
                                               quantize_blocks_2d)
     g = torch.Generator(device="cuda").manual_seed(seed)
     qmax = float(2 ** (bits - 1) - 1)
@@ -457,18 +464,24 @@ def check_quantize(nb: int, bits: int, seed: int, iters: int,
     require(torch.equal(d, torch.mul(q, s[:, None])), "dequantize != torch.mul")
     n = nb * block
     rows = []
-    for name, kern, plain, lib, nbytes, flops in (
+    for name, kern, plain, lib, nbytes, flops, plan in (
             ("quantize_blocks_2d",
              lambda: quantize_blocks_2d(x, bits=bits, block=block),
              lambda: ref.quantize_blocks_ref(x, bits), None,
-             4 * n + n + 4 * nb, 4 * n),
+             4 * n + n + 4 * nb, 4 * n,
+             kernel_route("quantize", nb, block, x.data_ptr(),
+                          q.data_ptr())),
             ("dequantize_blocks_2d",
              lambda: dequantize_blocks_2d(q, s, block=block),
              lambda: ref.dequantize_blocks_ref(q, s),
              lambda: torch.mul(q, s[:, None]),
-             n + 4 * nb + 4 * n, n)):
+             n + 4 * nb + 4 * n, n,
+             kernel_route("dequantize", nb, block, q.data_ptr(),
+                          d.data_ptr()))):
         b_ms, b_by = bound(nbytes, flops, "float32")
         rows.append(dict(name=name, shape=[nb, block], bits=bits,
+                         kernel_route=plan.route,
+                         plan=[plan.threads, plan.grid],
                          max_abs_err=0.0, ms=time_ms(kern, iters),
                          host_ms=host_ms(kern, iters),
                          plain_ms=time_ms(plain, iters),
@@ -476,6 +489,22 @@ def check_quantize(nb: int, bits: int, seed: int, iters: int,
                          library_ms=None if lib is None
                          else time_ms(lib, iters)))
     return {r["name"]: r for r in rows}
+
+
+def quant_routes(counts: dict) -> dict:
+    """Kernels 1 and 2's launches by route since ``ROUTE_LAUNCHES`` was
+    cleared, ``{kernel: {route: n}}``; each kernel's routes must add up to
+    its count in ``counts`` (``_lib.counts()`` over the same run)."""
+    from repro_torch.kernels import quantize as qz
+    out = {}
+    for name in ("quantize_blocks_2d", "dequantize_blocks_2d"):
+        kind = name.split("_")[0]
+        out[name] = {k.split("/")[1]: v for k, v in qz.ROUTE_LAUNCHES.items()
+                     if k.startswith(kind + "/")}
+        require(sum(out[name].values()) == counts.get(name, 0),
+                f"{name}: launches by route {out[name]} do not add up to "
+                f"{counts.get(name, 0)}")
+    return out
 
 
 def check_fused_dense(M: int, K: int, N: int, act: str, dtype, seed: int,
@@ -2704,9 +2733,11 @@ def run_serve_loop(launches: dict) -> list:
     import gc
     import torch
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import quantize as qz
     gc.collect()
     torch.cuda.empty_cache()
     _lib.reset_launches()
+    qz.ROUTE_LAUNCHES.clear()
     out = [serve_row(*row) for row in serve_rows("cuda")]
     torch.cuda.synchronize()
     counts = _lib.counts()
@@ -2714,6 +2745,7 @@ def run_serve_loop(launches: dict) -> list:
         require(counts.get(x, 0) > 0, f"run (o) never launched {x}")
     for x, v in counts.items():
         launches[f"{x}_run_o"] = v
+    launches["quant_routes_run_o"] = quant_routes(counts)
     q8 = [r for r in out if r["name"].startswith("serve_q8")]
     require(all(r["launches_a_round"] == q8[0]["launches_a_round"]
                 for r in q8), "run (o): kernel launches a round differ "
@@ -2869,6 +2901,7 @@ def run_lm_delta(launches: dict) -> dict:
     from repro_torch.core import ClientPool, SampledSync
     from repro_torch.core.pytree import leaves
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import quantize as qz
     from repro_torch.models.model import init_params, param_count
     gc.collect()
     torch.cuda.empty_cache()
@@ -2880,6 +2913,7 @@ def run_lm_delta(launches: dict) -> dict:
     frozen0 = [t.clone() for t in leaves(params)]
     data, ev = lm_delta_data(arch.vocab_size, LM_Q["seqs"], LM_Q["seq_len"])
     _lib.reset_launches()
+    qz.ROUTE_LAUNCHES.clear()
     with FrozenCodesSpy() as codes, GroupMeanSpy() as means:
         run = build_lm_delta(arch, params, data, ev, "cuda")
         plays_s = play(run, 2, "cuda")
@@ -2907,6 +2941,7 @@ def run_lm_delta(launches: dict) -> dict:
               "fused_decode_agg", "flash_attention"):
         require(counts.get(x, 0) > 0, f"run (q) never launched {x}")
         launches[f"{x}_run_q"] = counts[x]
+    launches["quant_routes_run_q"] = quant_routes(counts)
     require(counts["flash_attention"] == 4 * arch.n_layers,
             f"run (q): flash_attention {counts['flash_attention']}, not "
             f"{arch.n_layers} an evaluate")
@@ -4054,6 +4089,7 @@ def main() -> int:
     from repro_torch.core import codec
     from repro_torch.core.pytree import leaves, ravel
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import quantize as qz
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 references
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4101,7 +4137,10 @@ def main() -> int:
         [(3, 37), (0, 8), (1, 8), (6, 100)], 32, 256, [1, 0, 0, 1], 14, 50),
         check_grouped_decode_agg([(3, 4), (0, 8), (2, 100), (1, 16)], 512,
                                  4096, [0, 1, 0, 1], 20, 50)]
-    cohort = list(check_quantize(256 * 4096, 8, 7, 10).values())
+    # 2^30 values: rows of 1024, each held in a lane's registers
+    cohort = (list(check_quantize(256 * 4096, 8, 7, 10).values())
+              + list(check_quantize(1_048_576, 8, 81, 3,
+                                    block=1024).values()))
     cohort.append(check_fused_dense(256 * 4096, 8, 32, "relu",
                                     torch.float32, 8, 10))
     cohort.append(check_fused_dense(256 * 4096, 32, 256, "linear",
@@ -4268,9 +4307,11 @@ def main() -> int:
     at("4. slice")
     launches = {}
     _lib.reset_launches()
+    qz.ROUTE_LAUNCHES.clear()
     run_a, hist_a = run_golden("cuda")
     torch.cuda.synchronize()
     counts_a = _lib.counts()
+    launches["quant_routes_run_a"] = quant_routes(counts_a)
     log(f"slice (a) q8 golden config: launches {counts_a}; "
         + "; ".join(f"r{r.round} loss {r.global_metrics['loss']!r} acc "
                     f"{r.global_metrics['accuracy']!r}" for r in hist_a))
@@ -4950,6 +4991,10 @@ def main() -> int:
                          **args6)
         if f"{name}_run_ab" in launches:
             extra["launches_run_ab"] = launches[f"{name}_run_ab"]
+        if name in ("quantize_blocks_2d", "dequantize_blocks_2d"):
+            extra.update({f"launches_by_route_run_{x}":
+                          launches[f"quant_routes_run_{x}"][name]
+                          for x in "aoq"})
         if name == "fused_dense":
             extra.update(launches_by_route_run_c=routes_c,
                          launches_by_route_run_h=routes_h,
@@ -4963,7 +5008,7 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=r["shape"],
-                            **{k: r[k] for k in ("kernel_route",
+                            **{k: r[k] for k in ("kernel_route", "plan",
                                                  "library_call",
                                                  "per_bucket_ms") if k in r}))
     for line in smi:

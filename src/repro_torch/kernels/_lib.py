@@ -42,10 +42,10 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 _SIGNATURES = {
-    # x, q, s, nb, block, qmax, stream
-    "repro_quantize_blocks": [_P, _P, _P, _LL, _I, _F, _P],
-    # q, s, x, nb, block, stream
-    "repro_dequantize_blocks": [_P, _P, _P, _LL, _I, _P],
+    # x, q, s, nb, block, qmax, route, grid, threads, stream
+    "repro_quantize_blocks": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
+    # q, s, x, nb, block, route, grid, threads, stream
+    "repro_dequantize_blocks": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     # x, w, b, y, M, K, N, act, dtype, route, tile, sms, stream
     "repro_fused_dense": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
                           _P],

@@ -10,6 +10,8 @@ PyTorch is installed:
 
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import collections
+
 import numpy as np
 import pytest
 
@@ -26,6 +28,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.fused_dense import (  # noqa: E402
     ACTS, DTYPES, MMA_ROWS, SGEMM_TILES, fused_dense, kernel_route,
     tile_plan)
+from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -59,6 +62,102 @@ def test_quantize_kernels_equal_plain(bits):
     after = _lib.counts()
     for k in ("quantize_blocks_2d", "dequantize_blocks_2d"):
         assert after.get(k, 0) == before.get(k, 0) + 1
+
+
+def _tied_rows(nb, block, bits, seed, offset=0):
+    """(nb, block) float32 on the card, every third row a tie row (absmax
+    qmax, so scale 1, and the other values on .5), as a view ``offset``
+    floats into a larger buffer (offset 1: 4 bytes off 16-byte alignment,
+    as ``buf[k:]`` can be)."""
+    qmax = float(2 ** (bits - 1) - 1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.empty(nb * block + offset, device="cuda")
+    x = buf[offset:].view(nb, block)
+    x.copy_(torch.randn((nb, block), generator=g, device="cuda") * 3)
+    x[::3, 0] = qmax
+    x[::3, 1:] = ((torch.arange(block - 1, device="cuda")
+                   % (2 * int(qmax) - 1) - (qmax - 1)) + 0.5)
+    return x
+
+
+def _expected_routes(block, aligned):
+    quant = ("rows" if aligned and block in qz.VECTOR_BLOCKS
+             else "generic")
+    dequant = "stream" if aligned and block % 4 == 0 else "generic"
+    return quant, dequant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("block", [64, 100, 256, 1024])
+@pytest.mark.parametrize("nb", [1, 63, 1802, 70_001])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_routes_equal_plain(bits, block, nb, aligned):
+    """Kernels 1 and 2 through their wrappers on each route the shapes and
+    pointers give (70,001 rows: more warps than the card holds at once),
+    tie rows included: codes, scales and dequantized values ``torch.equal``
+    to the plain versions and to ``torch.mul``, one launch each under the
+    route expected. Unaligned: x 4 bytes and the codes 3 bytes off 16-byte
+    alignment."""
+    _card()
+    x = _tied_rows(nb, block, bits, nb + block + bits, 0 if aligned else 1)
+    before = qz.ROUTE_LAUNCHES.copy()
+    q, s = quantize_blocks_2d(x, bits=bits, block=block)
+    q_r, s_r = ref.quantize_blocks_ref(x, bits)
+    assert torch.equal(q, q_r) and torch.equal(s, s_r)
+    buf = torch.empty(nb * block + 3, dtype=torch.int8, device="cuda")
+    qv = buf[0 if aligned else 3:][:nb * block].view(nb, block)
+    qv.copy_(q)
+    d = dequantize_blocks_2d(qv, s, block=block)
+    assert torch.equal(d, ref.dequantize_blocks_ref(q_r, s_r))
+    assert torch.equal(d, torch.mul(q, s[:, None]))
+    quant, dequant = _expected_routes(block, aligned)
+    assert qz.ROUTE_LAUNCHES - before == collections.Counter(
+        {"quantize/" + quant: 1, "dequantize/" + dequant: 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["generic", "vector"])
+@pytest.mark.parametrize("block", [64, 100, 128, 256, 512, 1024, 50])
+@pytest.mark.parametrize("nb", [1, 63, 1802, 70_001])
+def test_quantize_every_route_launched_directly(route, block, nb):
+    """Each route of kernels 1 and 2 launched directly, at every templated
+    block, at 100 and at 50, on a grid of 2-warp blocks that just covers
+    the work: ``torch.equal`` to the plain versions. Refused, nothing
+    launched: a block the route does not take (quantize's vector body
+    takes the templated blocks, dequantize's whole 4-code words) and a
+    grid one block short."""
+    _card()
+    x = _tied_rows(nb, block, 8, 3 * nb + block)
+    q_r, s_r = ref.quantize_blocks_ref(x, 8)
+    d_r = ref.dequantize_blocks_ref(q_r, s_r)
+    q = torch.full((nb, block), 99, dtype=torch.int8, device="cuda")
+    s = torch.zeros((nb,), device="cuda")
+    y = torch.zeros((nb, block), device="cuda")
+    vector = route == "vector"
+    units = ((-(-nb // qz._rows_a_warp(block)) if vector else nb),
+             (-(-nb * block // qz._STREAM_CODES) if vector else nb))
+    admits = ((block in qz.VECTOR_BLOCKS, block % 4 == 0) if vector
+              else (True, True))
+    for (counter, fn, args), ok, n in zip((
+            ("quantize_blocks_2d", "repro_quantize_blocks",
+             (x, q, s, nb, block, 127.0, int(vector))),
+            ("dequantize_blocks_2d", "repro_dequantize_blocks",
+             (q_r, s_r, y, nb, block, int(vector)))), admits, units):
+        before = _lib.counts().get(counter, 0)
+        grid = -(-n // 2)
+        for g in ((grid, grid - 1) if ok else (grid,)):
+            if ok and g == grid:
+                _lib.launch(counter, fn, *args, g, 64)
+                continue
+            with pytest.raises(RuntimeError, match="launch failed"):
+                _lib.launch(counter, fn, *args, g, 64)
+        assert _lib.counts().get(counter, 0) == before + ok
+    torch.cuda.synchronize()
+    if admits[0]:
+        assert torch.equal(q, q_r) and torch.equal(s, s_r)
+    if admits[1]:
+        assert torch.equal(y, d_r)
 
 
 @pytest.mark.gpu

@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel_route as flash_route)
 from repro_torch.kernels.fused_dense import (  # noqa: E402
     MMA_ROWS, SGEMM_TILES, fused_dense, kernel_route, splitk_plan, tile_plan)
+from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
                                           quantize_blocks_2d)
 
@@ -222,6 +223,61 @@ def test_quantize_plain_matches_pallas(n_blocks, block, bits):
     np.testing.assert_array_equal(d_same.numpy(), np.asarray(d_j))
     d_t = dequantize_blocks_2d(q_t, s_t, block=block)
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind,nb,block,in_ptr,out_ptr,route", [
+    # quantize: a templated block with x 16-byte and codes 4-byte aligned
+    ("quantize", 63, 256, 0, 0, "rows"),
+    ("quantize", 17, 64, 256, 512, "rows"),
+    ("quantize", 65_536, 1024, 16, 4, "rows"),
+    ("quantize", 8, 128, 32, 0, "rows"),
+    ("quantize", 8, 512, 32, 0, "rows"),
+    ("quantize", 63, 100, 0, 0, "generic"),     # not templated
+    ("quantize", 63, 48, 0, 0, "generic"),
+    ("quantize", 63, 256, 4, 0, "generic"),     # x off 16 bytes (buf[1:])
+    ("quantize", 63, 256, 0, 2, "generic"),     # codes off 4 bytes
+    # dequantize: whole 4-code words, codes 4-byte and x 16-byte aligned
+    ("dequantize", 63, 256, 0, 0, "stream"),
+    ("dequantize", 63, 100, 0, 0, "stream"),    # any multiple of 4
+    ("dequantize", 1, 1024, 4, 32, "stream"),
+    ("dequantize", 63, 50, 0, 0, "generic"),    # words across rows
+    ("dequantize", 63, 256, 3, 0, "generic"),   # codes off (buf[3:])
+    ("dequantize", 63, 256, 0, 4, "generic"),   # x off
+])
+def test_quantize_kernel_route(kind, nb, block, in_ptr, out_ptr, route):
+    """Which body kernels 1 and 2 launch (pure Python: the wrapper's
+    routing, no card)."""
+    assert qz.kernel_route(kind, nb, block, in_ptr, out_ptr).route == route
+
+
+@pytest.mark.parametrize("kind,nb,block,units", [
+    ("quantize", 1, 256, 1),               # the launch floor
+    ("quantize", 63, 256, 63),             # the paper's MLP: a warp a row
+    ("quantize", 1802, 256, 1802),
+    ("quantize", 65_536, 1024, 65_536),
+    ("quantize", 1700, 64, 850),           # two half-warp rows a warp
+    ("quantize", 63, 100, 63),             # generic: a warp a row
+    ("dequantize", 63, 256, 63),           # 256 codes a warp
+    ("dequantize", 1_605_632, 256, 1_605_632),
+    ("dequantize", 63, 100, 25),           # stream: 6,300 codes
+    ("dequantize", 63, 50, 63),            # generic: a warp a row
+    ("dequantize", 70_001, 50, 70_001),
+])
+def test_quantize_plan_gives_each_unit_a_warp(kind, nb, block, units):
+    """Every launch gives each unit of work (a row, two half rows, or 64
+    words) its own warp, 4 warps a block, so the grid covers the work with
+    no warp walking more than one unit."""
+    p = qz.kernel_route(kind, nb, block, 0, 0)
+    assert (p.threads, p.grid) == (128, -(-units // 4))
+
+
+def test_quantize_plan_refuses_what_it_cannot_launch():
+    """An unknown kernel, and work beyond CUDA's 2^31 - 1 blocks, raise
+    before anything reaches the card."""
+    with pytest.raises(ValueError, match="kind"):
+        qz.kernel_route("pack", 1, 256, 0, 0)
+    with pytest.raises(ValueError, match="grid"):
+        qz.kernel_route("quantize", 2 ** 40, 256, 0, 0)
 
 
 def test_quantize_rounds_half_to_even():
@@ -476,6 +532,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
                          torch.empty((256, 8), device="meta"),
                          torch.empty(8, device="meta"))
     assert _lib.counts() == before          # nothing launched
+    assert not qz.ROUTE_LAUNCHES
 
 
 # -------------------------------------------------------------- grad guard

@@ -1,9 +1,11 @@
-"""Device times of kernels 3 to 6 (``fused_dense``, ``fused_decode_agg``,
+"""Device times of the six kernels (``quantize_blocks_2d``,
+``dequantize_blocks_2d``, ``fused_dense``, ``fused_decode_agg``,
 ``grouped_fused_decode_agg``, ``flash_attention``) for A/B comparisons on
 one card, probes of their CUDA routes, and copies of a checkout with one
 edit each.
 
     python3 tools/kernel_ab.py time ROOT [ROOT ...]   # one JSON line a ROOT
+    python3 tools/kernel_ab.py quant [ROOT]           # kernels 1-2 by route
     python3 tools/kernel_ab.py sweep                  # plans, profiler
     python3 tools/kernel_ab.py probe                  # structured inputs
     python3 tools/kernel_ab.py copy NAME SRC DEST     # SRC with edit NAME
@@ -14,7 +16,19 @@ edit each.
 (a parent unpacked with ``git archive``, this checkout, a copy with one
 edit) and times the main-path shapes and the library calls beside them, so
 comparisons are made within one run on one card: list the roots in turns,
-e.g. ``parent . . parent``. ``sweep`` launches the split-K kernel with
+e.g. ``parent . . parent``; kernels 1 and 2 at :data:`QUANT_SHAPES`
+come first, each with the route it took (``warp_rows`` for a tree without
+``kernel_route``, whose one body was a warp a row), their inputs cycled
+over copies larger than twice the L2 (:func:`_cold`). ``quant ROOT``
+runs kernels 1 and 2 of a checkout through their wrappers with each route
+and plan forced (``generic``; the vector routes ``rows`` / ``stream`` at
+1, 2, 4 and 8 warps a block; ``generic`` at 8 warps a block, as the first
+port launched it; in copies made with ``copy bulk`` or ``copy
+rows_stride``, the TMA-fed route or a grid capped at one wave) at
+:data:`QUANT_SHAPES` and (2^20, 1024), each checked ``torch.equal`` to the
+plain version, with its share of the bytes bound; the copies
+``rows_4f4``, ``dq_words4``, ``dq_chunks`` and ``dq_chunks_direct`` hold
+the other designs tried. ``sweep`` launches the split-K kernel with
 slab rows and column-tile widths other than ``splitk_plan``'s, and the
 decode→aggregate few_rows route with every column-tile width, alone and
 grouped, and splits a call's device time by kernel with
@@ -34,6 +48,7 @@ and every head dim in both dtypes, with no ``q_offset`` and no
 from __future__ import annotations
 
 import inspect
+import itertools
 import json
 import os
 import shutil
@@ -68,6 +83,13 @@ GROUPED_SHAPES = (([(2, 4), (2, 4)], 512, 4096, [0, 1]),
                   ([(32, 3840), (32, 3840)], 32, 256, [0, 1]),
                   ([(3, 4), (0, 8), (2, 100), (1, 16)], 512, 4096,
                    [0, 1, 0, 1]))
+# kernels 1 and 2 (nb, block): the paper's MLP (15,910 values), the launch
+# floor, run (o)'s q8 at K 256 and 65,536, run (q)'s attention group, 2^28
+# values, run (q)'s embedding group
+QUANT_SHAPES = ((63, 256), (1, 256), (65_536, 256), (65_536, 1024),
+                (131_072, 256), (1_048_576, 256), (1_605_632, 256))
+COLD_BYTES = 2 * 50 * 2 ** 20        # twice the H100's 50 MB L2
+HBM_BYTES_PER_S = 3.35e12
 FLASH_SHAPES = ((4, 1024, 1024, 56, 8, 128, "causal", None, "bfloat16"),
                 (2, 1000, 1000, 56, 8, 128, "window", 256, "bfloat16"),
                 (2, 333, 517, 56, 8, 128, "full", None, "bfloat16"),
@@ -111,6 +133,140 @@ def _grouped_plan(fda, hs, ws, w_stack, b_stack, dec_idx):
                             dec_idx)
 
 
+def _cold(make, nbytes: int, iters: int):
+    """A callable that returns the next of ``k`` input sets from ``make``,
+    ``k`` large enough that the sets together exceed :data:`COLD_BYTES`
+    (at most ``iters``): repeated launches then read their inputs from HBM,
+    as a caller's first touch does, and not from the L2."""
+    sets = [make() for _ in range(max(1, min(iters,
+                                             -(-COLD_BYTES // nbytes))))]
+    cyc = itertools.cycle(sets)
+    return lambda: next(cyc)
+
+
+def _quant_bound_ms(nb: int, block: int) -> float:
+    """Kernels 1 and 2 move 5 bytes a value and 4 a row (HBM at 3.35 TB/s)."""
+    return (5 * nb * block + 4 * nb) / HBM_BYTES_PER_S * 1e3
+
+
+def _quant_iters(nb: int, block: int) -> int:
+    return 10 if nb * block >= 1 << 24 else 200
+
+
+def time_quant(torch, g, out: dict) -> None:
+    """Kernels 1 and 2 through their wrappers at :data:`QUANT_SHAPES`
+    (bits 8), inputs cold, with the route each took."""
+    from chip_smoke import time_ms
+    from repro_torch.kernels import quantize as qz
+    route = getattr(qz, "kernel_route", None)
+    for nb, block in QUANT_SHAPES:
+        iters = _quant_iters(nb, block)
+        nxt_x = _cold(lambda: torch.randn((nb, block), generator=g,
+                                          device="cuda") * 3,
+                      4 * nb * block, iters)
+        nxt_q = _cold(lambda: qz.quantize_blocks_2d(nxt_x(), block=block),
+                      nb * block, iters)
+        key = f"{nb},{block}"
+        out[f"quantize {key}"] = time_ms(
+            lambda: qz.quantize_blocks_2d(nxt_x(), block=block), iters)
+        out[f"dequantize {key}"] = time_ms(
+            lambda: qz.dequantize_blocks_2d(*nxt_q(), block=block), iters)
+        out[f"bound {key}"] = _quant_bound_ms(nb, block)
+        if route is None:
+            out[f"route {key}"] = ["warp_rows", "warp_rows"]
+        else:
+            x, (q, _) = nxt_x(), nxt_q()
+            out[f"route {key}"] = [
+                route("quantize", nb, block, x.data_ptr(), q.data_ptr()),
+                route("dequantize", nb, block, q.data_ptr(), x.data_ptr())]
+        torch.cuda.empty_cache()
+
+
+def quant(root: Path = HERE) -> list:
+    """Kernels 1 and 2 of ``root`` through their wrappers with each route
+    and plan forced, at :data:`QUANT_SHAPES` and (2^20, 1024), bits 8,
+    inputs cold as in ``time``; the outputs of each ``torch.equal`` to the
+    plain version. From 2^24 values, ``zero_`` and ``copy_`` over as many
+    floats as yardsticks of the card's write and copy rates."""
+    torch = _setup(root)
+    from chip_smoke import tie_rows, time_ms
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels import quantize as qz
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sms = _lib.device_sms(torch.device("cuda"))
+    res = []
+    for nb, block in QUANT_SHAPES + ((1 << 20, 1024),):
+        iters = _quant_iters(nb, block)
+        nxt_x = _cold(lambda: tie_rows(torch.randn(
+            (nb, block), generator=g, device="cuda") * 3, 127.0, 7),
+            4 * nb * block, iters)
+        nxt_q = _cold(lambda: ref.quantize_blocks_ref(nxt_x(), 8),
+                      nb * block, iters)
+        x = nxt_x()
+        q_r, s_r = ref.quantize_blocks_ref(x, 8)
+        d_r = ref.dequantize_blocks_ref(q_r, s_r)
+        plans = {}
+        for kind, n_iter in (("quantize", -(-nb // qz._rows_a_warp(block))),
+                             ("dequantize",
+                              -(-nb * block // qz._STREAM_CODES))):
+            vec = qz.kernel_route(kind, nb, block, 0, 0)
+            generic = qz.kernel_route(kind, nb, block, 1, 1)
+            plans[kind] = [("generic", generic)] + ([
+                ("bulk", qz.bulk_plan(kind, nb, block, sms))]
+                if hasattr(qz, "bulk_plan") else []) + [
+                # the vector route at 1-8 warps a block, a warp an
+                # iteration; "*" marks the wrapper's own plan
+                (f"{vec.route}_{w * 32}" + ("*" if w * 32 == vec.threads
+                                             else ""),
+                 qz.Plan(vec.route, w * 32, -(-n_iter // w)))
+                for w in (1, 2, 4, 8)]
+            if kind == "quantize" and getattr(qz, "GRID_STRIDE", False):
+                # a "rows_stride" copy: the grid capped at 64 warps an SM
+                plans[kind].append((vec.route + "_stride", qz.Plan(
+                    vec.route, 256, min(-(-n_iter // 8), sms * 8))))
+            # the generic route as the parent launched it: 8 warps a block
+            plans[kind].append(("generic_256", qz.Plan(
+                "generic", 256, -(-nb // 8))))
+        route = qz.kernel_route
+        try:
+            for kind, name, plan in [(k, *p) for k in plans
+                                     for p in plans[k]]:
+                # the wrapper's own call path, launching ``plan``
+                qz.kernel_route = lambda *a, plan=plan: plan
+                if kind == "quantize":
+                    q, s = qz.quantize_blocks_2d(x, block=block)
+                    equal = torch.equal(q, q_r) and torch.equal(s, s_r)
+                    fn = lambda: qz.quantize_blocks_2d(nxt_x(), block=block)
+                else:
+                    equal = torch.equal(qz.dequantize_blocks_2d(
+                        q_r, s_r, block=block), d_r)
+                    fn = lambda: qz.dequantize_blocks_2d(*nxt_q(),
+                                                         block=block)
+                res.append(dict(kernel=kind + "_blocks_2d",
+                                shape=[nb, block], route=name,
+                                threads=plan.threads, grid=plan.grid,
+                                equal=bool(equal), ms=time_ms(fn, iters),
+                                bound_ms=_quant_bound_ms(nb, block)))
+        finally:
+            qz.kernel_route = route
+        if nb * block >= 1 << 24:
+            # yardsticks (PyTorch's own kernels, no part of the port): a
+            # write of 4 bytes a value, and a read plus a write of 4
+            y = torch.empty((nb, block), device="cuda")
+            for name, fn, nbytes in (
+                    ("zero_", lambda: y.zero_(), 4 * nb * block),
+                    ("copy_", lambda: y.copy_(nxt_x()), 8 * nb * block)):
+                res.append(dict(kernel=name, shape=[nb, block],
+                                ms=time_ms(fn, iters),
+                                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            del y
+        for r in res:
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        del x, q_r, s_r, d_r, nxt_x, nxt_q
+        torch.cuda.empty_cache()
+    return res
+
+
 def time_root(root: Path) -> dict:
     torch = _setup(root)
     import torch.nn.functional as F
@@ -119,6 +275,7 @@ def time_root(root: Path) -> dict:
     from repro_torch.kernels.fused_dense import fused_dense, kernel_route
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(root)}
+    time_quant(torch, g, out)
     # kernel 3's routes; an older root routes by M alone
     four = len(inspect.signature(kernel_route).parameters) == 4
     for M, K, N, act, dt in FD_SHAPES:
@@ -363,6 +520,8 @@ def slabs(root: Path) -> list:
 # ------------------------------------------------------------- variants
 HEADER = "src/repro_torch/csrc/decode_agg_tile.cuh"
 FD_CU = "src/repro_torch/csrc/fused_dense.cu"
+Q_CU = "src/repro_torch/csrc/quantize.cu"
+Q_PY = "src/repro_torch/kernels/quantize.py"
 # a slab's products only after every copy in flight has landed: loads and
 # products do not overlap (the effect of a single-buffered K)
 _WAIT_ALL = "    cp_async_wait<0>();\n    __syncthreads();\n"
@@ -595,7 +754,437 @@ _RETURN_AFTER_REDUCE = (
     "  if (threadIdx.x < rows && n_begin < n_end)\n"
     "    out[(long long)threadIdx.x * N + n_begin] = hbar[threadIdx.x];\n"
     "  return;\n")
+# Designs of kernels 1 and 2 tried against the shipped ones (PERF.md §6;
+# each keeps the shipped launch check that the grid gives every unit of
+# work a warp). Kernel 2 as 16-byte code chunks, a lane loading one chunk
+# (16 codes, one scale), two a warp: DQ_CHUNKS stages the warp's 1,024
+# codes in shared memory and writes them back as 512 contiguous bytes a
+# store instruction, DQ_CHUNKS_DIRECT writes each lane's four float4s
+# itself (64 bytes apart across the warp). Both need block % 16 == 0; a
+# warp's unit is 1,024 codes (kWords 8 in the check).
+DQ_CHUNKS = """__global__ void __launch_bounds__(kMaxThreads)
+dequantize_stream(const int8_t* __restrict__ q, const float* __restrict__ s,
+                  float* __restrict__ x, long long n, int block, int shift) {
+  constexpr int kSpanCodes = 512, kSpans = 2;
+  __shared__ __align__(16) uint32_t stage[kMaxThreads / 32][kSpans]
+                                         [kSpanCodes / 4];
+  const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
+  const long long chunks = n / 16, it = warp_id();
+  const uint4* q16 = reinterpret_cast<const uint4*>(q);
+  uint4 c[kSpans];
+#pragma unroll
+  for (int u = 0; u < kSpans; ++u) {              // every load first
+    const long long k = (it * kSpans + u) * 32 + lane;
+    c[u] = k < chunks ? q16[k] : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kSpans; ++u)
+    *reinterpret_cast<uint4*>(&stage[w][u][4 * lane]) = c[u];
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < kSpans; ++u) {
+    const long long e0 = (it * kSpans + u) * kSpanCodes;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {                 // 512 bytes a store
+      const int word = 32 * j + lane;
+      const long long e = e0 + 4 * word;
+      if (e < n)
+        *reinterpret_cast<float4*>(x + e) =
+            dequant4(stage[w][u][word], s[row_of(e, block, shift)]);
+    }
+  }
+}
+
+"""
+DQ_CHUNKS_DIRECT = """__global__ void __launch_bounds__(kMaxThreads)
+dequantize_stream(const int8_t* __restrict__ q, const float* __restrict__ s,
+                  float* __restrict__ x, long long n, int block, int shift) {
+  const long long chunks = n / 16;
+  const long long k0 = warp_id() * 64 + (threadIdx.x & 31);
+  const uint4* q16 = reinterpret_cast<const uint4*>(q);
+  float4* x4 = reinterpret_cast<float4*>(x);
+  uint4 c[2];
+  float sc[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long k = k0 + 32 * u;
+    c[u] = k < chunks ? q16[k] : make_uint4(0, 0, 0, 0);
+    sc[u] = k < chunks ? s[row_of(16 * k, block, shift)] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long k = k0 + 32 * u;
+    if (k < chunks) {
+      x4[4 * k] = dequant4(c[u].x, sc[u]);
+      x4[4 * k + 1] = dequant4(c[u].y, sc[u]);
+      x4[4 * k + 2] = dequant4(c[u].z, sc[u]);
+      x4[4 * k + 3] = dequant4(c[u].w, sc[u]);
+    }
+  }
+}
+
+"""
+_CHUNK_UNITS = [(Q_CU, "constexpr int kWords = 2;",
+                 "constexpr int kWords = 8;"),
+                (Q_PY, "_STREAM_CODES = 32 * 2 * 4 ", "_STREAM_CODES = 1024 ")]
+# Kernel 1 with R rows a warp, all loaded before any is reduced, so at least
+# 4 float4s a lane are in flight (2 rows of 256, 4 of 128 or of 64)
+ROWS_4F4 = """template <int BLOCK>
+__global__ void __launch_bounds__(kMaxThreads)
+quantize_vector(const float* __restrict__ x, int8_t* __restrict__ q,
+                float* __restrict__ s, long long nb, float qmax) {
+  using S = Rows<BLOCK>;
+  constexpr int R = S::V >= 4 ? 1 : 4 / S::V, ROWS = S::RW * R;
+  const long long it = warp_id();
+  if (it * ROWS >= nb) return;
+  const int lane = threadIdx.x & 31, sub = lane % S::LPR,
+            half = lane / S::LPR;
+  float4 v[R][S::V];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {                   // every load first
+    const long long row = it * ROWS + r * S::RW + half;
+    const float4* xr = reinterpret_cast<const float4*>(x + row * BLOCK);
+#pragma unroll
+    for (int j = 0; j < S::V; ++j)
+      v[r][j] = row < nb ? xr[j * S::LPR + sub] : make_float4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    quantize_row<BLOCK>(v[r], it * ROWS + r * S::RW + half, nb, sub, q, s,
+                        qmax);
+}
+
+"""
+# Kernel 1 in a grid-stride loop, so a grid capped at one wave (8 warps a
+# block, 8 blocks an SM) covers any number of rows
+ROWS_STRIDE = """template <int BLOCK>
+__global__ void __launch_bounds__(kMaxThreads)
+quantize_vector(const float* __restrict__ x, int8_t* __restrict__ q,
+                float* __restrict__ s, long long nb, float qmax) {
+  using S = Rows<BLOCK>;
+  const int lane = threadIdx.x & 31, sub = lane % S::LPR,
+            half = lane / S::LPR;
+  const long long units = (nb + S::RW - 1) / S::RW;
+  for (long long it = warp_id(); it < units;
+       it += (long long)gridDim.x * (blockDim.x / 32)) {
+    const long long row = it * S::RW + half;
+    const float4* xr = reinterpret_cast<const float4*>(x + row * BLOCK);
+    float4 v[S::V];
+#pragma unroll
+    for (int j = 0; j < S::V; ++j)
+      v[j] = row < nb ? xr[j * S::LPR + sub] : make_float4(0, 0, 0, 0);
+    quantize_row<BLOCK>(v, row, nb, sub, q, s, qmax);
+  }
+}
+
+"""
+_ROWS = ("template <int BLOCK>\n__global__ void __launch_bounds__(kMaxThreads)"
+         "\nquantize_vector(",
+         "__global__ void __launch_bounds__(kMaxThreads)\ndequantize_stream(")
+# the bulk route (TMA): 1D cp.async.bulk copies of consecutive rows
+# (quantize) or codes (dequantize) into a ring of 4 shared-memory stages,
+# one elected producer thread and 8 consumer warps on mbarriers, a
+# persistent grid; kernel 2's consumers stage their floats and store them
+# with bulk copies too. Timed slower than the vector routes at every shape
+# (PERF.md §6), so the shipped kernels leave it out; "bulk" adds it back as
+# route 2 and ``bulk_plan``, which ``quant`` times beside the others.
+BULK_CU = r"""// -------------------------------------------------------------- bulk route
+// 1D cp.async.bulk (TMA) copies of consecutive rows (quantize) or codes
+// (dequantize) into a ring of kStages shared-memory stages, one elected
+// producer thread and kConsumers consumer warps, completion on mbarriers;
+// a persistent grid, each block walking tiles blockIdx.x + k * gridDim.x.
+constexpr int kBulk = 2;
+constexpr int kConsumers = 8;                         // consumer warps
+constexpr int kBulkThreads = 32 * (kConsumers + 1);   // + a producer warp
+constexpr int kStages = 4;                            // ring depth
+constexpr int kDqTile = 8192;                         // codes a stage
+constexpr int kDqOutOffset = kStages * kDqTile + 128;  // ring, its barriers
+// + two output buffers a consumer warp, 4 bytes a code each
+constexpr int kDqSmem = kDqOutOffset + 2 * 4 * kDqTile;
+
+template <int BLOCK>
+struct BulkRows : Rows<BLOCK> {
+  // rows a stage (16 KB, and a step for each consumer warp)
+  static constexpr int TILE = 16384 / (4 * BLOCK) > kConsumers * Rows<BLOCK>::RW
+                                  ? 16384 / (4 * BLOCK)
+                                  : kConsumers * Rows<BLOCK>::RW;
+  static constexpr int STAGE = TILE * BLOCK * 4;       // bytes
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// Returns once the barrier's phase of parity `parity` has completed; traps
+// after 2^24 polls (a lost copy or arrival) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (polls == (1u << 24)) __trap();
+  }
+}
+// `bytes` (a multiple of 16) from 16-byte aligned global `src` into shared
+// `dst`, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+        "r"(bar) : "memory");
+}
+
+// The ring both bulk kernels share: `stage_bytes` a stage, then a full and
+// an empty mbarrier a stage. The producer warp's lane 0 walks the block's
+// tiles (blockIdx.x, + gridDim.x, ...) and copies tile t's `bytes_of(t)`
+// from `src_of(t)`; each consumer warp calls `body(t, stage)` on every
+// tile in the same order, then releases the stage.
+template <typename Src, typename Bytes, typename Body>
+__device__ __forceinline__ void bulk_ring(unsigned char* smem, int stage_bytes,
+                                          long long tiles, Src src_of,
+                                          Bytes bytes_of, Body body) {
+  const uint32_t bars = smem_u32(smem + kStages * stage_bytes);
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 16 * st, 1);                  // full
+      mbar_init(bars + 16 * st + 8, kConsumers);     // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (w == kConsumers) {                             // producer warp
+    if (lane == 0) {
+      int it = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+        const int st = it % kStages;
+        if (it >= kStages)
+          mbar_wait(bars + 16 * st + 8, (it / kStages - 1) & 1);
+        const uint32_t bytes = bytes_of(t);
+        mbar_expect_tx(bars + 16 * st, bytes);
+        bulk_load(smem_u32(smem + st * stage_bytes), src_of(t), bytes,
+                  bars + 16 * st);
+      }
+    }
+    return;
+  }
+  int it = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+    const int st = it % kStages;
+    mbar_wait(bars + 16 * st, (it / kStages) & 1);
+    body(t, smem + st * stage_bytes);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 16 * st + 8);
+  }
+}
+
+template <int BLOCK>
+__global__ void __launch_bounds__(kBulkThreads)
+quantize_bulk(const float* __restrict__ x, int8_t* __restrict__ q,
+              float* __restrict__ s, long long nb, float qmax) {
+  using S = BulkRows<BLOCK>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int RPW = S::TILE / kConsumers;          // rows a consumer warp
+  const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
+  const int sub = lane % S::LPR, half = lane / S::LPR;
+  const long long tiles = (nb + S::TILE - 1) / S::TILE;
+  bulk_ring(
+      smem, S::STAGE, tiles,
+      [&](long long t) { return x + t * S::TILE * BLOCK; },
+      [&](long long t) {
+        const long long rows = nb - t * S::TILE;
+        return (uint32_t)((rows < S::TILE ? rows : S::TILE) * BLOCK * 4);
+      },
+      [&](long long t, unsigned char* stage) {
+#pragma unroll
+        for (int k = 0; k < RPW / S::RW; ++k) {
+          const int r = w * RPW + k * S::RW + half;   // row in the tile
+          const long long row = t * S::TILE + r;
+          const float4* xr =
+              reinterpret_cast<const float4*>(stage) + r * (BLOCK / 4);
+          float4 v[S::V];
+#pragma unroll
+          for (int j = 0; j < S::V; ++j)
+            v[j] = row < nb ? xr[j * S::LPR + sub] : make_float4(0, 0, 0, 0);
+          quantize_row<BLOCK>(v, row, nb, sub, q, s, qmax);
+        }
+      });
+}
+
+// `bytes` (a multiple of 16) from shared `src` to 16-byte aligned global
+// `dst`, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+      ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// Codes in by the ring; each consumer warp converts its 1,024 codes of a
+// tile into one of its two 4 KB output buffers and stores them with one
+// bulk copy, waiting (cp.async.bulk.wait_group.read 1) only until the
+// buffer's previous copy has been read.
+__global__ void __launch_bounds__(kBulkThreads)
+dequantize_bulk(const int8_t* __restrict__ q, const float* __restrict__ s,
+                float* __restrict__ x, long long n, int block, int shift) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CODES = kDqTile / kConsumers;        // a warp a tile
+  const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
+  const long long tiles = (n + kDqTile - 1) / kDqTile;
+  int used = 0;
+  bulk_ring(
+      smem, kDqTile, tiles, [&](long long t) { return q + t * kDqTile; },
+      [&](long long t) {
+        const long long left = n - t * kDqTile;
+        return (uint32_t)(left < kDqTile ? left : kDqTile);
+      },
+      [&](long long t, unsigned char* stage) {
+        const uint32_t* words =
+            reinterpret_cast<const uint32_t*>(stage) + w * (CODES / 4);
+        float4* ob = reinterpret_cast<float4*>(smem + kDqOutOffset) +
+                     (2 * w + (used & 1)) * (CODES / 4);
+        if (used++ >= 2) {
+          if (lane == 0)
+            asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+          __syncwarp();
+        }
+        const long long e0 = t * kDqTile + w * CODES;
+#pragma unroll
+        for (int j = 0; j < CODES / 128; ++j) {
+          const long long e = e0 + 4 * (32 * j + lane);
+          ob[32 * j + lane] =
+              e < n ? dequant4(words[32 * j + lane],
+                               s[row_of(e, block, shift)])
+                    : make_float4(0, 0, 0, 0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (lane == 0 && e0 < n) {
+          const long long left = n - e0;
+          bulk_store(x + e0, smem_u32(ob),
+                     (uint32_t)(4 * (left < CODES ? left : CODES)));
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
+      });
+  if (w < kConsumers && lane == 0)          // the last stores out of smem
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <int BLOCK>
+int launch_bulk_rows(const float* x, int8_t* q, float* s, long long nb,
+                     float qmax, int grid, cudaStream_t stream) {
+  const int smem = kStages * BulkRows<BLOCK>::STAGE + 16 * kStages;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      quantize_bulk<BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (set != cudaSuccess) return (int)set;
+  quantize_bulk<BLOCK><<<grid, kBulkThreads, smem, stream>>>(x, q, s, nb,
+                                                             qmax);
+  return (int)cudaGetLastError();
+}
+
+int launch_bulk_quantize(const float* x, int8_t* q, float* s, long long nb,
+                         int block, float qmax, int grid, cudaStream_t st) {
+  if (grid < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 4)
+    return (int)cudaErrorInvalidValue;
+  switch (block) {
+    case 64: return launch_bulk_rows<64>(x, q, s, nb, qmax, grid, st);
+    case 128: return launch_bulk_rows<128>(x, q, s, nb, qmax, grid, st);
+    case 256: return launch_bulk_rows<256>(x, q, s, nb, qmax, grid, st);
+    case 512: return launch_bulk_rows<512>(x, q, s, nb, qmax, grid, st);
+    case 1024: return launch_bulk_rows<1024>(x, q, s, nb, qmax, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_bulk_dequantize(const int8_t* q, const float* s, float* x,
+                           long long nb, int block, int grid,
+                           cudaStream_t st) {
+  if (grid < 1 || block % 16 || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      dequantize_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (set != cudaSuccess) return (int)set;
+  const int shift = (block & (block - 1)) ? -1 : __builtin_ctz(block);
+  dequantize_bulk<<<grid, kBulkThreads, kDqSmem, st>>>(q, s, x, nb * block,
+                                                       block, shift);
+  return (int)cudaGetLastError();
+}
+
+"""
+BULK_PY = '''def bulk_plan(kind: str, nb: int, block: int, sms: int) -> Plan:
+    """The bulk route's launch: 8 consumer warps and a producer, as many
+    blocks as are resident at once (by threads and shared memory), each
+    walking its tiles through its ring."""
+    if kind == "quantize":
+        tile = max(8 * _rows_a_warp(block), 16384 // (4 * block))
+        smem, tiles = 4 * (tile * block * 4 + 16), -(-nb // tile)
+    else:
+        smem, tiles = 4 * 8192 + 128 + 8 * 8192, -(-nb * block // 8192)
+    per_sm = min(2048 // 288, 228 * 1024 // (smem + 1024))
+    return Plan("bulk", 288, max(1, min(tiles, sms * per_sm)))
+
+
+'''
+_BULK_GENERIC = "  if (route == kGeneric) {\n    if (!covers(grid, threads, nb)) " \
+    "return (int)cudaErrorInvalidValue;\n    "
+_STREAM = ("__global__ void __launch_bounds__(kMaxThreads)\n"
+           "dequantize_stream(",
+           "// ----------------------------------------------------------- "
+           "generic route")
 VARIANTS = {
+    "bulk": [
+        (Q_CU, "// ---------------------------------------------------------"
+               "------ launchers",
+         BULK_CU + "// -------------------------------------------------------"
+                   "-------- launchers"),
+        (Q_CU, _BULK_GENERIC + "quantize_generic",
+         "  if (route == kBulk)\n    return launch_bulk_quantize(x, q, s, nb, "
+         "block, qmax, grid, st);\n" + _BULK_GENERIC + "quantize_generic"),
+        (Q_CU, _BULK_GENERIC + "dequantize_generic",
+         "  if (route == kBulk)\n    return launch_bulk_dequantize(q, s, x, "
+         "nb, block, grid, st);\n" + _BULK_GENERIC + "dequantize_generic"),
+        (Q_PY, '_ROUTE_IDS = {"generic": 0, "rows": 1, "stream": 1}',
+         '_ROUTE_IDS = {"generic": 0, "rows": 1, "stream": 1, "bulk": 2}'),
+        (Q_PY, "def quantize_blocks_2d(", BULK_PY + "def quantize_blocks_2d(")],
+    "rows_4f4": [(Q_CU, _ROWS, ROWS_4F4),
+                 (Q_CU, "  constexpr int RW = Rows<BLOCK>::RW;\n",
+                  "  constexpr int RW = Rows<BLOCK>::RW * (\n"
+                  "      Rows<BLOCK>::V >= 4 ? 1 : 4 / Rows<BLOCK>::V);\n"),
+                 (Q_PY, "    return 2 if block == 64 else 1",
+                  "    return (2 if block == 64 else 1) * max(\n"
+                  "        1, 4 // max(1, block // 128))")],
+    "rows_stride": [(Q_CU, _ROWS, ROWS_STRIDE),
+                    (Q_CU, "  if (!covers(grid, threads, (nb + RW - 1) / RW))",
+                     "  if (!covers(grid, threads, 1))"),
+                    (Q_PY, "_MAX_GRID = 2 ** 31 - 1 ",
+                     "GRID_STRIDE = True\n_MAX_GRID = 2 ** 31 - 1 ")],
+    # kernel 2's stream route with 4 words a lane, not 2
+    "dq_words4": [(Q_CU, "constexpr int kWords = 2;",
+                   "constexpr int kWords = 4;"),
+                  (Q_PY, "_STREAM_CODES = 32 * 2 * 4 ",
+                   "_STREAM_CODES = 32 * 4 * 4 ")],
+    "dq_chunks": [(Q_CU, _STREAM, DQ_CHUNKS), *_CHUNK_UNITS],
+    "dq_chunks_direct": [(Q_CU, _STREAM, DQ_CHUNKS_DIRECT), *_CHUNK_UNITS],
     # kernel 3's narrow route with one row a thread at every width (each
     # float4 of w read from shared memory feeds one row's FMAs), and with
     # two x tiles in flight instead of three
@@ -796,6 +1385,10 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[1] in ("sweep", "probe"):
         for r in (sweep() if argv[1] == "sweep" else probe()):
+            print(json.dumps(r), flush=True)
+        return 0
+    if len(argv) in (2, 3) and argv[1] == "quant":
+        for r in quant(*[Path(a).resolve() for a in argv[2:]]):
             print(json.dumps(r), flush=True)
         return 0
     if len(argv) == 4 and argv[1] == "bits":
