@@ -177,7 +177,7 @@ Phases, each reported on its own lines:
    pre-pass weights dataset's dense0 segments, latent 8 on those of what
    the lanes send in a 2-round warm-up on the cheapest rungs) and ``rest``
    (89,498 values: q4, q8), under ``RDBudget(cooldown=2, min_snapshots=2,
-   refit_epochs=5, refit_batch=4)`` at the budget halfway between the
+   refit_epochs=1, refit_batch=4)`` at the budget halfway between the
    all-cheapest and all-dearest plans. Per round its launches by kernel
    and route, the buckets of each kernel-5 launch, the probes' launches
    and errors, switches and bytes; kernel 5 must launch once a round
@@ -319,7 +319,34 @@ Phases, each reported on its own lines:
    same two rounds in one process (each half's latents, their mean,
    decode, the optimizer's step) and holds the pods' params to it in the
    golden band, reporting whether the bits are equal. The record carries
-   the one-rank (ab)'s counts of its sharded calls as ``launches_run_ab``.
+   the one-rank (ab)'s counts of its sharded calls as ``launches_run_ab``;
+21. the example entry points — (ac) each of ``repro_torch.examples``'
+   ten modules on the card, in process, at the README's command line
+   (``main(argv)``; ``fl_serve`` at ``--n-clients 1000000 --buffer-k
+   4096``, and again at ``--spec q4 --shard --rounds 5`` over a one-rank
+   NCCL group; ``fl_color_imbalance`` also with ``--stacks``), and the two
+   LM examples at full width through their factored functions:
+   ``llm_serve_decode.serve`` on llama3-8b, all 32 layers, float32
+   parameters (8,030,261,248, drawn on the card), the example's 4 x 32
+   prompt and 16 tokens, kernel 6 once a layer; ``llm_federated.federate``
+   on stablelm-1.6b at full width, 2 of 24 layers (as run (q)), cut to 2
+   clients, 2 rounds of 1 local epoch and pre-pass AE fits of 4 epochs
+   on the first 1,024 chunk rows of each role. ``llm_federated`` at the
+   README's size is cut to its reduced twin (the CPU tests' sizes): its
+   pre-pass and refit AE fits took 216 s on the card. Launch counters are
+   zeroed before each call and read after it: every kernel the example's
+   path has (``AC_KERNELS``) must have launched. Three child processes of
+   two CPU threads run the same calls on the CPU meanwhile (the §5.2
+   federation through its reduced twin, a narrow CNN, run on both
+   devices); every byte count, ratio, cohort, staleness, sync list, rung
+   and outcome must be equal (``ac_hold``), the floats in the golden band
+   where no quantizing codec is on the path, up to the first warm-started
+   AE refit; the README-sized LM server's logits in run (g)'s band, the
+   CPU fed the card's tokens. ``adaptive_rate_control`` stops at
+   its own ladder-walk assertion on both, as the JAX example does; any
+   other example assertion fails the script. Each call's launches, routes
+   and host seconds are printed on one line, and what the examples print
+   goes to ``build/chip_smoke/examples_ac.txt``.
 
 Each phase's start is logged with the seconds since the script began.
 
@@ -330,8 +357,11 @@ exits non-zero and prints no result. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1671,10 +1701,12 @@ RATE_REFIT = dict(min_snapshots=2, refit_epochs=20, refit_batch=4)
 CNN_RATE_LATENTS = (4, 8)
 CNN_RATE_CHUNK = 256
 CNN_RATE_HIDDEN = (32,)
-CNN_RATE_RD = dict(cooldown=2, min_snapshots=2, refit_epochs=5,
+CNN_RATE_RD = dict(cooldown=2, min_snapshots=2, refit_epochs=1,
                    refit_batch=4)
 # run (n)'s depth: 3 rounds (6 until PR 23; its round-3 switch-time refit
-# took ~59 s a play, the first, at round 1, is kept)
+# took ~59 s a play, the first, at round 1, is kept) and a 1-epoch
+# switch-time refit (at 5 epochs the round-1 refit took 43 s a play on a
+# slower host, three plays, and the script passed 1,000 s)
 CNN_RATE_ROUNDS = 3
 
 
@@ -1988,7 +2020,7 @@ def build_rate_cnn(rungs_fit, device: str, n_clients: int = 8,
     clients of 64 images, 1 local epoch, payload "weights", the grouped
     server round (``use_grouped_kernel=True``), a per-partition ladder
     (:func:`cnn_rate_rungs`) under ``RDBudget(cooldown=2, min_snapshots=2,
-    refit_epochs=5, refit_batch=4)`` with the budget halfway between the
+    refit_epochs=1, refit_batch=4)`` with the budget halfway between the
     all-cheapest and the all-dearest plan of the cohort; ``fixed`` holds
     every lane on its cheapest rung instead (``FixedRate``)."""
     from repro_torch.configs.paper import CIFAR_CLASSIFIER
@@ -4071,6 +4103,442 @@ def run_pods() -> dict:
     return dict(wall_s=time.perf_counter() - t0, ranks=res)
 
 
+# --------------------------------------------------- run (ac): the examples
+# the kernels each example's path has on the card, each of which must
+# launch: none where the path has none (the FC AEs are cuBLAS matrix
+# products). The codec stacks' top-k-prefixed chains reduce by
+# scatter-add, not kernel 4; the LM federation's role AEs are a client's
+# own, so the grouped round takes them on the batched-params route, not
+# kernel 5 (as the reference's); kernel 6 is its evaluation prefill
+AC_KERNELS = {
+    "quickstart": (),
+    "batched_server_decode": ("fused_dense", "fused_decode_agg"),
+    "fl_serve": ("dequantize_blocks_2d",),
+    "fl_serve_q4_shard": ("dequantize_blocks_2d",),
+    "fl_async_sampling": ("quantize_blocks_2d", "dequantize_blocks_2d"),
+    "ae_lifecycle_refresh": (),
+    "per_layer_partitions": ("quantize_blocks_2d", "dequantize_blocks_2d"),
+    "adaptive_rate_control": (),
+    "fl_color_imbalance_reduced": (),
+    "fl_color_imbalance_stacks": ("quantize_blocks_2d",
+                                  "dequantize_blocks_2d", "fused_dense"),
+    "llm_serve_decode": ("flash_attention",),
+    "llm_federated_reduced": ("quantize_blocks_2d", "dequantize_blocks_2d",
+                              "fused_dense", "flash_attention"),
+    "fl_color_imbalance": (),
+    "llm_serve_decode_full": ("flash_attention",),
+    "llm_federated_full": ("quantize_blocks_2d", "dequantize_blocks_2d",
+                           "fused_dense", "flash_attention"),
+}
+# the card's calls, the longest last (the phase's budget is on when its
+# last call starts); each README command line (README.md:34-256) or
+# factored call is in ac_call
+AC_ORDER = tuple(AC_KERNELS)
+# the CPU runs each card run is held to: the same call, or (for the
+# full-width LM runs and the §5.2 federation at full width) a reduced
+# twin run on both devices; three child processes of two threads run
+# them while the card runs its own. ``llm_federated`` at the README's
+# size is cut to its twin: its 40-epoch pre-pass fits and 20-epoch
+# refits took 216.19 s on the card (host-bound Adam steps, ROADMAP
+# Queue B item 2), past the phase's time
+AC_CPU_JOBS = (("adaptive_rate_control",),
+               ("per_layer_partitions", "ae_lifecycle_refresh", "fl_serve",
+                "fl_serve_q4_shard", "batched_server_decode"),
+               ("fl_color_imbalance_stacks", "llm_federated_reduced",
+                "quickstart", "fl_async_sampling",
+                "fl_color_imbalance_reduced"))
+# floats held in the golden band card vs CPU: only where no quantizing
+# codec is on the path (FC AEs, the chunked AE without a quantizer), and
+# up to the first warm-started AE refit (``ac_first_refit``)
+AC_FLOATS = {"quickstart", "batched_server_decode", "ae_lifecycle_refresh",
+             "adaptive_rate_control", "fl_color_imbalance_reduced"}
+AC_EXACT_KEYS = frozenset((
+    "bytes_up", "bytes_up_raw", "bytes_down", "bytes_decoder",
+    "compression_ratio", "effective_ratio", "participants", "staleness",
+    "sim_time", "ae_syncs", "spec_switches", "rungs", "round_bytes",
+    "version", "updates", "up_bytes", "raw_bytes", "prices", "groups",
+    "snapshots", "original_bytes", "compressed_bytes", "cohort", "model",
+    "params", "ae_params", "decoder_syncs", "observed_decoder_bytes",
+    "predicted_decoder_bytes", "decoder_rel_err", "savings_rel_err",
+    "vmap_rounds", "loop_rounds", "round", "name", "assertion"))
+AC_FLOAT_KEYS = frozenset(("accuracy", "collab_accuracy", "ce_loss",
+                           "ae_history", "curve", "aggregate"))
+# run (ac)'s cuts: the full-width LM federation (stablelm-1.6b at 2 of 24
+# layers, as run (q); 2 clients, 2 rounds of 1 local epoch, the pre-pass
+# AEs fitted 4 epochs on the first 1,024 chunk rows of each role) and the
+# reduced twins (the CPU tests' sizes: 2 clients, 2 rounds of 1 local
+# epoch, 2 x 16 tokens, 4-epoch pre-pass fits, 2-epoch refits)
+AC_LM_FULL = dict(arch="stablelm_1_6b", n_layers=2, rounds=2, clients=2,
+                  seqs=8, seq=64, batch=4, local_epochs=1, prepass_epochs=4,
+                  fit_rows=1024)
+AC_LM_REDUCED = dict(rounds=2, clients=2, seqs=2, seq=16, batch=2,
+                     local_epochs=1, prepass_epochs=4, refresh_epochs=2)
+AC_SERVE_FULL = dict(arch="llama3-8b", batch=4, prompt=32, new_tokens=16)
+AC_LLAMA_PARAMS = 8_030_261_248       # llama3-8b's 32 layers, float32
+NARROW_CNN = dict(name="cifar-cnn-narrow", kind="cnn",
+                  input_shape=(32, 32, 3), n_classes=10,
+                  conv_channels=(4, 4, 8, 8), conv_kernel=3,
+                  dense_hidden=(16,))
+LM_BAND = dict(atol=1e-4, rtol=1e-3)       # run (g)'s float32 LM band
+AC_LOG = ROOT / "build" / "chip_smoke" / "examples_ac.txt"   # what they print
+
+
+def ac_call(label: str, device: str, small: bool = False) -> dict:
+    """One of run (ac)'s example calls on ``device``: the example's
+    ``main(argv)`` at the README's command line, or a factored call (the
+    full-width LM runs, the reduced twins). ``small`` takes the CPU tests'
+    sizes (the card tests). ``adaptive_rate_control``'s ladder-walk
+    assertion is returned as ``{"assertion": its args, ...the round
+    table}``: the reference stops there too, and the caller holds the
+    outcome to the CPU's; every other assertion raises through."""
+    import argparse
+    import dataclasses
+    import importlib
+    import torch
+    from repro_torch.examples._common import Printer
+    name = label.removesuffix("_full").removesuffix("_reduced") \
+        .removesuffix("_stacks").removesuffix("_q4_shard")
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    dev = ["--device", device]
+    dv = torch.device(device)
+    out = Printer()
+
+    def ns(**kw):
+        return argparse.Namespace(device=dv, **kw)
+
+    if label == "llm_serve_decode_full":
+        from repro_torch import models
+        cfg = arch_cut(AC_SERVE_FULL["arch"], 32)
+        params = models.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg, device)
+        batch = mod.prompt_batch(cfg, AC_SERVE_FULL["batch"],
+                                 AC_SERVE_FULL["prompt"], dv)
+        res = mod.serve(cfg, params, batch, AC_SERVE_FULL["new_tokens"], dv,
+                        out)
+        res["params"] = models.param_count(params)
+        del params
+        return dict(res, lines=out.lines)
+    if label == "llm_federated_full":
+        a = AC_LM_FULL
+        cfg = arch_cut(a["arch"], a["n_layers"])
+        return dict(mod.federate(
+            ns(rounds=a["rounds"], clients=a["clients"], seqs=a["seqs"],
+               seq=a["seq"], batch=a["batch"],
+               local_epochs=a["local_epochs"]), cfg, out,
+            prepass_epochs=a["prepass_epochs"], fit_rows=a["fit_rows"]),
+            lines=out.lines)
+    if label == "llm_federated_reduced":
+        from repro_torch.configs import get_config
+        a = AC_LM_REDUCED
+        return dict(mod.federate(
+            ns(**{k: a[k] for k in ("rounds", "clients", "seqs", "seq",
+                                    "batch", "local_epochs")}),
+            get_config("llama3-8b").reduced(), out,
+            prepass_epochs=a["prepass_epochs"],
+            refresh_epochs=a["refresh_epochs"]), lines=out.lines)
+    if label == "fl_color_imbalance_reduced":
+        from repro_torch.configs.paper import ClassifierConfig
+        return dict(mod.run_federation(
+            ns(rounds=2, n=32, local_epochs=1), out,
+            clf_cfg=ClassifierConfig(**NARROW_CNN)), lines=out.lines)
+    if label == "adaptive_rate_control":
+        table = {}
+        try:
+            if small:
+                mod.rate_runs(dv, out, rounds=4, rung_epochs=60,
+                              table=table)
+            else:
+                mod.main(dev, table=table)
+        except AssertionError as e:
+            if e.args != ("the demo should actually walk the ladder",):
+                raise
+            return dict(table, assertion=list(e.args), lines=out.lines)
+        return dict(table, assertion=None, lines=out.lines)
+    if small:
+        from repro_torch.configs.paper import SMOKE_SCALE_SCENARIO
+        calls = {
+            "quickstart": lambda: mod.pipeline(dv, out, n=256,
+                                               prepass_epochs=4,
+                                               ae_epochs=10),
+            "batched_server_decode": lambda: mod.server_round(
+                dv, out, cohort=8, model=4096),
+            "fl_async_sampling": lambda: mod.schedulers(
+                dv, out, dataclasses.replace(SMOKE_SCALE_SCENARIO,
+                                             n_clients=8, rounds=2)),
+            "ae_lifecycle_refresh": lambda: mod.lifecycle_run(
+                dv, out, n_clients=2, rounds=4, ae_epochs=10,
+                refresh_epochs=5),
+            "per_layer_partitions": lambda: mod.partitioned_run(
+                dv, out, n_clients=2, rounds=4, refresh_epochs=20),
+        }
+        if label in calls:
+            return dict(calls[label](), lines=out.lines)
+    argv = {
+        "fl_serve": ["--n-clients", "1000000", "--buffer-k", "4096"],
+        "fl_serve_q4_shard": ["--spec", "q4", "--shard", "--rounds", "5"],
+        "fl_color_imbalance_stacks": ["--stacks"],
+    }.get(label, [])
+    if small:
+        argv = {
+            "fl_serve": ["--n-clients", "5000", "--buffer-k", "64",
+                         "--rounds", "2"],
+            "fl_serve_q4_shard": ["--spec", "q4", "--shard",
+                                  "--n-clients", "5000", "--buffer-k", "64",
+                                  "--rounds", "2"],
+            "fl_color_imbalance_stacks": ["--stacks", "--rounds", "2",
+                                          "--n", "32"],
+        }.get(label, argv)
+    return mod.main(dev + argv)
+
+
+def ac_fields(res, keys) -> dict:
+    """The values under ``keys`` anywhere in an example's result, by
+    path; a serve run's host-clock throughput and sim clock are skipped
+    (the card's and the CPU's latency draws come from their own
+    generators)."""
+    import torch
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                if k in ("lines", "throughput"):
+                    continue
+                if k in keys:
+                    out[path + str(k)] = v
+                elif isinstance(v, (dict, list, tuple)):
+                    walk(v, f"{path}{k}.")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                if isinstance(v, (dict, list, tuple)):
+                    walk(v, f"{path}{i}.")
+    walk(res, "")
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+
+def ac_hold(label: str, card: dict, cpu: dict) -> dict:
+    """Every byte count, ratio, cohort, staleness, sync list, rung and
+    outcome of ``card`` equal to ``cpu``'s; the floats of examples with no
+    quantizing codec on the path in the golden band. Returns the largest
+    float difference and the number of values held."""
+    import torch
+    ex_g, ex_c = ac_fields(card, AC_EXACT_KEYS), ac_fields(cpu, AC_EXACT_KEYS)
+    require(ex_g.keys() == ex_c.keys() and ex_g,
+            f"(ac) {label}: fields {sorted(ex_g)} vs {sorted(ex_c)}")
+    for k in ex_g:
+        require(ex_g[k] == ex_c[k],
+                f"(ac) {label}: {k} card {ex_g[k]!r} != cpu {ex_c[k]!r}")
+    err, n = 0.0, 0
+    if label in AC_FLOATS:
+        fl_g, fl_c = (ac_fields(card, AC_FLOAT_KEYS),
+                      ac_fields(cpu, AC_FLOAT_KEYS))
+        refit = ac_first_refit(card)
+        if refit is not None:
+            # a warm-started AE refit parts the two devices in Adam's
+            # sign of near-zero gradients (ROADMAP Queue C item 5), so
+            # the floats are held up to the refit's round
+            fl_g = {k: v for k, v in fl_g.items()
+                    if int(k.split(".")[1]) <= refit}
+            fl_c = {k: fl_c[k] for k in fl_g}
+        require(fl_g.keys() == fl_c.keys() and fl_g, f"(ac) {label} floats")
+        for k in fl_g:
+            a = (fl_g[k] if isinstance(fl_g[k], torch.Tensor)
+                 else torch.tensor(flat_floats(fl_g[k]), dtype=torch.float64))
+            b = (fl_c[k] if isinstance(fl_c[k], torch.Tensor)
+                 else torch.tensor(flat_floats(fl_c[k]), dtype=torch.float64))
+            try:
+                err = max(err, close(a, b, **GOLDEN_BAND))
+            except AssertionError as e:
+                raise AssertionError(f"(ac) {label}: {k}: {e}") from None
+            n += a.numel()
+    return {"exact": len(ex_g), "floats": n, "max_abs_err": err}
+
+
+def ac_first_refit(res):
+    """The first round after round 0 that shipped a refit decoder, or
+    None (only ``rounds.<r>.*`` floats come after it)."""
+    for r in res.get("rounds", []):
+        if r["round"] > 0 and r.get("ae_syncs"):
+            return r["round"]
+    return None
+
+
+def flat_floats(x) -> list:
+    """A nested dict/list of numbers as one flat list (sorted keys)."""
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in flat_floats(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [v for e in x for v in flat_floats(e)]
+    return [float(x)]
+
+
+def ac_card(label: str, small: bool = False) -> tuple:
+    """``ac_call`` on the card between zeroed and read launch counters:
+    (result, launches, routes, host seconds). Every kernel of
+    ``AC_KERNELS[label]`` must have launched."""
+    import gc
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import quantize as qz
+    gc.collect()
+    torch.cuda.empty_cache()
+    routes = (qz.ROUTE_LAUNCHES, fd.ROUTE_LAUNCHES, fa.ROUTE_LAUNCHES)
+    for r in routes:
+        r.clear()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        res = ac_call(label, "cuda", small)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = _lib.counts()
+    AC_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with AC_LOG.open("a") as f:
+        f.write(f"== {label} (card)\n{text.getvalue()}")
+    missing = [k for k in AC_KERNELS[label] if launches.get(k, 0) < 1]
+    require(not missing, f"(ac) {label}: no launch of {missing} "
+            f"(launches {launches})")
+    return res, launches, {k: v for r in routes for k, v in r.items()}, \
+        host_s
+
+
+def ac_cpu_child(out_path: str, labels) -> int:
+    """A child process of run (ac): ``labels``' calls on the CPU, two
+    threads, the results saved to ``out_path`` with ``torch.save``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    res, secs = {}, {}
+    for label in labels:
+        t0 = time.perf_counter()
+        res[label] = ac_call(label, "cpu")
+        secs[label] = time.perf_counter() - t0
+    torch.save({"results": res, "seconds": secs}, out_path)
+    return 0
+
+
+def ac_start_cpu_jobs() -> list:
+    """Start ``AC_CPU_JOBS``' child processes: (process, output path,
+    labels) each."""
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, labels in enumerate(AC_CPU_JOBS):
+        path = CKPT_DIR / f"ac_cpu_{i}.pt"
+        path.unlink(missing_ok=True)
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ac-cpu",
+             str(path), *labels], env=env, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((proc, path, labels))
+    return jobs
+
+
+def ac_join_cpu_jobs(jobs, timeout: float) -> tuple:
+    """Wait for the children (killing any still running at the end or on
+    failure); a child that failed fails the run. Returns (results,
+    seconds) by label."""
+    import torch
+    results, secs = {}, {}
+    deadline = time.perf_counter() + timeout
+    try:
+        for proc, path, labels in jobs:
+            left = max(1.0, deadline - time.perf_counter())
+            out, _ = proc.communicate(timeout=left)
+            require(proc.returncode == 0,
+                    f"(ac) CPU child {labels} exit {proc.returncode}:\n"
+                    f"{out[-4000:]}")
+            got = torch.load(path, weights_only=False)
+            path.unlink()
+            results.update(got["results"])
+            secs.update(got["seconds"])
+    finally:
+        for proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results, secs
+
+
+def ac_lm_serve_vs_cpu(card: dict) -> dict:
+    """The README-sized ``llm_serve_decode`` (llama3-8b reduced, float32
+    compute, kernel 6 on the FMA route) held against the CPU fed the
+    card's tokens: every step's logits in run (g)'s LM band."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import llm_serve_decode as sd
+    from repro_torch.examples._common import Printer
+    from repro_torch.models import init_params
+    cfg = get_config("llama3-8b").reduced()
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = sd.prompt_batch(cfg, 4, 32, torch.device("cpu"))
+    forced = [card["tokens"][:, i:i + 1] for i in range(16)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = sd.serve(cfg, params, batch, 16, torch.device("cpu"),
+                       Printer(), forced=forced)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(card["logits"], cpu["logits"],
+                                   strict=True)):
+        try:
+            err = max(err, close(a, b, **LM_BAND))
+        except AssertionError as e:
+            raise AssertionError(f"(ac) llm_serve_decode step {i}: {e}") \
+                from None
+    return {"steps": len(cpu["logits"]), "max_abs_err": err,
+            "greedy_tokens_equal_cpu": bool(torch.equal(
+                card["tokens"], cpu["tokens"]))}
+
+
+def run_examples() -> dict:
+    """Run (ac): every example entry point on the card (``AC_ORDER``),
+    its launches (``AC_KERNELS``) and host seconds, and each held to its
+    CPU run (``ac_hold``; the CPU runs in child processes meanwhile)."""
+    import torch
+    AC_LOG.unlink(missing_ok=True)
+    jobs = ac_start_cpu_jobs()
+    card, rows = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        for label in AC_ORDER:
+            rows[label] = {"start_s": time.perf_counter() - t_phase}
+            res, counts, routes, host_s = ac_card(label)
+            card[label] = res
+            rows[label].update(launches=counts, routes=routes,
+                               host_s=host_s)
+            log(f"(ac) {label}: {host_s:.3f} s, launches {counts}")
+        t_card = time.perf_counter() - t_phase
+        cpu, cpu_s = ac_join_cpu_jobs(jobs, timeout=600)
+    finally:
+        for proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label in AC_ORDER:
+        if label in cpu:
+            rows[label]["held"] = ac_hold(label, card[label], cpu[label])
+            rows[label]["cpu_s"] = cpu_s[label]
+    rows["llm_serve_decode"]["held"] = ac_lm_serve_vs_cpu(
+        card["llm_serve_decode"])
+    require(card["adaptive_rate_control"]["assertion"]
+            == cpu["adaptive_rate_control"]["assertion"],
+            "(ac) adaptive_rate_control: a different outcome on the card")
+    full = card["llm_serve_decode_full"]
+    require(full["params"] == AC_LLAMA_PARAMS and all(
+        bool(torch.isfinite(x).all()) for x in full["logits"]),
+        f"(ac) llama3-8b: {full['params']} parameters or non-finite logits")
+    require(rows["llm_serve_decode_full"]["launches"] == {
+        "flash_attention": 32},
+        "(ac) llama3-8b: kernel 6 once a layer in prefill, nothing else")
+    lm = card["llm_federated_full"]["runs"]
+    require(all(math.isfinite(r["ce_loss"]) for s in lm.values()
+                for r in s["rounds"]), "(ac) stablelm-1.6b: a loss")
+    return {"rows": rows, "card_s": t_card,
+            "last_start_s": max(r["start_s"] for r in rows.values())}
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1. device
     import torch
@@ -4966,8 +5434,21 @@ def main() -> int:
         f"{aa0['max_abs_err']!r} (golden band), bits equal "
         f"{aa0['bits_equal']}")
 
-    # --------------------------------------------------------- 21. report
-    at("21. report")
+    # ------------------------------------- 21. the example entry points (ac)
+    at("21. the example entry points (ac)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter() - t_start
+    ac = run_examples()
+    log("examples (ac) " + json.dumps({
+        label: {k: r[k] for k in ("start_s", "host_s", "launches",
+                                  "routes", "cpu_s", "held") if k in r}
+        for label, r in ac["rows"].items()}))
+    log(f"examples (ac): {len(AC_ORDER)} card calls in {ac['card_s']:.1f} "
+        f"s; the last started at {t21 + ac['last_start_s']:.1f} s")
+
+    # --------------------------------------------------------- 22. report
+    at("22. report")
     src = {"quantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:22"),
            "dequantize_blocks_2d": ("src/repro_torch/csrc/quantize.cu",
@@ -5021,4 +5502,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ac-cpu"]:           # run (ac)'s CPU children
+        sys.exit(ac_cpu_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1718,3 +1718,34 @@ def test_fl_round_card_matches_cpu(nccl_world):
         torch.testing.assert_close(a.cpu(), b, **BAND)
     for a, b in zip(flatten(gp)[0], flatten(cp)[0], strict=True):
         torch.testing.assert_close(a.cpu(), b, **BAND)
+
+
+# ======================================================================
+# the example entry points (repro_torch.examples; chip_smoke.py run (ac))
+# ======================================================================
+AC_SMALL = ("quickstart", "batched_server_decode", "fl_serve",
+            "fl_serve_q4_shard", "fl_async_sampling", "ae_lifecycle_refresh",
+            "per_layer_partitions", "adaptive_rate_control",
+            "fl_color_imbalance_reduced", "fl_color_imbalance_stacks",
+            "llm_federated_reduced", "llm_serve_decode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", AC_SMALL)
+def test_example_on_card_matches_cpu(label):
+    """Each example at its smallest arguments (the CPU parity tests'
+    sizes; ``chip_smoke.ac_call(..., small=True)``; the §5.2 federation and
+    the LM federation are their reduced twins) on the card: every
+    kernel of run (ac)'s table launches (``chip_smoke.AC_KERNELS``), and
+    every byte count, ratio, cohort, staleness, sync list, rung and
+    outcome equals the same call on the CPU, the floats in the golden
+    band where no quantizing codec is on the path (``chip_smoke.ac_hold``);
+    the LM server's logits in run (g)'s band with the CPU fed the card's
+    tokens."""
+    _card()
+    cs = _chip_smoke()
+    card, launches, _, _ = cs.ac_card(label, small=True)
+    if label == "llm_serve_decode":
+        cs.ac_lm_serve_vs_cpu(card)
+        return
+    cs.ac_hold(label, card, cs.ac_call(label, "cpu", small=True))
