@@ -335,18 +335,22 @@ Phases, each reported on its own lines:
    README's size is cut to its reduced twin (the CPU tests' sizes): its
    pre-pass and refit AE fits took 216 s on the card. Launch counters are
    zeroed before each call and read after it: every kernel the example's
-   path has (``AC_KERNELS``) must have launched. Three child processes of
-   two CPU threads run the same calls on the CPU meanwhile (the §5.2
-   federation through its reduced twin, a narrow CNN, run on both
-   devices); every byte count, ratio, cohort, staleness, sync list, rung
-   and outcome must be equal (``ac_hold``), the floats in the golden band
-   where no quantizing codec is on the path, up to the first warm-started
-   AE refit; the README-sized LM server's logits in run (g)'s band, the
-   CPU fed the card's tokens. ``adaptive_rate_control`` stops at
-   its own ladder-walk assertion on both, as the JAX example does; any
-   other example assertion fails the script. Each call's launches, routes
-   and host seconds are printed on one line, and what the examples print
-   goes to ``build/chip_smoke/examples_ac.txt``.
+   path has (``AC_KERNELS``) must have launched. Each call of the ten
+   examples (the §5.2 federation through its reduced twin, a narrow CNN,
+   run on both devices) records under ``ExampleSpies``, and one of three
+   CPU child processes, started with the phase, replays the record as it
+   comes: every Adam step, local training's start, classifier ReLU and
+   max-pool tie, AE refit, client encode, quantizer input and serve draw
+   is held (full Adam steps and floats in the golden band, partial steps
+   counted, codes exact) and then taken from the card, so the runs do
+   not fork at rounding; every byte count, ratio, cohort, staleness, sync
+   list, rung and outcome must then be equal and every round's floats in
+   the band (``ac_hold``); the README-sized LM server's logits in run
+   (g)'s band, the CPU fed the card's tokens. ``adaptive_rate_control``
+   stops at its own ladder-walk assertion on both, as the JAX example
+   does; any other example assertion fails the script. Each call's
+   launches, routes and host seconds are printed on one line, and what
+   the examples print goes to ``build/chip_smoke/examples_ac.txt``.
 
 Each phase's start is logged with the seconds since the script began.
 
@@ -372,6 +376,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
 GOLDEN_BAND = dict(atol=2e-5, rtol=2e-4)   # tests/test_golden_trajectory.py
+ADAM_EPS = 1e-8              # autoencoder._adam_update's, the optimizers'
 # kernel 6 against its plain version: float32 at the reference's
 # Pallas-vs-oracle tolerance (tests/test_kernels.py); bfloat16 at two ulps
 # of the output (2 * 2**-7 relative, 1e-3 near zero), since both sum in
@@ -1891,45 +1896,6 @@ def cnn_partition():
                                    else "rest"))
 
 
-class EncodeSpy:
-    """Wraps ``scheduler._encode_local`` (a client's payload selection and
-    encode after its local training). Keeps each call's trained local
-    model, flat, in ``own``, the global params it trained from in
-    ``start`` and its payload in ``payloads``, all under ``(round,
-    client)``; given ``replay`` (another run's ``own``), encodes that local
-    model in place of the run's own, and given ``replay_start`` (another
-    run's ``start``) against that global model (an update payload's
-    delta). A context manager that puts the function back."""
-
-    def __init__(self, replay=None, replay_start=None):
-        self.replay, self.replay_start = replay, replay_start
-        self.own, self.start, self.payloads = {}, {}, {}
-
-    def __enter__(self):
-        from repro_torch.core import scheduler as mod
-        from repro_torch.core.pytree import ravel
-        self.mod, self.real = mod, mod._encode_local
-
-        def spy(run, ci, local, global_params, state, metrics):
-            key = (run.round_offset + len(run.history), ci)
-            flat, unravel = ravel(local)
-            self.own[key] = flat.detach().clone()
-            self.start[key] = ravel(global_params)[0].detach().clone()
-            if self.replay is not None:
-                local = unravel(self.replay[key].to(flat.device))
-            if self.replay_start is not None:
-                global_params = unravel(
-                    self.replay_start[key].to(flat.device))
-            enc = self.real(run, ci, local, global_params, state, metrics)
-            self.payloads[key] = enc.payload
-            return enc
-        mod._encode_local = spy
-        return self
-
-    def __exit__(self, *exc):
-        self.mod._encode_local = self.real
-
-
 def prefit_cnn_rungs(device: str, prepass_epochs: int = 8,
                      fit_epochs: int = 30, warmup_rounds: int = 2):
     """Run (n)'s two AE rungs, each fitted once and shared by every client
@@ -1975,10 +1941,10 @@ def prefit_cnn_rungs(device: str, prepass_epochs: int = 8,
         aes.append(p)
         losses.append((h["loss"][0], h["loss"][-1]))
     fit(0, snaps)
-    with EncodeSpy() as warm:
+    with ExampleEncodeSpy() as warm:
         build_rate_cnn((cfgs, aes, losses), device, rounds=warmup_rounds,
                        fixed=True).run()
-    fit(1, [v for (r, _), v in warm.own.items() if r == warmup_rounds - 1])
+    fit(1, [c["own"] for c in warm.calls if c["key"][1] == warmup_rounds - 1])
     return cfgs, aes, losses
 
 
@@ -2072,100 +2038,104 @@ def _max(x) -> float:
     return float(x.max()) if x.numel() else 0.0
 
 
-def hold_replay(tag: str, card, cpu, lr: float) -> dict:
-    """A replayed run's local models and payloads (two :class:`EncodeSpy`
-    records, the CPU's replaying the card's): each local model the CPU
-    trains against the card's in the golden band, except where both
-    devices' single Adam step is partial (smaller than 0.99 lr: a
-    gradient at rounding level, whose size and sign the rounding
-    decides); each payload's floats in the band, its integer codes exact.
-    Returns the largest differences and the counts."""
+def step_rule(tag: str, card_in, card_out, cpu_in, cpu_out, lr: float,
+              t: int, card_g, cpu_g, rep: dict) -> None:
+    """One Adam step, card against CPU (flat tensors on the CPU): the
+    gradient the CPU took in the golden band of the card's, and every
+    value of the CPU's result in the band of the card's, except where both
+    devices' update is partial (smaller than 0.99 lr) on a gradient at
+    rounding level: at a fit's first step (t 1, where a partial update
+    means a gradient under 99 times Adam's eps) or, later, where both
+    gradients are under 99 eps. There the rounding decides the gradient's
+    size and sign, and Adam's normalization turns it into a step of up to
+    lr either way. Adds to ``rep``'s ``grad_max_abs_err``,
+    ``grad_values``, ``full_max_abs_err``, ``partial_steps`` (exempt
+    values a step moved on either device), ``partial_out_of_band`` and
+    ``partial_max_abs_err``."""
+    try:
+        err = close(card_g, cpu_g, **GOLDEN_BAND)
+    except AssertionError as e:
+        raise AssertionError(f"{tag}: gradient: {e}") from None
+    rep["grad_max_abs_err"] = max(rep.get("grad_max_abs_err", 0.0), err)
+    rep["grad_values"] = rep.get("grad_values", 0) + card_g.numel()
+    ug, uc = card_out - card_in, cpu_out - cpu_in
+    partial = (ug.abs() < 0.99 * lr) & (uc.abs() < 0.99 * lr)
+    if t != 1:
+        tiny = 99 * ADAM_EPS
+        partial &= (card_g.abs() < tiny) & (cpu_g.abs() < tiny)
+    d = (card_out - cpu_out).abs()
+    out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * cpu_out.abs()
+    bad = out & ~partial
+    require(not bool(bad.any()),
+            f"{tag}: {int(bad.sum())} params out of the band, not a "
+            f"partial step on a rounding-level gradient, max {_max(d[bad])}")
+    rep["full_max_abs_err"] = max(rep.get("full_max_abs_err", 0.0),
+                                  _max(d[~partial]))
+    rep["partial_steps"] = rep.get("partial_steps", 0) + int(
+        (partial & ((ug != 0) | (uc != 0))).sum())
+    rep["partial_out_of_band"] = (rep.get("partial_out_of_band", 0)
+                                  + int((out & partial).sum()))
+    rep["partial_max_abs_err"] = max(rep.get("partial_max_abs_err", 0.0),
+                                     _max(d[partial]))
+
+
+def hold_payload(tag: str, card, cpu, rep: dict) -> None:
+    """One payload, card against CPU: its floats in the golden band, its
+    integer codes exact. Adds to ``rep``'s ``payload`` (largest float
+    difference), ``payload_floats`` and ``codes``."""
     import torch
     from repro_torch.core.pytree import leaves
-
-    def held(what, got, want) -> float:
-        try:
-            return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
-        except AssertionError as e:
-            raise AssertionError(f"{tag}: {what}: {e}") from None
-    rep = dict(local_full_steps=0.0, local_partial_steps=0,
-               local_partial_out_of_band=0, local_partial_max_abs_err=0.0,
-               payload=0.0, codes=0)
-    for key in sorted(card.own):
-        og, oc = card.own[key].cpu(), cpu.own[key]
-        ug = og - card.start[key].cpu()
-        uc = oc - cpu.start[key]
-        partial = (ug.abs() < 0.99 * lr) & (uc.abs() < 0.99 * lr)
-        d = (og - oc).abs()
-        out = d > GOLDEN_BAND["atol"] + GOLDEN_BAND["rtol"] * oc.abs()
-        require(not bool((out & ~partial).any()),
-                f"{tag}: local model {key}: {int((out & ~partial).sum())} "
-                "params out of the band where a device took a full Adam "
-                f"step, max {_max(d[out & ~partial])}")
-        rep["local_full_steps"] = max(rep["local_full_steps"],
-                                      _max(d[~partial]))
-        rep["local_partial_steps"] += int(
-            (partial & ((ug != 0) | (uc != 0))).sum())
-        rep["local_partial_out_of_band"] += int((out & partial).sum())
-        rep["local_partial_max_abs_err"] = max(
-            rep["local_partial_max_abs_err"], _max(d[partial]))
-        for a, b in zip(leaves(card.payloads[key]),
-                        leaves(cpu.payloads[key]), strict=True):
-            if a.dtype.is_floating_point:
-                rep["payload"] = max(rep["payload"],
-                                     held(f"payload {key}", a, b))
-            else:
-                require(torch.equal(a.cpu(), b),
-                        f"{tag}: payload codes {key} differ")
-                rep["codes"] += a.numel()
-    return rep
+    for a, b in zip(leaves(card), leaves(cpu), strict=True):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype.is_floating_point:
+            try:
+                err = close(a, b, **GOLDEN_BAND)
+            except AssertionError as e:
+                raise AssertionError(f"{tag}: payload: {e}") from None
+            rep["payload"] = max(rep.get("payload", 0.0), err)
+            rep["payload_floats"] = rep.get("payload_floats", 0) + a.numel()
+        else:
+            require(torch.equal(a, b), f"{tag}: payload codes differ in "
+                    f"{int((a != b).sum())} of {a.numel()}")
+            rep["codes"] = rep.get("codes", 0) + a.numel()
 
 
 def rate_cnn_replay(fit, n_clients: int = 2, rounds: int = 3) -> tuple:
-    """Run (n)'s reduced copy on the card and on the CPU, the CPU run
-    encoding the card's trained local model of each round and client in
-    place of its own (:class:`EncodeSpy`), so a code boundary that the
-    two devices' local training straddles by rounding cannot fork the
-    trajectories (:func:`rate_cnn_witness` shows that it does). Held: each
-    local model the CPU trains against the card's in the golden band,
-    except where both devices' single Adam step is partial (smaller than
-    0.99 lr: a gradient under 99 times Adam's eps, at rounding level,
-    whose size and sign the rounding decides; Adam's normalization turns
-    it into a step of up to lr either way); each payload's floats, the
-    global params and the loss and accuracy after every round, the
-    controllers' probed distortions and ladder params (switch-time refits
-    included) in the golden band; every payload's integer codes, the
+    """Run (n)'s reduced copy on the card and on the CPU, the CPU replaying
+    the card's record as run (ac) does (:class:`ExampleSpies`: every Adam
+    step's gradient and result, each local training's start, the CNN's
+    ReLU and max-pool decisions at ties within the band, the switch-time
+    refits, each client's encode input and every quantizer input, held and
+    then taken from the card), so a code boundary or a tie that the two
+    devices straddle by rounding cannot fork the trajectories
+    (:func:`rate_cnn_witness` shows that they do). Held besides: the
+    global params, loss and accuracy after every round, the controllers'
+    probed distortions and ladder params in the golden band; the
     switches, occupancy, bytes and the rest of the controller state
     exact. Returns what it measured and both runs' final flat params."""
-    import math
     import torch
     from repro_torch.core.pytree import leaves, ravel
     tag = f"rate (n) reduced ({n_clients} clients, {rounds} rounds)"
-    runs, spies, params = {}, {}, {}
+    runs, params, record = {}, {}, None
     with ProbeSpy() as probes:
         for dev in ("cuda", "cpu"):
-            run = build_rate_cnn(fit, dev, n_clients, rounds)
-            replay = spies["cuda"].own if dev == "cpu" else None
             params[dev] = []
-            with EncodeSpy(replay) as spies[dev]:
+            with ExampleSpies(record, tag) as spies:
+                run = build_rate_cnn(fit, dev, n_clients, rounds)
                 for r in range(rounds):
                     run.history.append(run.scheduler.run_round(r))
                     params[dev].append(ravel(run.global_params)[0].cpu())
+            record = spies.record()
             runs[dev] = run
     g, c = runs["cuda"], runs["cpu"]
     check_rate_decisions(tag, g, c, probes)
-    lr = g.cfg.lr
-    require(all(g.cfg.local_epochs * math.ceil(
-        len(next(iter(d.values()))) / g.cfg.batch_size) == 1
-        for d in g.datasets), f"{tag}: a local model must be one Adam step")
 
     def held(what, got, want) -> float:
         try:
             return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
         except AssertionError as e:
             raise AssertionError(f"{tag}: {what}: {e}") from None
-    rep = hold_replay(tag, spies["cuda"], spies["cpu"], lr)
-    rep.update(params=[], distortion=0.0, ladder=0.0)
+    rep = dict(spies.report(), params=[], distortion=0.0, ladder=0.0)
     for r, (pg, pc) in enumerate(zip(params["cuda"], params["cpu"])):
         rep["params"].append(held(f"round {r} global params", pg, pc))
     for a, b in zip(g.history, c.history, strict=True):
@@ -3002,41 +2972,38 @@ def run_lm_delta(launches: dict) -> dict:
 def lm_delta_replay(rounds: int = 3) -> dict:
     """Run (q)'s reduced copy on the card and the CPU (float32 compute, 2
     clients of 4 sequences of 64 tokens, one Adam step a client a round,
-    ``SyncFedAvg``), the CPU encoding the card's local models against the
-    card's round-start global model (:class:`EncodeSpy`), so a q8 code
-    boundary that the two devices' training straddles by rounding cannot
-    fork the runs (:func:`rate_cnn_replay`'s manner): codes exact; payload
-    floats, global params and metrics each round in the golden band; the
-    local models too but where both devices' single Adam step is
-    partial."""
+    ``SyncFedAvg``), the CPU replaying the card's record
+    (:class:`ExampleSpies`, :func:`rate_cnn_replay`'s manner), so a q8
+    code boundary that the two devices' training straddles by rounding
+    cannot fork the runs: every Adam step's gradient and result, each
+    encode's payload and the global params and metrics each round in the
+    golden band, codes and bytes exact."""
     import torch
     from repro_torch.core.pytree import ravel, tree_map
     from repro_torch.models.model import init_params
     arch = lm_delta_arch(True)
     params = init_params(torch.Generator().manual_seed(0), arch, "cpu")
     data, ev = lm_delta_data(arch.vocab_size, LM_Q["batch"], 64)
-    runs, spies, globs = {}, {}, {}
+    tag = "lm (q) reduced"
+    runs, globs, record = {}, {}, None
     for dev in ("cuda", "cpu"):
-        run = build_lm_delta(arch, tree_map(lambda t, d=dev: t.to(d),
-                                            params),
-                             data, ev, dev, rounds=rounds)
-        replay = ((spies["cuda"].own, spies["cuda"].start)
-                  if dev == "cpu" else ())
         globs[dev] = []
-        with EncodeSpy(*replay) as spies[dev]:
+        with ExampleSpies(record, tag) as spies:
+            run = build_lm_delta(arch, tree_map(lambda t, d=dev: t.to(d),
+                                                params),
+                                 data, ev, dev, rounds=rounds)
             for r in range(rounds):
                 run.history.append(run.scheduler.run_round(r))
                 globs[dev].append(ravel(run.global_params)[0].cpu())
+        record = spies.record()
         runs[dev] = run
-    tag, lr = "lm (q) reduced", runs["cuda"].cfg.lr
 
     def held(what, got, want) -> float:
         try:
             return close(got.cpu(), want.cpu(), **GOLDEN_BAND)
         except AssertionError as e:
             raise AssertionError(f"{tag}: {what}: {e}") from None
-    rep = hold_replay(tag, spies["cuda"], spies["cpu"], lr)
-    rep["params"] = []
+    rep = dict(spies.report(), params=[])
     for r, (pg, pc) in enumerate(zip(globs["cuda"], globs["cpu"])):
         rep["params"].append(held(f"round {r} global params", pg, pc))
     for a, b in zip(runs["cuda"].history, runs["cpu"].history, strict=True):
@@ -4103,55 +4070,740 @@ def run_pods() -> dict:
     return dict(wall_s=time.perf_counter() - t0, ranks=res)
 
 
+# ------------------------------------------- run (ac)'s replayed holds
+# Adam steps of a tree of up to REPLAY_ALL values are held and replayed at
+# every step; a larger tree's (the FC AEs, 2-4 million values) at its
+# fit's first step, every REPLAY_EVERY-th step and its last
+REPLAY_ALL = 1 << 20
+REPLAY_EVERY = 100
+
+
+def _flat(tree):
+    from repro_torch.core.pytree import ravel
+    return ravel(tree)[0].detach().clone()
+
+
+def _unravel_like(tree, vec):
+    """``vec`` (flat) cut into ``tree``'s leaves, on ``tree``'s device."""
+    from repro_torch.core.pytree import flatten, unflatten
+    lv, td = flatten(tree)
+    vec = vec.to(lv[0].device)
+    parts = vec.split([x.numel() for x in lv])
+    return unflatten(td, [p.reshape(x.shape) for p, x in zip(parts, lv)])
+
+
+def _to_device(x, device):
+    """Every tensor of a nested dict / list / tuple on ``device``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, device) for v in x)
+    return x
+
+
+def _to_cpu(x):
+    return _to_device(x, "cpu")
+
+
+def _held_band(tag: str, got, want, rep: dict, key: str) -> None:
+    """``got`` in the golden band of ``want``; the largest difference into
+    ``rep[key]`` and the values held into ``rep["floats"]``."""
+    try:
+        err = close(got.cpu(), want.cpu(), **GOLDEN_BAND)
+    except AssertionError as e:
+        raise AssertionError(f"{tag}: {e}") from None
+    rep[key] = max(rep.get(key, 0.0), err)
+    rep["floats"] = rep.get("floats", 0) + got.numel()
+
+
+class AdamSpy:
+    """Every Adam step of a run, in call order a stream: ``"ae"``, the AE
+    trainers' ``autoencoder._adam_update`` (pre-pass fits, lifecycle and
+    switch-time refits, rung fits), and ``"opt"``, the optimizers'
+    ``update`` (local training and the LM task; ``make_optimizer`` as
+    ``optim.optimizers`` and ``core.prepass`` bind it). Recording
+    (``replay=None``), it keeps each step's t, lr and size, and at the
+    steps it holds (every step of a tree of up to ``REPLAY_ALL`` values,
+    or of any tree with ``every_step``; a larger tree's first, every
+    ``REPLAY_EVERY``-th and last step of each fit) the step's gradient,
+    resulting parameters and moments, its input parameters at a fit's
+    first step, and the result of the step before. Replaying another
+    run's record, each held step is held against the record's by
+    :func:`step_rule` from the same input (the step before's result is
+    the record's, so the CPU's gradient is taken at the card's
+    parameters), and every recorded result replaces the step's own: the
+    next gradient is taken at the recorded parameters and a fit ends on
+    the recorded result. A context manager; :meth:`record` gives the
+    record on the CPU, ``rep`` the holds."""
+
+    STREAMS = ("ae", "opt")
+
+    def __init__(self, replay=None, tag: str = "adam",
+                 every_step: bool = False):
+        self.replay, self.tag, self.every_step = replay, tag, every_step
+        self.steps = {s: [] for s in self.STREAMS}
+        self.last = {s: [] for s in self.STREAMS}     # (index, result, g)
+        self.pos = {s: 0 for s in self.STREAMS}
+        self.rep = {s: dict(steps=0, held=0) for s in self.STREAMS}
+
+    def __enter__(self):
+        import dataclasses
+        from repro_torch.core import autoencoder, prepass, task
+        from repro_torch.optim import optimizers
+        self.mods = (autoencoder, prepass, optimizers, task)
+        self.real = (autoencoder._adam_update, optimizers.make_optimizer)
+        real_adam, real_make = self.real
+
+        def adam(p, g, m, v, t, lr):
+            return self._step("ae", p, g, t, lr, real_adam(p, g, m, v, t, lr))
+
+        def make(name, lr, **kw):
+            opt = real_make(name, lr, **kw)
+            if name not in ("adam", "adamw"):
+                return opt
+
+            def update(params, grads, state, *, inplace=False):
+                require(not inplace, f"{self.tag}: an in-place update")
+                p, st = opt.update(params, grads, state)
+                p, m, v = self._step("opt", params, grads, st["count"], lr,
+                                     (p, st["m"], st["v"]))
+                return p, dict(st, m=m, v=v)
+            return dataclasses.replace(opt, update=update)
+        autoencoder._adam_update = adam
+        optimizers.make_optimizer = prepass.make_optimizer = make
+        task._lm_step.cache_clear()          # its optimizer is built once
+        return self
+
+    def __exit__(self, *exc):
+        autoencoder, prepass, optimizers, task = self.mods
+        autoencoder._adam_update = self.real[0]
+        optimizers.make_optimizer = prepass.make_optimizer = self.real[1]
+        task._lm_step.cache_clear()
+        if exc[0] is None and self.replay is not None:
+            for s in self.STREAMS:
+                require(self.pos[s] == len(self.replay[s]),
+                        f"{self.tag}: {self.pos[s]} {s} Adam steps on the "
+                        f"CPU, {len(self.replay[s])} on the card")
+
+    def _step(self, s, p_in, g, t: int, lr: float, out):
+        t = int(t)
+        size = sum(x.numel() for x in _leaves(p_in))
+        if self.replay is None:
+            self._record(s, p_in, g, t, lr, size, out)
+            return out
+        i = self.pos[s]
+        self.pos[s] += 1
+        rec = self.replay[s]
+        require(i < len(rec) and (rec[i]["t"], rec[i]["size"]) == (t, size),
+                f"{self.tag}: {s} Adam step {i} (t {t}, {size} values) "
+                "is not the card's " + (f"(t {rec[i]['t']}, "
+                                        f"{rec[i]['size']} values)"
+                                        if i < len(rec) else "(none)"))
+        e, rep = rec[i], self.rep[s]
+        rep["steps"] += 1
+        if "out" not in e:
+            return out
+        if e.get("held"):
+            card_in = e["in_p"] if t == 1 else rec[i - 1]["out"][0]
+            step_rule(f"{self.tag}: {s} Adam step {i} (t {t})", card_in,
+                      e["out"][0], _flat(p_in).cpu(), _flat(out[0]).cpu(),
+                      lr, t, e["g"], _flat(g).cpu(), rep)
+            rep["held"] += 1
+            rep["values"] = rep.get("values", 0) + size
+        return tuple(_unravel_like(x, c) for x, c in zip(out, e["out"]))
+
+    def _record(self, s, p_in, g, t, lr, size, out) -> None:
+        steps, last = self.steps[s], self.last[s]
+        if t == 1:
+            self._close(s)                   # the step before ended a fit
+        k = 1 if size <= REPLAY_ALL or self.every_step else REPLAY_EVERY
+        steps.append(dict(t=t, size=size, lr=float(lr)))
+        last.append((len(steps) - 1, out, g))
+        del last[:-2]
+        if t == 1 or t % k == 0:
+            self._keep(s, len(steps) - 1, p_in)
+
+    def _keep(self, s, i: int, p_in=None) -> None:
+        """Hold step ``i``: its gradient and result, and its input (a fit's
+        first step) or the result of the step before."""
+        steps, last = self.steps[s], {j: (o, g) for j, o, g in self.last[s]}
+        e = steps[i]
+        if e.get("held"):
+            return
+        e["held"] = True
+        e["out"] = tuple(_flat(x) for x in last[i][0])
+        e["g"] = _flat(last[i][1])
+        if e["t"] == 1:
+            e["in_p"] = _flat(p_in)
+        elif "out" not in steps[i - 1]:
+            steps[i - 1]["out"] = tuple(_flat(x) for x in last[i - 1][0])
+
+    def _close(self, s) -> None:
+        if self.steps[s]:
+            self._keep(s, len(self.steps[s]) - 1)
+
+    def record(self) -> dict:
+        for s in self.STREAMS:
+            self._close(s)
+            self.last[s] = []
+        return _to_cpu(self.steps)
+
+
+def _leaves(tree):
+    from repro_torch.core.pytree import leaves
+    return leaves(tree)
+
+
+class RefitSpy:
+    """Wraps ``AELifecycle._refit`` (the lifecycle's refits and rate
+    control's switch-time refits, one ``train_autoencoder_cohort``
+    dispatch a shape group) and ``_refit_dataset``: recording, each
+    refit's resulting AE params per (round, lane) with the lane's shape
+    group; replaying another run's record, the CPU's refit (whose Adam
+    steps :class:`AdamSpy` holds and replays) is held against the
+    record's in the golden band and the record's params take its place,
+    so the rounds after it run on the card's AE."""
+
+    def __init__(self, replay=None, tag: str = "refit"):
+        self.replay, self.tag = replay, tag
+        self.calls, self.pos = [], 0
+        self.rep = dict(refits=0, lanes=0)
+
+    def __enter__(self):
+        from repro_torch.core import lifecycle
+        cls = self.cls = lifecycle.AELifecycle
+        self.real = (cls._refit, cls._refit_dataset)
+        real_refit, real_data = self.real
+        shapes = {}
+
+        def data(lc, run, lane):
+            fc, rows = real_data(lc, run, lane)
+            shapes[repr(lane)] = (fc, tuple(rows.shape))
+            return fc, rows
+
+        def refit(lc, run, r, todo):
+            shapes.clear()
+            out = real_refit(lc, run, r, todo)
+            keys = list(dict.fromkeys(shapes[repr(x)] for x, _ in out))
+            groups = [keys.index(shapes[repr(x)]) for x, _ in out]
+            return self._seen(r, out, groups)
+        cls._refit, cls._refit_dataset = refit, data
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._refit, self.cls._refit_dataset = self.real
+        if exc[0] is None and self.replay is not None:
+            require(self.pos == len(self.replay),
+                    f"{self.tag}: {self.pos} refit calls on the CPU, "
+                    f"{len(self.replay)} on the card")
+
+    def _seen(self, r: int, out, groups):
+        lanes = [repr(x) for x, _ in out]
+        if self.replay is None:
+            self.calls.append(dict(round=r, lanes=lanes, groups=groups,
+                                   params=[_flat(p) for _, p in out]))
+            return out
+        rec = self.replay[self.pos] if self.pos < len(self.replay) else {}
+        self.pos += 1
+        require((rec.get("round"), rec.get("lanes"), rec.get("groups"))
+                == (r, lanes, groups),
+                f"{self.tag}: refit call {self.pos - 1} at round {r} lanes "
+                f"{lanes} groups {groups}, the card's {rec.get('round')} "
+                f"{rec.get('lanes')} {rec.get('groups')}")
+        if out:
+            self.rep["refits"] += 1
+        new = []
+        for (lane, p), card in zip(out, rec["params"], strict=True):
+            _held_band(f"{self.tag}: round {r} refit of lane {lane!r}",
+                       card, _flat(p), self.rep, "max_abs_err")
+            new.append((lane, _unravel_like(p, card)))
+            self.rep["lanes"] += 1
+        return new
+
+    def record(self) -> list:
+        return _to_cpu(self.calls)
+
+
+class TrainStartSpy:
+    """Wraps the tasks' local training (``ClassifierTask.local_update``
+    and ``local_update_batched``, ``LMDeltaTask.local_update``), the calls
+    in order: recording, the global params each starts from; replaying
+    another run's record, the CPU's held in the golden band and the
+    record's taken (the FedProx anchor too, where it is the same tree), so
+    a client's first Adam step starts from the card's parameters."""
+
+    def __init__(self, replay=None, tag: str = "start"):
+        self.replay, self.tag = replay, tag
+        self.calls, self.pos = [], 0
+        self.rep = dict(starts=0)
+
+    def __enter__(self):
+        from repro_torch.core import task
+        self.real = [(cls, name, getattr(cls, name)) for cls, name in (
+            (task.ClassifierTask, "local_update"),
+            (task.ClassifierTask, "local_update_batched"),
+            (task.LMDeltaTask, "local_update"))]
+        for cls, name, fn in self.real:
+            setattr(cls, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        def update(task_self, params, data, cfg, *, seed, anchor=None):
+            if self.replay is None:
+                self.calls.append(_flat(params))
+            else:
+                i, self.pos = self.pos, self.pos + 1
+                require(i < len(self.replay), f"{self.tag}: local "
+                        f"training {i} past the card's {len(self.replay)}")
+                _held_band(f"{self.tag}: local training {i} start",
+                           _flat(params), self.replay[i], self.rep,
+                           "max_abs_err")
+                card = _unravel_like(params, self.replay[i])
+                anchor = card if anchor is params else anchor
+                params = card
+                self.rep["starts"] += 1
+            return fn(task_self, params, data, cfg, seed=seed,
+                      anchor=anchor)
+        return update
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.real:
+            setattr(cls, name, fn)
+        if exc[0] is None and self.replay is not None:
+            require(self.pos == len(self.replay),
+                    f"{self.tag}: {self.pos} local trainings on the CPU, "
+                    f"{len(self.replay)} on the card")
+
+    def record(self) -> list:
+        return _to_cpu(self.calls)
+
+
+class ExampleEncodeSpy:
+    """Wraps ``scheduler._encode_local`` for run (ac), the calls in order
+    (each keyed by run, round and client; a run numbered by its first
+    encode). Recording: the local model, the global params it trained
+    from, the client's error-feedback residual before the encode, and the
+    payload. Replaying another run's record: the CPU's global params and
+    residual are held against the record's in the golden band, then the
+    record's local model, global params and residual replace the CPU's,
+    so the encode's input is the card's value for value (a code boundary
+    straddled by rounding cannot fork the runs); the payload is held:
+    integer codes exact, floats in the band (and kept in ``calls``).
+    :class:`AdamSpy` holds the local training that made the local
+    model."""
+
+    def __init__(self, replay=None, tag: str = "encode"):
+        self.replay, self.tag = replay, tag
+        self.calls, self.pos, self.runs = [], 0, []
+        self.rep = dict(encodes=0)
+
+    def __enter__(self):
+        from repro_torch.core import scheduler as mod
+        self.mod, self.real = mod, mod._encode_local
+
+        def spy(run, ci, local, global_params, state, metrics):
+            if not any(run is x for x in self.runs):
+                self.runs.append(run)
+            key = (next(i for i, x in enumerate(self.runs) if x is run),
+                   run.round_offset + len(run.history), ci)
+            res = state.residual
+            if self.replay is None:
+                self.calls.append(dict(
+                    key=key, own=_flat(local), start=_flat(global_params),
+                    residual=None if res is None else _flat(res)))
+                enc = self.real(run, ci, local, global_params, state,
+                                metrics)
+                self.calls[-1]["payload"] = enc.payload
+                return enc
+            rec = (self.replay[self.pos] if self.pos < len(self.replay)
+                   else {})
+            self.pos += 1
+            tag = f"{self.tag}: encode {key}"
+            require(rec.get("key") == key,
+                    f"{tag} is not the card's {rec.get('key')}")
+            _held_band(f"{tag}: global params", _flat(global_params),
+                       rec["start"], self.rep, "global_params")
+            require((res is None) == (rec["residual"] is None),
+                    f"{tag}: a residual on one device only")
+            if res is not None:
+                _held_band(f"{tag}: residual", _flat(res), rec["residual"],
+                           self.rep, "residual")
+                state.residual = _unravel_like(res, rec["residual"])
+            enc = self.real(run, ci, _unravel_like(local, rec["own"]),
+                            _unravel_like(global_params, rec["start"]),
+                            state, metrics)
+            hold_payload(tag, rec["payload"], enc.payload, self.rep)
+            self.rep["encodes"] += 1
+            self.calls.append(dict(key=key, payload=enc.payload))
+            return enc
+        mod._encode_local = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._encode_local = self.real
+        self.runs = []
+        if exc[0] is None and self.replay is not None:
+            require(self.pos == len(self.replay),
+                    f"{self.tag}: {self.pos} encodes on the CPU, "
+                    f"{len(self.replay)} on the card")
+
+    def record(self) -> list:
+        return _to_cpu(self.calls)
+
+
+class QuantSpy:
+    """Wraps the blockwise quantizer's encode (``codec._QuantizeOps.fwd``:
+    every q8 / q4 stage of an encode and of a drift or rate probe), the
+    calls in order. Recording, each call's input; replaying another run's
+    record, the CPU's input is held in the golden band and the record's
+    quantized in its place, so the codes come from the card's values (a
+    chain's AE latents can straddle a code boundary by rounding)."""
+
+    def __init__(self, replay=None, tag: str = "quantize"):
+        self.replay, self.tag = replay, tag
+        self.calls, self.pos = [], 0
+        self.rep = dict(calls=0)
+
+    def __enter__(self):
+        from repro_torch.core import codec
+        self.cls, self.real = codec._QuantizeOps, codec._QuantizeOps.fwd
+
+        def fwd(spec, params, flat):
+            if self.replay is None:
+                self.calls.append(flat.detach().clone())
+                return self.real(spec, params, flat)
+            i, self.pos = self.pos, self.pos + 1
+            require(i < len(self.replay)
+                    and self.replay[i].shape == flat.shape,
+                    f"{self.tag}: quantize call {i} of {tuple(flat.shape)} "
+                    "is not the card's")
+            _held_band(f"{self.tag}: quantize call {i} input", flat,
+                       self.replay[i], self.rep, "max_abs_err")
+            self.rep["calls"] += 1
+            return self.real(spec, params,
+                             self.replay[i].to(flat.device))
+        self.cls.fwd = staticmethod(fwd)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fwd = staticmethod(self.real)
+        if exc[0] is None and self.replay is not None:
+            require(self.pos == len(self.replay),
+                    f"{self.tag}: {self.pos} quantize calls on the CPU, "
+                    f"{len(self.replay)} on the card")
+
+    def record(self) -> list:
+        return _to_cpu(self.calls)
+
+
+class ServeSpy:
+    """Wraps the serve loop's two draw seams (``serve._uniform``,
+    ``serve.synthetic_payloads``) and its step (``serve.make_step``), which
+    ``fl_serve`` runs in place of ``scheduler._encode_local``. Recording,
+    every draw and each round's ``global_flat`` and clock; replaying
+    another run's record, the record's draws in place of the CPU's own
+    (the devices' generators differ), and each round's ``global_flat`` and
+    clock held in the golden band."""
+
+    def __init__(self, replay=None, tag: str = "serve"):
+        self.replay, self.tag = replay, tag
+        self.draws, self.rounds, self.pos = [], [], [0, 0]
+        self.rep = dict(rounds=0)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import serve
+        self.mod = serve
+        self.real = (serve._uniform, serve.synthetic_payloads,
+                     serve.make_step)
+        real_uniform, real_payloads, real_make = self.real
+
+        def drawn(fn):
+            def draw(*a):
+                out = fn(*a)
+                if self.replay is None:
+                    self.draws.append(out)
+                    return out
+                i, self.pos[0] = self.pos[0], self.pos[0] + 1
+                card = (self.replay["draws"][i]
+                        if i < len(self.replay["draws"]) else None)
+                require(card is not None and [
+                    (x.shape, x.dtype) for x in _leaves(card)] == [
+                    (x.shape, x.dtype) for x in _leaves(out)],
+                    f"{self.tag}: draw {i} is not the card's")
+                gen = next(x for x in a if isinstance(x, torch.Generator))
+                return _to_device(card, gen.device)
+            return draw
+
+        def make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def call(state):
+                out = step(state)
+                now = (out["global_flat"].clone(), out["clock"].clone())
+                if self.replay is None:
+                    self.rounds.append(now)
+                    return out
+                r, self.pos[1] = self.pos[1], self.pos[1] + 1
+                require(r < len(self.replay["rounds"]),
+                        f"{self.tag}: round {r} past the card's")
+                for what, got, want in zip(("global_flat", "clock"), now,
+                                           self.replay["rounds"][r]):
+                    _held_band(f"{self.tag}: round {r} {what}", got, want,
+                               self.rep, what)
+                self.rep["rounds"] += 1
+                return out
+            return call
+        serve._uniform = drawn(real_uniform)
+        serve.synthetic_payloads = drawn(real_payloads)
+        serve.make_step = make
+        # its encode of a zero vector is cached; every run makes it anew,
+        # so two runs quantize as often (:class:`QuantSpy`)
+        serve._payload_structure.cache_clear()
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod._uniform, self.mod.synthetic_payloads,
+         self.mod.make_step) = self.real
+        if exc[0] is None and self.replay is not None:
+            require(self.pos == [len(self.replay["draws"]),
+                                 len(self.replay["rounds"])],
+                    f"{self.tag}: {self.pos} draws and rounds on the CPU, "
+                    f"the card's {len(self.replay['draws'])}, "
+                    f"{len(self.replay['rounds'])}")
+
+    def record(self) -> dict:
+        return _to_cpu({"draws": self.draws, "rounds": self.rounds})
+
+
+class _TorchWith:
+    """The ``torch`` module with some attributes replaced (a module that
+    calls ``torch.relu`` sees the replacement)."""
+
+    def __init__(self, torch, **attrs):
+        self._torch = torch
+        self.__dict__.update(attrs)
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+class DecisionSpy:
+    """Wraps the classifiers' ReLU and max-pool (``models.classifiers``
+    calls ``torch.relu`` and ``torch.nn.functional.max_pool2d``; the spy
+    stands in for that module's ``torch``), each kind's calls in order.
+    Their gradients are decisions: where a pre-activation lies within
+    rounding of zero, or a pooling window's two largest values within
+    rounding of each other, the card and the CPU can decide apart, and a
+    whole upstream gradient takes another path (``fl_color_imbalance
+    --stacks``: one conv2 pre-activation 1.6e-7 from zero moved six
+    gradient values across zero, by up to 1.5e-4). Recording, each call's
+    ties within the golden band's atol (ReLU inputs that near zero, pool
+    windows with a positive maximum whose top two are that near) with the
+    card's decision there;
+    replaying another run's record, each decision the CPU takes apart from
+    the card's must be at a tie that is within the atol on the CPU too (a
+    tie within the band), and the card's decision is taken. Tensors under
+    ``torch.func`` transforms pass through unseen."""
+
+    KINDS = ("relu", "pool")
+
+    def __init__(self, replay=None, tag: str = "decision"):
+        self.replay, self.tag = replay, tag
+        self.calls = {k: [] for k in self.KINDS}
+        self.pos = {k: 0 for k in self.KINDS}
+        self.rep = {k: dict(calls=0, ties=0, flips=0, flip_gap=0.0)
+                    for k in self.KINDS}
+
+    def _card(self, kind, tie_idx, decision, gap, device):
+        """The record's ties of this call (recording: keep them), and the
+        positions where the CPU decides apart from the card (replaying:
+        each checked to be a tie within the band), as (positions, the
+        card's decisions there) or None."""
+        if self.replay is None:
+            self.calls[kind].append((tie_idx, decision[tie_idx].clone()))
+            return None
+        i, self.pos[kind] = self.pos[kind], self.pos[kind] + 1
+        rec = self.replay[kind]
+        require(i < len(rec), f"{self.tag}: {kind} call {i} past the "
+                f"card's {len(rec)}")
+        idx, card = (t.to(device) for t in rec[i])
+        rep = self.rep[kind]
+        rep["calls"] += 1
+        rep["ties"] += idx.numel()
+        apart = decision[idx] != card
+        if not bool(apart.any()):
+            return None
+        at = gap[idx][apart]
+        require(bool((at <= GOLDEN_BAND["atol"]).all()),
+                f"{self.tag}: {kind} call {i}: a decision apart from the "
+                f"card's where the CPU's tie gap is {float(at.max())}")
+        rep["flips"] += int(apart.sum())
+        rep["flip_gap"] = max(rep["flip_gap"], float(at.max()))
+        return idx[apart], card[apart]
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import classifiers
+        F = torch.nn.functional
+        self.mod, self.real = classifiers, classifiers.torch
+        real_relu, real_pool = torch.relu, F.max_pool2d
+        tie = GOLDEN_BAND["atol"]
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+        def relu(x):
+            out = real_relu(x)
+            if wrapped(x):
+                return out
+            flat = x.detach().reshape(-1)
+            gap = flat.abs()
+            got = self._card("relu", torch.nonzero(gap <= tie).flatten(),
+                             flat > 0, gap, x.device)
+            if got is None:
+                return out
+            mask = (flat > 0).clone()
+            mask[got[0]] = got[1]
+            return torch.where(mask.reshape(x.shape), x, torch.zeros_like(x))
+
+        def max_pool2d(h, kernel_size, stride=None, *a, **kw):
+            out, idx = real_pool(h, kernel_size, stride, *a,
+                                 return_indices=True,
+                                 **{k: v for k, v in kw.items()
+                                    if k != "return_indices"})
+            if wrapped(h) or kernel_size != 2 or stride != 2:
+                return out
+            N, C, Ho, Wo = out.shape
+            win = h.detach()[..., :2 * Ho, :2 * Wo].reshape(
+                N, C, Ho, 2, Wo, 2).transpose(3, 4).reshape(-1, 4)
+            top = torch.topk(win, 2, dim=1).values
+            gap = top[:, 0] - top[:, 1]
+            flat = idx.reshape(-1)
+            # a window of ReLU zeros routes a zero gradient either way
+            ties = (gap <= tie) & (top[:, 0] > 0)
+            got = self._card("pool", torch.nonzero(ties).flatten(), flat,
+                             gap, h.device)
+            if got is None:
+                return out
+            flat = flat.clone()
+            flat[got[0]] = got[1]
+            return h.reshape(N, C, -1).gather(
+                2, flat.reshape(N, C, -1)).reshape(out.shape)
+
+        nn = _TorchWith(torch.nn, functional=_TorchWith(
+            F, max_pool2d=max_pool2d))
+        classifiers.torch = _TorchWith(torch, relu=relu, nn=nn)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.torch = self.real
+        if exc[0] is None and self.replay is not None:
+            for k in self.KINDS:
+                require(self.pos[k] == len(self.replay[k]),
+                        f"{self.tag}: {self.pos[k]} {k} calls on the CPU, "
+                        f"{len(self.replay[k])} on the card")
+
+    def record(self) -> dict:
+        return _to_cpu(self.calls)
+
+
+class ExampleSpies:
+    """Run (ac)'s replayed holds around one example call: :class:`AdamSpy`,
+    :class:`TrainStartSpy`, :class:`DecisionSpy`, :class:`RefitSpy`,
+    :class:`ExampleEncodeSpy`, :class:`QuantSpy` and :class:`ServeSpy`.
+    Without ``replay`` they record (:meth:`record`, on the CPU); given
+    another run's record they replay it and hold (:meth:`report`). A
+    context manager."""
+
+    KINDS = (("adam", AdamSpy), ("start", TrainStartSpy),
+             ("decision", DecisionSpy), ("refit", RefitSpy),
+             ("encode", ExampleEncodeSpy), ("quant", QuantSpy),
+             ("serve", ServeSpy))
+
+    def __init__(self, replay=None, tag: str = ""):
+        self.spies = {k: cls(None if replay is None else replay[k],
+                             f"{tag} {k}".strip())
+                      for k, cls in self.KINDS}
+
+    def __enter__(self):
+        self.stack = contextlib.ExitStack()
+        for spy in self.spies.values():
+            self.stack.enter_context(spy)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+    def record(self) -> dict:
+        return {k: s.record() for k, s in self.spies.items()}
+
+    def report(self) -> dict:
+        return {k: s.rep for k, s in self.spies.items()}
+
+
 # --------------------------------------------------- run (ac): the examples
 # the kernels each example's path has on the card, each of which must
 # launch: none where the path has none (the FC AEs are cuBLAS matrix
 # products). The codec stacks' top-k-prefixed chains reduce by
 # scatter-add, not kernel 4; the LM federation's role AEs are a client's
 # own, so the grouped round takes them on the batched-params route, not
-# kernel 5 (as the reference's); kernel 6 is its evaluation prefill
+# kernel 5 (as the reference's); kernel 6 is its evaluation prefill.
+# The card's calls run in this order: the longest CPU replays first (a
+# replay starts when its card call ends), the full-width runs, which have
+# no CPU replay, last; each README command line (README.md:34-256) or
+# factored call is in ac_call
 AC_KERNELS = {
-    "quickstart": (),
-    "batched_server_decode": ("fused_dense", "fused_decode_agg"),
-    "fl_serve": ("dequantize_blocks_2d",),
-    "fl_serve_q4_shard": ("dequantize_blocks_2d",),
-    "fl_async_sampling": ("quantize_blocks_2d", "dequantize_blocks_2d"),
-    "ae_lifecycle_refresh": (),
-    "per_layer_partitions": ("quantize_blocks_2d", "dequantize_blocks_2d"),
-    "adaptive_rate_control": (),
-    "fl_color_imbalance_reduced": (),
     "fl_color_imbalance_stacks": ("quantize_blocks_2d",
                                   "dequantize_blocks_2d", "fused_dense"),
-    "llm_serve_decode": ("flash_attention",),
+    "adaptive_rate_control": (),
+    "per_layer_partitions": ("quantize_blocks_2d", "dequantize_blocks_2d"),
     "llm_federated_reduced": ("quantize_blocks_2d", "dequantize_blocks_2d",
                               "fused_dense", "flash_attention"),
+    "ae_lifecycle_refresh": (),
+    "fl_serve": ("dequantize_blocks_2d",),
+    "quickstart": (),
+    "fl_async_sampling": ("quantize_blocks_2d", "dequantize_blocks_2d"),
+    "batched_server_decode": ("fused_dense", "fused_decode_agg"),
+    "fl_serve_q4_shard": ("dequantize_blocks_2d",),
+    "fl_color_imbalance_reduced": (),
+    "llm_serve_decode": ("flash_attention",),
     "fl_color_imbalance": (),
     "llm_serve_decode_full": ("flash_attention",),
     "llm_federated_full": ("quantize_blocks_2d", "dequantize_blocks_2d",
                            "fused_dense", "flash_attention"),
 }
-# the card's calls, the longest last (the phase's budget is on when its
-# last call starts); each README command line (README.md:34-256) or
-# factored call is in ac_call
 AC_ORDER = tuple(AC_KERNELS)
-# the CPU runs each card run is held to: the same call, or (for the
-# full-width LM runs and the §5.2 federation at full width) a reduced
-# twin run on both devices; three child processes of two threads run
-# them while the card runs its own. ``llm_federated`` at the README's
-# size is cut to its twin: its 40-epoch pre-pass fits and 20-epoch
-# refits took 216.19 s on the card (host-bound Adam steps, ROADMAP
-# Queue B item 2), past the phase's time
-AC_CPU_JOBS = (("adaptive_rate_control",),
-               ("per_layer_partitions", "ae_lifecycle_refresh", "fl_serve",
-                "fl_serve_q4_shard", "batched_server_decode"),
-               ("fl_color_imbalance_stacks", "llm_federated_reduced",
-                "quickstart", "fl_async_sampling",
-                "fl_color_imbalance_reduced"))
-# floats held in the golden band card vs CPU: only where no quantizing
-# codec is on the path (FC AEs, the chunked AE without a quantizer), and
-# up to the first warm-started AE refit (``ac_first_refit``)
-AC_FLOATS = {"quickstart", "batched_server_decode", "ae_lifecycle_refresh",
-             "adaptive_rate_control", "fl_color_imbalance_reduced"}
+# the CPU replays each card run is held to (:class:`ExampleSpies`): the
+# same call, or (for the full-width LM runs and the §5.2 federation at
+# full width) a reduced twin run on both devices; child processes
+# (threads, labels) replay them as the card's records come in
+# (``ac_cpu_child``), and run the free CPU runs of ``AC_FREE`` (labels
+# "free:<label>", which need no record) first. ``llm_federated`` at the
+# README's size is cut to its twin: its 40-epoch pre-pass fits and
+# 20-epoch refits took 216.19 s on the card (host-bound Adam steps,
+# ROADMAP Backlog B2), past the phase's time. ``llm_serve_decode`` is held
+# in this process (its logits along the card's tokens,
+# ``ac_lm_serve_vs_cpu``)
+AC_CPU_JOBS = ((2, ("fl_color_imbalance_stacks",)),
+               (4, ("adaptive_rate_control",)),
+               (2, ("free:ae_lifecycle_refresh", "per_layer_partitions",
+                    "ae_lifecycle_refresh", "fl_serve",
+                    "batched_server_decode", "fl_serve_q4_shard",
+                    "free:quickstart", "free:batched_server_decode",
+                    "free:fl_color_imbalance_reduced",
+                    "llm_federated_reduced", "quickstart",
+                    "fl_async_sampling", "fl_color_imbalance_reduced")),
+               (2, ("free:adaptive_rate_control",)))
+AC_REPLAYED = tuple(x for _, labels in AC_CPU_JOBS for x in labels
+                    if not x.startswith("free:"))
+# the examples whose card run is also held to a free CPU run, floats in
+# the golden band up to the first warm-started AE refit
+# (``ac_hold_free``): those with no quantizing codec on the path, where
+# neither a code boundary nor a refit forks the free runs
+AC_FREE = ("adaptive_rate_control", "ae_lifecycle_refresh", "quickstart",
+           "batched_server_decode", "fl_color_imbalance_reduced")
 AC_EXACT_KEYS = frozenset((
     "bytes_up", "bytes_up_raw", "bytes_down", "bytes_decoder",
     "compression_ratio", "effective_ratio", "participants", "staleness",
@@ -4162,7 +4814,8 @@ AC_EXACT_KEYS = frozenset((
     "predicted_decoder_bytes", "decoder_rel_err", "savings_rel_err",
     "vmap_rounds", "loop_rounds", "round", "name", "assertion"))
 AC_FLOAT_KEYS = frozenset(("accuracy", "collab_accuracy", "ce_loss",
-                           "ae_history", "curve", "aggregate"))
+                           "ae_history", "curve", "aggregate",
+                           "global_flat"))
 # run (ac)'s cuts: the full-width LM federation (stablelm-1.6b at 2 of 24
 # layers, as run (q); 2 clients, 2 rounds of 1 local epoch, the pre-pass
 # AEs fitted 4 epochs on the first 1,024 chunk rows of each role) and the
@@ -4319,9 +4972,11 @@ def ac_fields(res, keys) -> dict:
 
 def ac_hold(label: str, card: dict, cpu: dict) -> dict:
     """Every byte count, ratio, cohort, staleness, sync list, rung and
-    outcome of ``card`` equal to ``cpu``'s; the floats of examples with no
-    quantizing codec on the path in the golden band. Returns the largest
-    float difference and the number of values held."""
+    outcome of ``card`` equal to ``cpu``'s; every round's floats in the
+    golden band (the CPU run replays the card's record, so the runs do not
+    fork at a code boundary or an AE refit: :class:`ExampleSpies`).
+    Returns the number of exact values, the floats held and the largest
+    float difference."""
     import torch
     ex_g, ex_c = ac_fields(card, AC_EXACT_KEYS), ac_fields(cpu, AC_EXACT_KEYS)
     require(ex_g.keys() == ex_c.keys() and ex_g,
@@ -4330,29 +4985,55 @@ def ac_hold(label: str, card: dict, cpu: dict) -> dict:
         require(ex_g[k] == ex_c[k],
                 f"(ac) {label}: {k} card {ex_g[k]!r} != cpu {ex_c[k]!r}")
     err, n = 0.0, 0
-    if label in AC_FLOATS:
-        fl_g, fl_c = (ac_fields(card, AC_FLOAT_KEYS),
-                      ac_fields(cpu, AC_FLOAT_KEYS))
-        refit = ac_first_refit(card)
-        if refit is not None:
-            # a warm-started AE refit parts the two devices in Adam's
-            # sign of near-zero gradients (ROADMAP Queue C item 5), so
-            # the floats are held up to the refit's round
-            fl_g = {k: v for k, v in fl_g.items()
-                    if int(k.split(".")[1]) <= refit}
-            fl_c = {k: fl_c[k] for k in fl_g}
-        require(fl_g.keys() == fl_c.keys() and fl_g, f"(ac) {label} floats")
-        for k in fl_g:
-            a = (fl_g[k] if isinstance(fl_g[k], torch.Tensor)
-                 else torch.tensor(flat_floats(fl_g[k]), dtype=torch.float64))
-            b = (fl_c[k] if isinstance(fl_c[k], torch.Tensor)
-                 else torch.tensor(flat_floats(fl_c[k]), dtype=torch.float64))
-            try:
-                err = max(err, close(a, b, **GOLDEN_BAND))
-            except AssertionError as e:
-                raise AssertionError(f"(ac) {label}: {k}: {e}") from None
-            n += a.numel()
+    fl_g, fl_c = ac_fields(card, AC_FLOAT_KEYS), ac_fields(cpu, AC_FLOAT_KEYS)
+    require(fl_g.keys() == fl_c.keys() and fl_g, f"(ac) {label} floats")
+    for k in fl_g:
+        a = (fl_g[k] if isinstance(fl_g[k], torch.Tensor)
+             else torch.tensor(flat_floats(fl_g[k]), dtype=torch.float64))
+        b = (fl_c[k] if isinstance(fl_c[k], torch.Tensor)
+             else torch.tensor(flat_floats(fl_c[k]), dtype=torch.float64))
+        try:
+            err = max(err, close(a, b, **GOLDEN_BAND))
+        except AssertionError as e:
+            raise AssertionError(f"(ac) {label}: {k}: {e}") from None
+        n += a.numel()
     return {"exact": len(ex_g), "floats": n, "max_abs_err": err}
+
+
+def ac_hold_free(label: str, card: dict, cpu: dict) -> dict:
+    """``card`` against a free CPU run (no replay): every exact field
+    equal, the floats in the golden band up to the first round that
+    shipped a refit decoder (``ac_first_refit``; a warm-started refit
+    inherits the rounding that the free runs' AE fits gathered, ROADMAP
+    Queue C item 2). Returns the number of exact values, the floats held,
+    the largest float difference and the last round held."""
+    import torch
+    ex_g, ex_c = ac_fields(card, AC_EXACT_KEYS), ac_fields(cpu, AC_EXACT_KEYS)
+    require(ex_g.keys() == ex_c.keys() and ex_g,
+            f"(ac) {label} free: fields {sorted(ex_g)} vs {sorted(ex_c)}")
+    for k in ex_g:
+        require(ex_g[k] == ex_c[k], f"(ac) {label} free: {k} card "
+                f"{ex_g[k]!r} != cpu {ex_c[k]!r}")
+    fl_g, fl_c = ac_fields(card, AC_FLOAT_KEYS), ac_fields(cpu, AC_FLOAT_KEYS)
+    refit = ac_first_refit(card)
+    if refit is not None:
+        fl_g = {k: v for k, v in fl_g.items()
+                if int(k.split(".")[1]) <= refit}
+    require(fl_g and all(k in fl_c for k in fl_g),
+            f"(ac) {label} free floats")
+    err, n = 0.0, 0
+    for k in fl_g:
+        a = (fl_g[k] if isinstance(fl_g[k], torch.Tensor)
+             else torch.tensor(flat_floats(fl_g[k]), dtype=torch.float64))
+        b = (fl_c[k] if isinstance(fl_c[k], torch.Tensor)
+             else torch.tensor(flat_floats(fl_c[k]), dtype=torch.float64))
+        try:
+            err = max(err, close(a, b, **GOLDEN_BAND))
+        except AssertionError as e:
+            raise AssertionError(f"(ac) {label} free: {k}: {e}") from None
+        n += a.numel()
+    return {"exact": len(ex_g), "floats": n, "max_abs_err": err,
+            "up_to_round": refit}
 
 
 def ac_first_refit(res):
@@ -4362,6 +5043,23 @@ def ac_first_refit(res):
         if r["round"] > 0 and r.get("ae_syncs"):
             return r["round"]
     return None
+
+
+def ac_same(label: str, a: dict, b: dict) -> int:
+    """Every exact and float field of two results of one call identical
+    (``torch.equal`` for tensors): a replay of a run's own record gives
+    that run. Returns the number of fields."""
+    import torch
+    fa = ac_fields(a, AC_EXACT_KEYS | AC_FLOAT_KEYS)
+    fb = ac_fields(b, AC_EXACT_KEYS | AC_FLOAT_KEYS)
+    require(fa.keys() == fb.keys() and fa, f"{label}: fields differ")
+    for k in fa:
+        x, y = fa[k], fb[k]
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else flat_floats(x) == flat_floats(y)
+                if k.rsplit(".", 1)[-1] in AC_FLOAT_KEYS else x == y)
+        require(same, f"{label}: {k} differs")
+    return len(fa)
 
 
 def flat_floats(x) -> list:
@@ -4374,9 +5072,10 @@ def flat_floats(x) -> list:
 
 
 def ac_card(label: str, small: bool = False) -> tuple:
-    """``ac_call`` on the card between zeroed and read launch counters:
-    (result, launches, routes, host seconds). Every kernel of
-    ``AC_KERNELS[label]`` must have launched."""
+    """``ac_call`` on the card between zeroed and read launch counters,
+    recording under :class:`ExampleSpies` where a CPU replay holds it
+    (``AC_REPLAYED``): (result, launches, routes, host seconds, record or
+    None). Every kernel of ``AC_KERNELS[label]`` must have launched."""
     import gc
     import torch
     from repro_torch.kernels import _lib
@@ -4389,12 +5088,15 @@ def ac_card(label: str, small: bool = False) -> tuple:
     for r in routes:
         r.clear()
     _lib.reset_launches()
+    spies = (ExampleSpies(tag=f"(ac) {label}") if label in AC_REPLAYED
+             else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as text:
+    with contextlib.redirect_stdout(io.StringIO()) as text, spies:
         res = ac_call(label, "cuda", small)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = _lib.counts()
+    record = spies.record() if label in AC_REPLAYED else None
     AC_LOG.parent.mkdir(parents=True, exist_ok=True)
     with AC_LOG.open("a") as f:
         f.write(f"== {label} (card)\n{text.getvalue()}")
@@ -4402,47 +5104,91 @@ def ac_card(label: str, small: bool = False) -> tuple:
     require(not missing, f"(ac) {label}: no launch of {missing} "
             f"(launches {launches})")
     return res, launches, {k: v for r in routes for k, v in r.items()}, \
-        host_s
+        host_s, record
 
 
-def ac_cpu_child(out_path: str, labels) -> int:
-    """A child process of run (ac): ``labels``' calls on the CPU, two
-    threads, the results saved to ``out_path`` with ``torch.save``."""
+def ac_replay(label: str, record: dict, small: bool = False) -> tuple:
+    """``ac_call`` on the CPU replaying the card's ``record``
+    (:class:`ExampleSpies`): (result, the spies' holds)."""
+    with contextlib.redirect_stdout(io.StringIO()), \
+            ExampleSpies(record, tag=f"(ac) {label}") as spies:
+        res = ac_call(label, "cpu", small)
+    return res, spies.report()
+
+
+def ac_record_path(label: str) -> Path:
+    return CKPT_DIR / f"ac_record_{label}.pt"
+
+
+def ac_cpu_child(out_path: str, threads: str, labels) -> int:
+    """A child process of run (ac): for each of ``labels`` in turn, with
+    ``threads`` threads, either a free CPU run ("free:<label>",
+    ``ac_call``) or, waiting for the card's record (``ac_record_path``,
+    written whole by a rename), its replay (``ac_replay``), the record
+    deleted after; the results, holds and seconds are saved to
+    ``out_path`` with ``torch.save``."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
-    torch.set_num_threads(2)
-    res, secs = {}, {}
+    torch.set_num_threads(int(threads))
+    res, holds, secs = {}, {}, {}
     for label in labels:
         t0 = time.perf_counter()
-        res[label] = ac_call(label, "cpu")
+        if label.startswith("free:"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                res[label] = ac_call(label.removeprefix("free:"), "cpu")
+            secs[label] = time.perf_counter() - t0
+            continue
+        path = ac_record_path(label)
+        deadline = time.perf_counter() + 1200
+        while not path.exists():
+            require(time.perf_counter() < deadline,
+                    f"(ac) no card record for {label}")
+            time.sleep(0.2)
+        record = torch.load(path, weights_only=False)
+        path.unlink()
+        t0 = time.perf_counter()
+        res[label], holds[label] = ac_replay(label, record)
         secs[label] = time.perf_counter() - t0
-    torch.save({"results": res, "seconds": secs}, out_path)
+        del record
+    torch.save({"results": res, "holds": holds, "seconds": secs}, out_path)
     return 0
 
 
 def ac_start_cpu_jobs() -> list:
     """Start ``AC_CPU_JOBS``' child processes: (process, output path,
-    labels) each."""
-    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    labels) each. Stale records are removed first."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    for label in AC_REPLAYED:
+        ac_record_path(label).unlink(missing_ok=True)
     jobs = []
-    for i, labels in enumerate(AC_CPU_JOBS):
+    for i, (threads, labels) in enumerate(AC_CPU_JOBS):
         path = CKPT_DIR / f"ac_cpu_{i}.pt"
         path.unlink(missing_ok=True)
         proc = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--ac-cpu",
-             str(path), *labels], env=env, cwd=str(ROOT),
+             str(path), str(threads), *labels],
+            env=dict(env, OMP_NUM_THREADS=str(threads)), cwd=str(ROOT),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((proc, path, labels))
     return jobs
 
 
+def ac_send_record(label: str, record: dict) -> None:
+    """Hand the card's record to the child that replays ``label``."""
+    import torch
+    path = ac_record_path(label)
+    tmp = path.with_suffix(".tmp")
+    torch.save(record, tmp)
+    os.replace(tmp, path)
+
+
 def ac_join_cpu_jobs(jobs, timeout: float) -> tuple:
     """Wait for the children (killing any still running at the end or on
-    failure); a child that failed fails the run. Returns (results,
+    failure); a child that failed fails the run. Returns (results, holds,
     seconds) by label."""
     import torch
-    results, secs = {}, {}
+    results, holds, secs = {}, {}, {}
     deadline = time.perf_counter() + timeout
     try:
         for proc, path, labels in jobs:
@@ -4454,13 +5200,16 @@ def ac_join_cpu_jobs(jobs, timeout: float) -> tuple:
             got = torch.load(path, weights_only=False)
             path.unlink()
             results.update(got["results"])
+            holds.update(got["holds"])
             secs.update(got["seconds"])
     finally:
         for proc, _, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return results, secs
+        for label in AC_REPLAYED:
+            ac_record_path(label).unlink(missing_ok=True)
+    return results, holds, secs
 
 
 def ac_lm_serve_vs_cpu(card: dict) -> dict:
@@ -4495,7 +5244,8 @@ def ac_lm_serve_vs_cpu(card: dict) -> dict:
 def run_examples() -> dict:
     """Run (ac): every example entry point on the card (``AC_ORDER``),
     its launches (``AC_KERNELS``) and host seconds, and each held to its
-    CPU run (``ac_hold``; the CPU runs in child processes meanwhile)."""
+    CPU replay (``ac_hold`` and the :class:`ExampleSpies` holds; child
+    processes replay each card call's record as it comes)."""
     import torch
     AC_LOG.unlink(missing_ok=True)
     jobs = ac_start_cpu_jobs()
@@ -4504,22 +5254,29 @@ def run_examples() -> dict:
     try:
         for label in AC_ORDER:
             rows[label] = {"start_s": time.perf_counter() - t_phase}
-            res, counts, routes, host_s = ac_card(label)
+            res, counts, routes, host_s, record = ac_card(label)
+            if record is not None:
+                ac_send_record(label, record)
+                del record
             card[label] = res
             rows[label].update(launches=counts, routes=routes,
                                host_s=host_s)
             log(f"(ac) {label}: {host_s:.3f} s, launches {counts}")
         t_card = time.perf_counter() - t_phase
-        cpu, cpu_s = ac_join_cpu_jobs(jobs, timeout=600)
+        cpu, holds, cpu_s = ac_join_cpu_jobs(jobs, timeout=600)
     finally:
         for proc, _, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for label in AC_ORDER:
-        if label in cpu:
-            rows[label]["held"] = ac_hold(label, card[label], cpu[label])
-            rows[label]["cpu_s"] = cpu_s[label]
+    for label in AC_REPLAYED:
+        rows[label]["held"] = ac_hold(label, card[label], cpu[label])
+        rows[label]["replay"] = holds[label]
+        rows[label]["cpu_s"] = cpu_s[label]
+    for label in AC_FREE:
+        rows[label]["free"] = dict(
+            ac_hold_free(label, card[label], cpu["free:" + label]),
+            cpu_s=cpu_s["free:" + label])
     rows["llm_serve_decode"]["held"] = ac_lm_serve_vs_cpu(
         card["llm_serve_decode"])
     require(card["adaptive_rate_control"]["assertion"]
@@ -4536,6 +5293,7 @@ def run_examples() -> dict:
     require(all(math.isfinite(r["ce_loss"]) for s in lm.values()
                 for r in s["rounds"]), "(ac) stablelm-1.6b: a loss")
     return {"rows": rows, "card_s": t_card,
+            "phase_s": time.perf_counter() - t_phase,
             "last_start_s": max(r["start_s"] for r in rows.values())}
 
 
@@ -5442,10 +6200,12 @@ def main() -> int:
     ac = run_examples()
     log("examples (ac) " + json.dumps({
         label: {k: r[k] for k in ("start_s", "host_s", "launches",
-                                  "routes", "cpu_s", "held") if k in r}
+                                  "routes", "cpu_s", "held", "replay")
+                if k in r}
         for label, r in ac["rows"].items()}))
     log(f"examples (ac): {len(AC_ORDER)} card calls in {ac['card_s']:.1f} "
-        f"s; the last started at {t21 + ac['last_start_s']:.1f} s")
+        f"s; the last started at {t21 + ac['last_start_s']:.1f} s; the "
+        f"phase took {ac['phase_s']:.1f} s")
 
     # --------------------------------------------------------- 22. report
     at("22. report")
@@ -5503,5 +6263,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ac-cpu"]:           # run (ac)'s CPU children
-        sys.exit(ac_cpu_child(sys.argv[2], sys.argv[3:]))
+        sys.exit(ac_cpu_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

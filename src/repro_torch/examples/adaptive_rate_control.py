@@ -26,7 +26,7 @@ target:
    distortion per byte is equalized under the shared uplink budget.
 
 The assertions are the JAX example's own. At these sizes neither package
-walks the ladder (``ROADMAP.md`` Queue C item 5 traces why), so the run
+walks the ladder (``ROADMAP.md`` Queue C item 4 traces why), so the run
 stops at the ladder-walk assertion, as the reference does.
 
 Run: PYTHONPATH=src python -m repro_torch.examples.adaptive_rate_control

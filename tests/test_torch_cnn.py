@@ -1,7 +1,8 @@
 """The paper's CIFAR collaborator model and the conv AE in the port against
 a live JAX run: ``cifar_like`` data, the CNN's logits at full CIFAR width
 (550,586 parameters, the reference's HWIO / NHWC tree), its gradient
-against ``jax.grad`` on a reduced CNN, the conv1d AE's encode and decode
+against ``jax.grad`` on reduced CNNs (the convs as float32 products, one
+a kernel offset; vmapped too), the conv1d AE's encode and decode
 (strided "SAME" convs and ``lax.conv_transpose``), one trainer step of
 the conv AE, and ``train_autoencoder_cohort`` against per-client
 ``train_autoencoder`` fits from the same generators.
@@ -82,6 +83,36 @@ def test_cnn_loss_and_gradient_match_jax_grad():
                                float(mj["accuracy"]), **BAND)
     np.testing.assert_allclose(ravel(gt)[0].numpy(),
                                np.asarray(ravel_pytree(gj)[0]), **BAND)
+
+
+def test_cnn_gemm_route_matches_jax_grad():
+    """The CNN's convs (``conv2d_valid_gemm``: one float32 matrix product
+    a kernel offset, summed; the route of every device) at another shape, an odd
+    image side and three convs: the loss and gradient against ``jax.grad``
+    in the golden band, and a vmapped two-client gradient
+    (``local_train_batched``'s form) equal to the per-client ones."""
+    kw = dict(name="cnn-small", kind="cnn", input_shape=(13, 13, 3),
+              n_classes=10, conv_channels=(4, 6, 5), conv_kernel=3,
+              dense_hidden=(12,))
+    cj, ct = jpaper.ClassifierConfig(**kw), tpaper.ClassifierConfig(**kw)
+    pj = jclf.init_classifier(jax.random.PRNGKey(2), cj)
+    pt = from_jax_params(_np(pj), "cpu")
+    dj = jpipe.synthetic_classification(1, 24, (13, 13, 3), 10)
+    dt = tpipe.synthetic_classification(1, 24, (13, 13, 3), 10)
+    (lj, _), gj = jax.jit(jax.value_and_grad(
+        lambda p: jclf.classifier_loss(p, cj, dj), has_aux=True))(pj)
+    lt, _, gt = value_and_grad(
+        lambda p, b: tclf.classifier_loss(p, ct, b), pt, dt)
+    np.testing.assert_allclose(float(lt), float(lj), **BAND)
+    np.testing.assert_allclose(ravel(gt)[0].numpy(),
+                               np.asarray(ravel_pytree(gj)[0]), **BAND)
+    halves = [{k: v[i::2] for k, v in dt.items()} for i in range(2)]
+    stacked = {k: torch.stack([h[k] for h in halves]) for k in dt}
+    grad = torch.func.grad(lambda p, b: tclf.classifier_loss(p, ct, b)[0])
+    both = torch.func.vmap(grad, in_dims=(None, 0))(pt, stacked)
+    for i, h in enumerate(halves):
+        torch.testing.assert_close(ravel(tree_map(lambda x: x[i], both))[0],
+                                   ravel(grad(pt, h))[0], **BAND)
 
 
 # ------------------------------------------------------------ conv AE

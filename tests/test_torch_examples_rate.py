@@ -5,7 +5,7 @@ draws replayed at the port's seams (``_torch_examples_util.JaxDraws``).
 Reduced: 60-epoch rung fits and 4 rounds (the example's own 200 epochs
 and 6 rounds take ~45 s in the reference alone). At its own size the
 reference never walks the ladder and stops at its own assertion
-(``examples/adaptive_rate_control.py:93``; ``ROADMAP.md`` Queue C item 5
+(``examples/adaptive_rate_control.py:93``; ``ROADMAP.md`` Queue C item 4
 traces why: the distortion probe reads 0.009-0.016 against a target of
 0.10), and so it does here. The port keeps the assertion, so both must
 stop there with the same ``AssertionError`` after printing the same round
@@ -78,4 +78,4 @@ def test_adaptive_rate_control_matches_reference(monkeypatch):
     for a, b in zip(jprobes, tprobes):
         np.testing.assert_allclose(b, a, **BAND)
     assert max(float(p.max()) for p in jprobes) < 0.10
-    assert jerr is not None, "the reference walked the ladder: see item 5"
+    assert jerr is not None, "the reference walked the ladder: see item 4"

@@ -11,6 +11,8 @@ PyTorch is installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 import collections
+import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -1720,6 +1722,39 @@ def test_fl_round_card_matches_cpu(nccl_world):
         torch.testing.assert_close(a.cpu(), b, **BAND)
 
 
+@pytest.mark.gpu
+def test_cnn_gradient_on_card_is_float32():
+    """The CIFAR CNN's loss gradient on the card in the golden band of the
+    CPU's float64 gradient, at the first local step of client 1 in
+    ``fl_color_imbalance --stacks`` (the initial params, the first batch
+    of its Dirichlet shard): the card's convs are ``conv2d_valid_gemm``
+    (float32 matrix products, one a kernel offset). Through cuDNN 9's float32
+    convolutions ``conv1/w``'s gradient lay up to 1.6e-4 off float64 there,
+    TF32 off or not, one value with the wrong sign at 2.1e-5."""
+    _card()
+    from repro_torch.configs.paper import CIFAR_CLASSIFIER
+    from repro_torch.core.pytree import ravel, tree_map, value_and_grad
+    from repro_torch.data.pipeline import (batches, cifar_like,
+                                           dirichlet_partition,
+                                           train_eval_split)
+    from repro_torch.models.classifiers import (classifier_loss,
+                                                init_classifier)
+    params = init_classifier(torch.Generator().manual_seed(0),
+                             CIFAR_CLASSIFIER, "cpu")
+    train, _ = train_eval_split(cifar_like(0, 4 * 256), 128)
+    shard = dirichlet_partition(0, train, 4, alpha=0.5, min_per_client=8)[1]
+    batch = next(batches(0, shard, 64))
+
+    def grad(dev, dtype):
+        p = tree_map(lambda t: t.to(dev, dtype), params)
+        b = {"x": batch["x"].to(dev, dtype), "y": batch["y"].to(dev)}
+        g = value_and_grad(
+            lambda p, b: classifier_loss(p, CIFAR_CLASSIFIER, b), p, b)[2]
+        return ravel(g)[0].double().cpu()
+    torch.testing.assert_close(grad("cuda", torch.float32),
+                               grad("cpu", torch.float64), **BAND)
+
+
 # ======================================================================
 # the example entry points (repro_torch.examples; chip_smoke.py run (ac))
 # ======================================================================
@@ -1736,16 +1771,52 @@ def test_example_on_card_matches_cpu(label):
     """Each example at its smallest arguments (the CPU parity tests'
     sizes; ``chip_smoke.ac_call(..., small=True)``; the §5.2 federation and
     the LM federation are their reduced twins) on the card: every
-    kernel of run (ac)'s table launches (``chip_smoke.AC_KERNELS``), and
-    every byte count, ratio, cohort, staleness, sync list, rung and
-    outcome equals the same call on the CPU, the floats in the golden
-    band where no quantizing codec is on the path (``chip_smoke.ac_hold``);
-    the LM server's logits in run (g)'s band with the CPU fed the card's
-    tokens."""
+    kernel of run (ac)'s table launches (``chip_smoke.AC_KERNELS``); the
+    CPU replays the card's record (``chip_smoke.ac_replay``: every Adam
+    step, AE refit, client encode, quantizer input and serve draw, held and
+    taken from the card), and every byte count, ratio, cohort, staleness,
+    sync list, rung and outcome equals the card's, every round's floats in
+    the golden band (``chip_smoke.ac_hold``); for ``chip_smoke.AC_FREE``,
+    a free CPU run too, its floats in the band up to the first refit
+    (``chip_smoke.ac_hold_free``); the LM server's logits in run (g)'s
+    band with the CPU fed the card's tokens."""
     _card()
     cs = _chip_smoke()
-    card, launches, _, _ = cs.ac_card(label, small=True)
+    card, launches, _, _, record = cs.ac_card(label, small=True)
     if label == "llm_serve_decode":
         cs.ac_lm_serve_vs_cpu(card)
         return
-    cs.ac_hold(label, card, cs.ac_call(label, "cpu", small=True))
+    cpu, holds = cs.ac_replay(label, record, small=True)
+    cs.ac_hold(label, card, cpu)
+    if label in cs.AC_FREE:
+        with contextlib.redirect_stdout(io.StringIO()):
+            free = cs.ac_call(label, "cpu", small=True)
+        cs.ac_hold_free(label, card, free)
+
+
+AC_TRAINED = ("quickstart", "fl_async_sampling", "ae_lifecycle_refresh",
+              "per_layer_partitions", "adaptive_rate_control",
+              "fl_color_imbalance_reduced", "fl_color_imbalance_stacks",
+              "llm_federated_reduced")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", AC_TRAINED)
+def test_example_replay_refuses_tf32_on_card(label):
+    """The replay catches a gradient taken at too low a precision: each
+    example that trains, run on the card with TF32 matrix products and
+    convolutions forced on, fails its CPU replay: at an Adam step's
+    gradient hold (``chip_smoke.step_rule``), or, in the CNN examples,
+    first at a ReLU the card decided apart from the CPU outside the band
+    (``chip_smoke.DecisionSpy``)."""
+    _card()
+    cs = _chip_smoke()
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    mm.allow_tf32 = dnn.allow_tf32 = True
+    try:
+        _, _, _, _, record = cs.ac_card(label, small=True)
+    finally:
+        mm.allow_tf32 = dnn.allow_tf32 = False
+    with pytest.raises(AssertionError, match="gradient|decision") as err:
+        cs.ac_replay(label, record, small=True)
+    print(f"{label}: {err.value}")
