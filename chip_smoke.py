@@ -24,17 +24,22 @@ Phases, each reported on its own lines:
    The chunked AE's four layers at 4096 chunks a client and run (h)'s
    server hidden layer run in float32, and so do the client and server
    shapes of runs (i), (j), (k), (n), (o), (q) and (t) (and (q)'s
-   attention in bf16). Kernel 6's padded route runs at MLA's heads (40 ×
-   q/k 96, v 64, bf16, causal) at run (r)'s prefill and run (t)'s
-   evaluate, beside ``scaled_dot_product_attention`` at the unpadded
-   shapes (the kernels PyTorch picked named). Kernel 6's whole argument
+   attention in bf16). Kernel 6 runs natively at MLA's heads (40 × q/k
+   96, v 64, bf16, causal) at run (r)'s prefill and run (t)'s evaluate,
+   and at phi-3's (32 × 96) at run (y)'s prefill, beside
+   ``scaled_dot_product_attention`` (the kernels PyTorch picked named) and
+   the padded route those calls took until the kernel had the pairs (q,
+   k and v zero-padded to 128, ``padded_ms``), timed in the same run; its
+   padded route stays held at a head dim it has no instantiation for
+   (192, padded to 256). Kernel 6's whole argument
    list: ``softcap`` 50 at run (f)'s shape (SDPA has no softcap, so no
    library call there), a chunked prefill (Sq 256 at the end of Skv
    1,024, ``q_offset`` 768) causal and in a 512 window, both in float32
    at D 64 on the FMA kernel, and ``extra_qk`` at minicpm3-4b's
    decomposed MLA scores (40 heads, nope 64 + rope 32 against a shared
-   ``k_rope``, v 64, 4 x 1,024: the concatenation's copies timed apart,
-   as the pads). Kernels 1 and 2 also run at 2^30 values (rows of 1024).
+   ``k_rope``, v 64, 4 x 1,024: natively at (64 + 32, 64), the
+   concatenation's copies timed apart, beside the padded route's time).
+   Kernels 1 and 2 also run at 2^30 values (rows of 1024).
    Every kernel has routes, named in every row as ``kernel_route``:
    kernel 1 ``rows`` (16-byte loads of a row held in registers) and
    kernel 2 ``stream`` (a flat stream of 4-code words, float4 stores) on
@@ -46,7 +51,8 @@ Phases, each reported on its own lines:
    (float32); the decode→aggregate kernels per bucket ``few_rows`` at
    M_b <= 16 and K <= 512, else ``bands`` (a mixed round at K 512, N 4096
    runs both in one launch); flash attention in bf16 ``wgmma``, in float32
-   ``fma``, and ``wgmma_padded``/``fma_padded`` for head dims it pads. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
+   ``fma`` (every head-dim pair it instantiates: D = Dv, and MLA's 96 over
+   64), and ``wgmma_padded``/``fma_padded`` for head dims it pads. ``fused_dense``'s ``library_ms`` is ``torch.addmm(b, x, w)``
    at every shape, which leaves out a relu, tanh or sigmoid; kernel 4's is
    ``torch.einsum("c,cmk,kn->mn", w, h, W)``, without the bias
    (``library_call`` says so). ``ms``, ``plain_ms``, ``library_ms`` and
@@ -240,10 +246,11 @@ Phases, each reported on its own lines:
    of 64, d_ff 6,400, vocab 73,448, tied embeddings), 16 of its 62
    layers (1,190,889,984 parameters; cut from 62 to keep the script's
    time), its own dtypes; 4 prompts of 1,024 tokens,
-   16 greedy decode steps; kernel 6 once a layer in prefill on the padded
-   route (``wgmma_padded``), never in decode (the absorbed-matrix decode is
-   plain torch, as the reference's); one more prefill holds each layer's
-   padded call against the plain version at the model's own inputs; the
+   16 greedy decode steps; kernel 6 once a layer in prefill at (96, 64)
+   natively (``wgmma``, no padded launch), never in decode (the
+   absorbed-matrix decode is plain torch, as the reference's); one more
+   prefill holds each layer's call against the plain version at the
+   model's own inputs; the
    latent cache's bytes beside a GQA cache of the same heads. Its 2-layer
    copy on the card and the CPU as run (g) (``c_kv``/``k_rope`` caches).
    The record carries the count as ``launches_run_r``;
@@ -258,7 +265,7 @@ Phases, each reported on its own lines:
 17. MLA training with remat — (t) ``LMDeltaTask`` on minicpm3-4b at full
    width, 8 of 62 layers (689,490,432 parameters), remat on,
    ``FLConfig(optimizer="adamw")``, run (q)'s data and codec plan, 2
-   ``SyncFedAvg`` rounds (kernels 1–4, and kernel 6 on the padded route
+   ``SyncFedAvg`` rounds (kernels 1–4, and kernel 6 natively, ``wgmma``,
    once a layer an evaluate); then one local step with remat on and off
    from the trained model, deterministic algorithms on: ``torch.equal``,
    both peaks printed. The record carries the counts as
@@ -285,14 +292,14 @@ Phases, each reported on its own lines:
    frames, 24 causal, 24 full cross calls of 448 queries over 1,500
    frames. (y) phi-3-vision-4.2b, 32 layers, 4 x 1,024 tokens of which
    the first 576 are image embeddings drawn from the seed — kernel 6 32
-   times on the padded route (96 -> 128). One more prefill holds every
+   times at head dim 96 natively (``wgmma``). One more prefill holds every
    kernel-6 call against the plain version and checks each call's mode
    and shapes. Each family's reduced config on the card and the CPU from
    the same weights (2 x 80 tokens, 3 decode steps, the CPU fed the
    card's tokens): logits and every cache leaf in the golden band. The
    record carries the counts as ``launches_run_v`` to ``launches_run_y``
    and kernel 6's rows at these runs' shapes (phase 3: D 256 window,
-   whisper's encoder, decoder and cross calls, phi-3's padded heads,
+   whisper's encoder, decoder and cross calls, phi-3's heads of 96,
    each beside SDPA with the same mask);
 20. the pod-axis FL round and the sharded server paths, on a one-rank
    NCCL group (a gloo group beside it for CPU tensors): (z)
@@ -896,8 +903,9 @@ def in_model_flash_errs(run, calls: list = None) -> list:
     """Call ``run()`` with every kernel-6 call that the model makes held
     against the plain version on the same inputs: the model's own q, k and
     v after the rope, the cast to the compute type and ``.contiguous()``;
-    a padded call (MLA's and phi-3's heads) against the plain version on
-    its unpadded q, k and v at the call's scale. Returns each call's max
+    a padded call (head dims the kernel has no instantiation for) against
+    the plain version on its unpadded q, k and v at the call's scale.
+    Returns each call's max
     abs err; raises outside the tolerance. ``calls`` receives each call's
     ``(padded, mode, window, q shape, k shape)``."""
     import torch
@@ -3015,20 +3023,27 @@ def lm_delta_replay(rounds: int = 3) -> dict:
 
 
 # ------------------------------------------------ MLA and MoE (runs r-u)
-def check_flash_padded(B: int, S: int, H: int, D: int, Dv: int, dtype,
-                       seed: int, iters: int) -> dict:
-    """Kernel 6's padded route (``flash_attention_padded``) at MLA's heads,
-    causal, H query heads over H kv heads: q and k zero-padded from D, v
-    from Dv, to the next head dim the kernel has, the kernel at the
-    unpadded scale ``D ** -0.5``, the first Dv columns; against the plain
-    version on the unpadded inputs. ``ms`` is the whole route, ``launch_ms``
-    the kernel alone on padded inputs, ``pad_ms`` the three padding copies.
-    ``bound_ms`` counts the unpadded work: q, k (D) and v, the output (Dv)
+def old_padded_route(q, k, v, scale: float, P: int = 128):
+    """The route MLA's and phi-3's heads took before the kernel had their
+    pairs: q, k and v zero-padded on the last axis to ``P``, the kernel
+    at the unpadded scale, the first Dv columns."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    qp, kp, vp = (F.pad(t, (0, P - t.shape[-1])) for t in (q, k, v))
+    return fa.flash_attention(qp, kp, vp, scale=scale)[..., :v.shape[-1]]
+
+
+def check_flash_pair(B: int, S: int, H: int, D: int, Dv: int, dtype,
+                     seed: int, iters: int) -> dict:
+    """Kernel 6 at a head-dim pair it instantiates natively (MLA's 96
+    over 64, phi-3's 96), causal, H query heads over H kv heads, against
+    the plain version. ``bound_ms`` counts q, k (D) and v, the output (Dv)
     moved once, against ``2·D + 2·Dv`` operations for each (query, key)
     pair the causal mask lets through. ``library_ms`` is
-    ``scaled_dot_product_attention(is_causal=True, scale=D ** -0.5)`` on
-    the unpadded (B, H, S, ·) views, with the kernels PyTorch picked for it
-    named."""
+    ``scaled_dot_product_attention(is_causal=True)`` on the (B, H, S, ·)
+    views, with the kernels PyTorch picked for it named; ``padded_ms`` is
+    the padded route (:func:`old_padded_route`: three pads, the kernel at
+    128, a slice) on the same inputs, held against the plain version too."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3037,10 +3052,78 @@ def check_flash_padded(B: int, S: int, H: int, D: int, Dv: int, dtype,
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(dtype)
+    require(fa.kernel_pair(D, Dv), f"({D}, {Dv}) is not a kernel pair")
+    n0 = fa.ROUTE_LAUNCHES.copy()
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    old = old_padded_route(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    routes = dict(fa.ROUTE_LAUNCHES - n0)
+    require(routes == {fa.kernel_route(dtype): 2},
+            f"({D}, {Dv}) launches by route {routes}")
+    require(got.dtype == dtype and got.shape == v.shape, "pair output")
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    err = close(got, want, **tol)
+    padded_err = close(old, want, **tol)
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    pairs = B * H * attention_pairs(S, S, "causal", None)
+    b_ms, b_by = bound(q.element_size() * (2 * B * S * H * D
+                                           + 2 * B * S * H * Dv),
+                       (2.0 * D + 2.0 * Dv) * pairs, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                    .max())
+    lib_kernels = [n for n, _ in traced_round(lib, top=3)["top_kernels_ms"]]
+    route = lambda: fa.flash_attention(q, k, v)              # noqa: E731
+    return dict(name="flash_attention", shape=[B, S, S, H, H, D, Dv],
+                mode="causal", window=None, dtype=dname,
+                kernel_route=fa.kernel_route(dtype), max_abs_err=err,
+                ms=time_ms(route, iters), host_ms=host_ms(route, iters),
+                padded_ms=time_ms(lambda: old_padded_route(
+                    q, k, v, D ** -0.5), iters),
+                padded_max_abs_err=padded_err,
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v), iters),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters),
+                library_call="scaled_dot_product_attention(is_causal=True)",
+                library_kernels=lib_kernels, library_max_abs_err=lib_err,
+                gflop=(2.0 * D + 2.0 * Dv) * pairs / 1e9)
+
+
+def check_flash_padded(B: int, S: int, H: int, D: int, Dv: int, dtype,
+                       seed: int, iters: int) -> dict:
+    """Kernel 6's padded route (``flash_attention_padded``) at head dims it
+    has no instantiation for, causal, H query heads over H kv heads: q and
+    k zero-padded from D, v from Dv, to the next head dim the kernel has,
+    the kernel at the unpadded scale ``D ** -0.5``, the first Dv columns;
+    against the plain version on the unpadded inputs. ``ms`` is the whole
+    route, ``launch_ms`` the kernel alone on padded inputs, ``pad_ms`` the
+    three padding copies. ``bound_ms`` counts the unpadded work: q, k (D)
+    and v, the output (Dv) moved once, against ``2·D + 2·Dv`` operations
+    for each (query, key) pair the causal mask lets through.
+    ``library_ms`` is ``scaled_dot_product_attention(is_causal=True,
+    scale=D ** -0.5)`` on the unpadded (B, H, S, ·) views, with the
+    kernels PyTorch picked for it named."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(dtype)
+    require(not fa.kernel_pair(D, Dv), f"({D}, {Dv}) is a kernel pair")
     scale = D ** -0.5
+    n0 = fa.ROUTE_LAUNCHES.copy()
     got = fa.flash_attention_padded(q, k, v)
     want = ref.flash_attention_ref(q, k, v, scale=scale)
     torch.cuda.synchronize()
+    routes = dict(fa.ROUTE_LAUNCHES - n0)
+    require(routes == {fa.kernel_route(dtype) + "_padded": 1},
+            f"padded ({D}, {Dv}) launches by route {routes}")
     require(got.dtype == dtype and got.shape == v.shape, "padded output")
     tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     err = close(got, want, **tol)
@@ -3082,16 +3165,16 @@ def run_mla_serving(n_layers: int) -> dict:
     """Run (r): minicpm3-4b at full width (MLA: q_lora 768, kv_lora 256,
     heads of 64 + 32 over a value head of 64; tied embeddings), its own
     dtypes, serving 4 prompts of 1,024 tokens then 16 greedy decode steps.
-    Kernel 6 launches once a layer in prefill on the padded route (q and k
-    96 -> 128, v 64 -> 128), never in decode; one more prefill holds each
-    layer's padded call against the plain version at the model's own
+    Kernel 6 launches once a layer in prefill at (96, 64) natively
+    (``wgmma``, nothing padded), never in decode; one more prefill holds
+    each layer's call against the plain version at the model's own
     inputs."""
     import torch
     from repro_torch import models
     cfg = arch_cut("minicpm3-4b", n_layers)
     m = cfg.mla
     params, batch, out = serve_full_width(cfg, seed=0)
-    route = "wgmma_padded"
+    route = "wgmma"
     require(out["launches_prefill"] == {"flash_attention": cfg.n_layers}
             and out["routes_prefill"] == {route: cfg.n_layers},
             f"run (r) prefill launches {out['launches_prefill']} routes "
@@ -3106,7 +3189,7 @@ def run_mla_serving(n_layers: int) -> dict:
             * per_tok_mla * 2, f"run (r) cache bytes {out['cache_bytes']}")
     errs = in_model_flash_errs(
         lambda: models.prefill(params, cfg, batch, 1024 + 16))
-    require(len(errs) == cfg.n_layers, "in-model padded kernel-6 checks")
+    require(len(errs) == cfg.n_layers, "in-model kernel-6 checks")
     out["attention_in_model_max_abs_err"] = errs
     del params
     return out
@@ -3117,8 +3200,8 @@ def mla_card_vs_cpu() -> dict:
     compute, on the card and the CPU from the same weights (1 prompt of
     128 tokens, 4 decode steps, the CPU fed the card's tokens): logits and
     the ``c_kv``/``k_rope`` caches within ``atol=1e-4, rtol=1e-3``; the
-    card's prefill takes the padded route (``fma_padded`` in float32,
-    ``wgmma_padded`` in bf16). Then a bf16-compute prefill on both, within
+    card's prefill launches kernel 6 at (96, 64) natively (``fma`` in
+    float32, ``wgmma`` in bf16). Then a bf16-compute prefill on both, within
     twice the CPU's own bf16-vs-float32 error."""
     import torch
     from repro_torch import models
@@ -3139,7 +3222,7 @@ def mla_card_vs_cpu() -> dict:
     torch.cuda.synchronize()
     routes = dict(fa.ROUTE_LAUNCHES)
     require(_lib.counts() == {"flash_attention": 2}
-            and routes == {"fma_padded": 2}, f"run (r) 2-layer {routes}")
+            and routes == {"fma": 2}, f"run (r) 2-layer {routes}")
     clogits, ccache = models.prefill(cparams, cfg, batch, 132)
     errs = [close(glogits.cpu(), clogits, **tol)]
     bcfg = arch_cut("minicpm3-4b", 2)                     # bfloat16 compute
@@ -3150,7 +3233,7 @@ def mla_card_vs_cpu() -> dict:
         bf16[f"cache_{k}"] = bf16_close(bcache["layers"][k],
                                         ccache16["layers"][k],
                                         ccache["layers"][k], f"cache {k}")
-    require(dict(fa.ROUTE_LAUNCHES) == {"fma_padded": 2, "wgmma_padded": 2},
+    require(dict(fa.ROUTE_LAUNCHES) == {"fma": 2, "wgmma": 2},
             f"run (r) 2-layer routes {dict(fa.ROUTE_LAUNCHES)}")
     del blogits, bcache, clogits16, ccache16
     for _ in range(4):
@@ -3344,8 +3427,8 @@ def run_mla_delta(launches: dict) -> dict:
               "fused_decode_agg", "flash_attention"):
         require(counts.get(x, 0) > 0, f"run (t) never launched {x}")
         launches[f"{x}_run_t"] = counts[x]
-    require(routes == {"wgmma_padded": 2 * arch.n_layers},
-            f"run (t): kernel 6 routes {routes}, not the padded route once "
+    require(routes == {"wgmma": 2 * arch.n_layers},
+            f"run (t): kernel 6 routes {routes}, not the native route once "
             "a layer an evaluate")
     metrics = [r.global_metrics for r in run.history]
     start = run.global_params
@@ -3558,11 +3641,10 @@ def family_runs(launches: dict) -> dict:
          ("full", None, dec, enc): 24}, "wgmma")
     require(out["x"]["params"] == 811_569_152,
             f"run (x) holds {out['x']['params']} parameters")
-    # (y) phi-3-vision-4.2b: 32 layers of 32 heads of 96 (padded to 128)
+    # (y) phi-3-vision-4.2b: 32 layers of 32 heads of 96, natively
     qy = (4, 1024, 32, 96)
     out["y"] = run_family_serving("phi-3-vision-4.2b", 4, 1024,
-                                  {("causal", None, qy, qy): 32},
-                                  "wgmma_padded")
+                                  {("causal", None, qy, qy): 32}, "wgmma")
     require(out["y"]["params"] == 3_822_259_200,
             f"run (y) holds {out['y']['params']} parameters")
     for x in "wxy":
@@ -3622,16 +3704,18 @@ def check_flash_extra(B: int, S: int, H: int, D: int, P2: int, Dv: int,
     heads: q (B, S, H, D), k (B, S, H, D), v (B, S, H, Dv), q2 (B, S, H,
     P2) and a shared k2 (B, S, P2), causal, through the model-level
     ``flash_attention`` (``flash_attention_extra``: ``[q | q2]`` and ``[k
-    | k2]`` concatenated, then the padded route at q's own scale
-    ``D ** -0.5``), against the plain chunked math of the reference's scan.
-    ``ms`` is the whole route; ``concat_ms`` the two concatenations,
-    ``pad_ms`` the three pads and ``launch_ms`` the kernel on the padded
-    operands, each timed alone. ``bound_ms`` counts the unpadded work: q,
-    k, q2, k2, v and the output moved once, against ``2·(D + P2) + 2·Dv``
-    operations a (query, key) pair the causal mask lets through.
-    ``library_ms`` is ``scaled_dot_product_attention(is_causal=True,
-    scale=D ** -0.5)`` on the concatenated, unpadded operands (the
-    concatenation not timed), the kernels PyTorch picked named."""
+    | k2]`` concatenated, then the kernel at q's own scale ``D ** -0.5``,
+    natively where ``(D + P2, Dv)`` is a kernel pair), against the plain
+    chunked math of the reference's scan. ``ms`` is the whole route;
+    ``concat_ms`` the two concatenations and ``launch_ms`` the kernel on
+    the concatenated operands, each timed alone; ``padded_ms`` the
+    concatenations and then the padded route (:func:`old_padded_route`,
+    to 128). ``bound_ms`` counts q, k, q2, k2, v and the output moved
+    once, against ``2·(D + P2) + 2·Dv`` operations a (query, key) pair
+    the causal mask lets through. ``library_ms`` is
+    ``scaled_dot_product_attention(is_causal=True, scale=D ** -0.5)`` on
+    the concatenated operands (the concatenation not timed), the kernels
+    PyTorch picked named."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3648,15 +3732,16 @@ def check_flash_extra(B: int, S: int, H: int, D: int, P2: int, Dv: int,
     want = ref.chunked_attention_ref(q, k, v, extra_qk=(q2, k2))
     torch.cuda.synchronize()
     routes = dict(fa.ROUTE_LAUNCHES - n0)
+    route_name = fa.kernel_route(dtype) + ("" if fa.kernel_pair(D + P2, Dv)
+                                           else "_padded")
+    require(routes == {route_name: 1}, f"extra_qk launches by route {routes}")
     require(got.dtype == dtype and tuple(got.shape) == (B, S, H, Dv),
             "extra_qk output")
     tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     err = close(got, want, **tol)
     scale = D ** -0.5
     qc, kc = fa.concat_extra(q, k, (q2, k2))
-    P = fa.padded_head_dim(D + P2, Dv)
-    pads = ((qc, P - D - P2), (kc, P - D - P2), (v, P - Dv))
-    qp, kp, vp = (F.pad(t, (0, n)) for t, n in pads)
+    padded_err = close(old_padded_route(qc, kc, v, scale), want, **tol)
     dname = "float32" if dtype == torch.float32 else "bfloat16"
     pairs = B * H * attention_pairs(S, S, "causal", None)
     es = q.element_size()
@@ -3668,24 +3753,27 @@ def check_flash_extra(B: int, S: int, H: int, D: int, P2: int, Dv: int,
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               scale=scale)
+
+    def padded():
+        qp, kp = fa.concat_extra(q, k, (q2, k2))
+        return old_padded_route(qp, kp, v, scale)
     route = lambda: fa.flash_attention_extra(q, k, v, (q2, k2))  # noqa: E731
     return dict(name="flash_attention", shape=[B, S, S, H, H, D, P2, Dv],
                 mode="causal", window=None, dtype=dname,
-                kernel_route=fa.kernel_route(dtype) + "_padded",
-                routes=routes, padded_head_dim=P, max_abs_err=err,
+                kernel_route=route_name, routes=routes, max_abs_err=err,
                 ms=time_ms(route, iters),
                 concat_ms=time_ms(lambda: fa.concat_extra(q, k, (q2, k2)),
                                   iters),
-                pad_ms=time_ms(lambda: [F.pad(t, (0, n)) for t, n in pads],
-                               iters),
                 launch_ms=time_ms(lambda: fa.flash_attention(
-                    qp, kp, vp, scale=scale), iters),
+                    qc, kc, v, scale=scale), iters),
+                padded_ms=time_ms(padded, iters),
+                padded_max_abs_err=padded_err,
                 host_ms=host_ms(route, iters),
                 plain_ms=time_ms(lambda: ref.chunked_attention_ref(
                     q, k, v, extra_qk=(q2, k2)), iters),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters),
                 library_call="scaled_dot_product_attention on [q | q2], "
-                             "[k | k2] (unpadded), scale=D**-0.5",
+                             "[k | k2], scale=D**-0.5",
                 library_kernels=[n for n, _ in
                                  traced_round(lib, top=3)["top_kernels_ms"]],
                 library_max_abs_err=float((lib().transpose(1, 2).float()
@@ -5470,14 +5558,14 @@ def main() -> int:
            check_decode_agg(2, 270_336, 32, 256, 57, 5),
            check_flash(2, 512, 512, 32, 32, 64, "causal", None,
                        torch.bfloat16, 58, 10)])
-    # runs (r) and (t): MLA's attention through kernel 6's padded route
-    # (40 heads, q/k 96 -> 128, v 64 -> 128, bf16, causal) at run (r)'s
-    # prefill (4 x 1,024) and run (t)'s evaluate (2 x 512); run (t)'s
+    # runs (r) and (t): MLA's attention on kernel 6 natively (40 heads,
+    # q/k 96, v 64, bf16, causal) at run (r)'s prefill (4 x 1,024) and run
+    # (t)'s evaluate (2 x 512), each beside the padded route; run (t)'s
     # codec layers: the q8 of its embedding (734,720 blocks of 256) and
     # attention (422,433) groups, the mlp group's chunked AE over 1,536,000
     # chunks and the server's hidden layer and reduce
-    mla = [check_flash_padded(4, 1024, 40, 96, 64, torch.bfloat16, 61, 10),
-           check_flash_padded(2, 512, 40, 96, 64, torch.bfloat16, 62, 10)]
+    mla = [check_flash_pair(4, 1024, 40, 96, 64, torch.bfloat16, 61, 10),
+           check_flash_pair(2, 512, 40, 96, 64, torch.bfloat16, 62, 10)]
     mla_t = (list(check_quantize(734_720, 8, 63, 5).values())
              + list(check_quantize(422_433, 8, 64, 5).values())
              + [check_fused_dense(1_536_000, 256, 32, "relu", torch.float32,
@@ -5491,7 +5579,8 @@ def main() -> int:
     # local attention, window 2,048, 16 heads over one kv head), whisper's
     # encoder (full over 1,500 frames), its decoder's self-attention
     # (causal) and cross-attention (full, 448 queries over 1,500 frames),
-    # phi-3's heads of 96 through the padded route, all bf16
+    # phi-3's heads of 96 natively (beside the padded route), all bf16; the
+    # padded route at a head dim with no instantiation (192 -> 256)
     fam = dict(
         d256_window_run_w=check_flash(2, 4096, 4096, 16, 1, 256, "window",
                                       2048, torch.bfloat16, 71, 5),
@@ -5501,8 +5590,10 @@ def main() -> int:
                                   torch.bfloat16, 73, 10),
         cross_run_x=check_flash(4, 448, 1500, 16, 16, 64, "full", None,
                                 torch.bfloat16, 74, 10),
-        padded_run_y=check_flash_padded(4, 1024, 32, 96, 96, torch.bfloat16,
-                                        75, 10))
+        pair_run_y=check_flash_pair(4, 1024, 32, 96, 96, torch.bfloat16, 75,
+                                    10),
+        padded_d192=check_flash_padded(2, 512, 8, 192, 192, torch.bfloat16,
+                                       81, 10))
     # kernel 6's whole argument list: softcap 50 at run (f)'s shape; a
     # chunked prefill, Sq 256 at the end of Skv 1,024 (q_offset 768),
     # causal and window 512; both in float32 at D 64 on the FMA kernel;
@@ -6228,8 +6319,7 @@ def main() -> int:
         extra = {f"launches_run_{x}": launches[f"{name}_run_{x}"]
                  for x in "hijknopqrtvwxy" if f"{name}_run_{x}" in launches}
         if name == "flash_attention":
-            extra.update(mla_padded=mla[0], mla_padded_run_t=mla[1], **fam,
-                         **args6)
+            extra.update(mla_run_r=mla[0], mla_run_t=mla[1], **fam, **args6)
         if f"{name}_run_ab" in launches:
             extra["launches_run_ab"] = launches[f"{name}_run_ab"]
         if name in ("quantize_blocks_2d", "dequantize_blocks_2d"):

@@ -60,10 +60,10 @@ _SIGNATURES = {
                                     _P],
     # table, T, K, N, bm, cols_per_split, tpr, mt, stream
     "repro_grouped_decode_agg": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, B, Sq, Skv, H, KV, D, mode, window, q_offset, scale,
+    # q, k, v, o, B, Sq, Skv, H, KV, D, Dv, mode, window, q_offset, scale,
     # softcap, dtype, stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _F, _I, _P],
+                              _I, _I, _I, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,37 +2,40 @@
 ``csrc/flash_attention.cu`` (port of ``repro/kernels/flash_attention.py``,
 ``flash_attention_pallas``).
 
-q: (B, Sq, H, D), k and v: (B, Skv, KV, D) with ``H % KV == 0``; modes
-``causal``, ``window`` and ``full``; scale ``D ** -0.5`` unless given; the
-reference scan's ``q_offset`` (query row ``i`` sits at key position ``i +
-q_offset``: a chunk of queries at the end of a longer cache) and
-``softcap`` (``tanh(s / softcap) * softcap`` after the scale, before the
-mask); the output has q's shape and dtype. A CPU tensor takes the plain version
-(``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises.
-The dtype picks the kernel: bfloat16 the wgmma kernel fed by TMA (its
-tensor maps need 16-byte aligned q, k and v), float32 the FMA kernel.
+q: (B, Sq, H, D), k (B, Skv, KV, D) and v (B, Skv, KV, Dv) with ``H % KV ==
+0``; modes ``causal``, ``window`` and ``full``; scale ``D ** -0.5`` unless
+given; the reference scan's ``q_offset`` (query row ``i`` sits at key
+position ``i + q_offset``: a chunk of queries at the end of a longer cache)
+and ``softcap`` (``tanh(s / softcap) * softcap`` after the scale, before
+the mask); the output is (B, Sq, H, Dv) in q's dtype, as the TPU kernel's.
+The kernel computes the head-dim pairs of :data:`HEAD_DIM_PAIRS`: ``Dv ==
+D`` for each of :data:`HEAD_DIMS`, and MLA's ``(96, 64)`` (minicpm3-4b's
+query/key heads of 64 + 32 over value heads of 64). A CPU tensor takes the
+plain version (``ref.flash_attention_ref``); a CUDA tensor launches a
+kernel or raises. The dtype picks the kernel: bfloat16 the wgmma kernel
+fed by TMA (its tensor maps need 16-byte aligned q, k and v), float32 the
+FMA kernel.
 
 :func:`flash_attention_padded` takes the head dims the kernel has no
-instantiation for — ``D`` outside :data:`HEAD_DIMS` (phi-3's 96, a 192
-padded to 256), or a value head ``Dv != D`` (MLA's 96-wide query/key head
-over a 64-wide value head): it
-zero-pads q, k and v on the last axis to the smallest of ``HEAD_DIMS``
-that holds both, launches the kernel with the scale of the unpadded ``D``
-and returns the first ``Dv`` columns. The zero columns add exact zeros to
-every float32 dot product, so this is the attention of the unpadded
-inputs.
+instantiation for (a 192 padded to 256, a 48 to 64, a ``Dv != D`` off
+:data:`HEAD_DIM_PAIRS`): it zero-pads q, k and v on the last axis to the
+smallest of ``HEAD_DIMS`` that holds both, launches the kernel with the
+scale of the unpadded ``D`` and returns the first ``Dv`` columns. The
+zero columns add exact zeros to every float32 dot product, so this is the
+attention of the unpadded inputs.
 
 :func:`flash_attention_extra` takes the reference's ``extra_qk=(q2 (B, Sq,
 H, P2), k2 (B, Skv, P2))``, a second score term shared by the kv heads
 (the decomposed MLA scores): ``q·k + q2·k2`` is ``[q | q2] · [k | k2]``
 with ``k2`` broadcast over the kv heads, so it concatenates the operands
 (:func:`concat_extra`) and launches the kernel on them, at the scale of q's
-own head dim, ``D ** -0.5`` (the reference's default), through the padded
-route when ``D + P2`` or ``Dv`` asks for it.
+own head dim, ``D ** -0.5`` (the reference's default): natively when ``(D
++ P2, Dv)`` is a kernel pair (minicpm3-4b's 64 + 32 over 64), else through
+the padded route.
 
 Each launch counts one for ``flash_attention`` in ``_lib`` and one
-for its route in :data:`ROUTE_LAUNCHES` (``wgmma``, ``fma``, or
-``wgmma_padded``/``fma_padded`` for the padded calls).
+for its route in :data:`ROUTE_LAUNCHES` (``wgmma``, ``fma`` for every
+native pair, or ``wgmma_padded``/``fma_padded`` for the padded calls).
 """
 from __future__ import annotations
 
@@ -44,7 +47,9 @@ import torch
 from repro_torch.kernels import _lib, ref
 
 MODES = {"causal": 0, "window": 1, "full": 2}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+# (D, Dv) pairs the kernel instantiates: Dv == D, and MLA's 96 over 64
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches per route, reset with ``ROUTE_LAUNCHES.clear()``
@@ -57,24 +62,32 @@ def kernel_route(dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
+def kernel_pair(D: int, Dv: int) -> bool:
+    """Whether the kernel instantiates the head dims ``(D, Dv)``."""
+    return (D, Dv) in HEAD_DIM_PAIRS
+
+
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mode: str, window: Optional[int], q_offset: int = 0) -> None:
     """Raise unless the call is one the kernel (and the reference it ports)
-    computes: matching batch and head dims, ``Dv == D``, a known mode, and
-    a key that every query row can see — outside full mode ``q_offset >=
-    0``, in window mode ``window >= 1`` and ``Sq + q_offset < Skv +
-    window`` (a row with no visible key would average the reference's zero
-    padding)."""
-    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+    computes: matching batch and head dims, ``Dv == D`` or a pair of
+    :data:`HEAD_DIM_PAIRS`, a known mode, and a key that every query row
+    can see — outside full mode ``q_offset >= 0``, in window mode ``window
+    >= 1`` and ``Sq + q_offset < Skv + window`` (a row with no visible key
+    would average the reference's zero padding)."""
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or tuple(k.shape[:3]) != tuple(v.shape[:3])
+            or (v.shape[-1] != k.shape[-1]
+                and not kernel_pair(k.shape[-1], v.shape[-1]))):
         raise ValueError(f"flash_attention: expected q (B, Sq, H, D) and k, v "
-                         f"(B, Skv, KV, D); got {tuple(q.shape)}, "
+                         f"(B, Skv, KV, D / Dv), Dv == D or (D, Dv) one of "
+                         f"{HEAD_DIM_PAIRS}; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, D = q.shape
     B2, Skv, KV, D2 = k.shape
     if B2 != B or D2 != D:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
-                         f"{tuple(k.shape)} disagree in batch or D (Dv must "
-                         "equal D)")
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree in batch or D")
     if KV == 0 or H % KV or Skv == 0:
         raise ValueError(f"flash_attention: H={H} is not a multiple of "
                          f"KV={KV}, or no keys (Skv={Skv})")
@@ -109,8 +122,9 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
                            scale: Optional[float] = None, q_offset: int = 0,
                            softcap: float = 0.0) -> torch.Tensor:
     """Attention of q, k (B, S, *, D) and v (B, Skv, KV, Dv) through the
-    kernel at the padded head dim (see the module docstring); ``scale``
-    defaults to the unpadded ``D ** -0.5``."""
+    kernel at the padded head dim, for ``(D, Dv)`` off
+    :data:`HEAD_DIM_PAIRS` (see the module docstring); ``scale`` defaults
+    to the unpadded ``D ** -0.5``."""
     D, Dv = q.shape[-1], v.shape[-1]
     P = padded_head_dim(D, Dv)
     if P is None:
@@ -145,7 +159,7 @@ def flash_attention_extra(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     module docstring); ``scale`` defaults to q's own ``D ** -0.5``."""
     qc, kc = concat_extra(q, k, extra_qk)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if qc.shape[-1] in HEAD_DIMS and v.shape[-1] == qc.shape[-1]:
+    if kernel_pair(qc.shape[-1], v.shape[-1]):
         return flash_attention(qc, kc, v, mode=mode, window=window,
                                scale=scale, q_offset=q_offset,
                                softcap=softcap)
@@ -162,13 +176,13 @@ def _flash(q, k, v, mode, window, scale, q_offset, softcap,
                                        scale=scale, q_offset=q_offset,
                                        softcap=softcap)
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+    Skv, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}; float32 or "
                         "bfloat16")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} is not one of "
-                         f"{HEAD_DIMS}")
+    if not kernel_pair(D, Dv):
+        raise ValueError(f"flash_attention: head dims (D, Dv) = ({D}, {Dv}) "
+                         f"are not one of {HEAD_DIM_PAIRS}")
     _lib.check_cuda("flash_attention: q", q, q.dtype)
     _lib.check_cuda("flash_attention: k", k, q.dtype)
     _lib.check_cuda("flash_attention: v", v, q.dtype)
@@ -178,10 +192,10 @@ def _flash(q, k, v, mode, window, scale, q_offset, softcap,
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k and v must start "
                          "on 16-byte boundaries (TMA)")
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Sq, H, Dv))
     if B and Sq and H:
         _lib.launch("flash_attention", "repro_flash_attention", q, k, v, o,
-                    B, Sq, Skv, H, KV, D, MODES[mode],
+                    B, Sq, Skv, H, KV, D, Dv, MODES[mode],
                     window if mode == "window" else 0, int(q_offset),
                     D ** -0.5 if scale is None else scale, float(softcap),
                     DTYPES[q.dtype])

@@ -18,14 +18,14 @@ argument list: ``softcap`` and ``q_offset`` in the kernel itself, and
 ``extra_qk`` (the decomposed MLA scores) as ``[q | q2] · [k | k2]`` on
 concatenated operands (``flash_attention_extra``). Outside
 :func:`kernel_contract` (head dims above 256, a dtype other than bfloat16
-or float32) a CUDA call raises. Head
-dims the kernel has no instantiation for (``D`` outside its
-``HEAD_DIMS``, ``Dv != D``) and an explicit scale take its padded route
-(``flash_attention_padded``: q, k and v zero-padded to the next head dim
-it has, the unpadded scale, the output sliced), which is how MLA's
-prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width) and phi-3-vision's
-heads of 96 reach the kernel; recurrentgemma-9b's heads of 256 take it
-directly.
+or float32) a CUDA call raises. The head-dim pairs the kernel
+instantiates (its ``HEAD_DIM_PAIRS``: ``Dv == D`` at 16, 32, 64, 96, 128
+and 256, and MLA's 96 over 64) launch it directly with any scale, which
+is how MLA's prefill (``D`` 96, ``Dv`` 64 at minicpm3-4b's width),
+phi-3-vision's heads of 96 and recurrentgemma-9b's heads of 256 reach
+it; other pairs take its padded route (``flash_attention_padded``: q, k
+and v zero-padded to the next head dim it has, the unpadded scale, the
+output sliced).
 On the meta device (the dry-run's shapes-only run) the chunked math runs
 as one query chunk over one kv chunk: the same products, counted once,
 without the Python loop over chunk pairs.
@@ -43,7 +43,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     DTYPES, HEAD_DIMS, flash_attention as flash_kernel,
     flash_attention_extra as flash_kernel_extra,
-    flash_attention_padded as flash_kernel_padded, padded_head_dim)
+    flash_attention_padded as flash_kernel_padded, kernel_pair,
+    padded_head_dim)
 from repro_torch.models.common import (apply_norm, apply_rope, cast,
                                        dense_init, init_norm,
                                        masked_softmax, pdt)
@@ -55,7 +56,7 @@ from repro_torch.models.common import (apply_norm, apply_rope, cast,
 def kernel_contract(q: torch.Tensor, v: torch.Tensor, *,
                     extra_qk=None) -> Optional[str]:
     """Why a call lies outside kernel 6's contract, or None when the kernel
-    computes it (directly, or through its padded route). Any scale,
+    computes it (natively, or through its padded route). Any scale,
     ``q_offset`` and ``softcap`` are in the contract, the kernel takes them
     as arguments; ``extra_qk`` widens the score head dim to ``D + P2``."""
     D, Dv = q.shape[-1], v.shape[-1]
@@ -68,14 +69,11 @@ def kernel_contract(q: torch.Tensor, v: torch.Tensor, *,
     return None
 
 
-def kernel_padded(q: torch.Tensor, v: torch.Tensor,
-                  scale: Optional[float] = None) -> bool:
+def kernel_padded(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether a call inside the contract takes the kernel's padded route:
-    a head dim it has no instantiation for, ``Dv != D``, or a scale other
-    than ``D ** -0.5``."""
-    D, Dv = q.shape[-1], v.shape[-1]
-    return (D not in HEAD_DIMS or Dv != D
-            or (scale is not None and scale != D ** -0.5))
+    head dims ``(D, Dv)`` it has no instantiation for. The scale is an
+    argument of every launch, so it routes nothing."""
+    return not kernel_pair(q.shape[-1], v.shape[-1])
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor,
@@ -114,9 +112,9 @@ def flash_attention(
                   softcap=softcap)
         if extra_qk is not None:
             return flash_kernel_extra(q, k, v, extra_qk, scale=scale, **kw)
-        if kernel_padded(q, v, scale):
+        if kernel_padded(q, v):
             return flash_kernel_padded(q, k, v, scale=scale, **kw)
-        return flash_kernel(q, k, v, **kw)
+        return flash_kernel(q, k, v, scale=scale, **kw)
     if q.device.type == "meta":
         q_chunk, kv_chunk = q.shape[1], k.shape[1]
     return ref.chunked_attention_ref(q, k, v, mode=mode, q_offset=q_offset,

@@ -12,8 +12,11 @@ JAX package on the CPU.
   ``decode_attention`` against ``repro.models.attention`` in the golden
   band ``atol=2e-5, rtol=2e-4``: the same float32 arithmetic;
 * kernel 6's contract: the calls that raise instead of running, and the
-  calls that take its padded route (a head dim it has no instantiation
-  for, ``Dv != D``, an explicit scale); the padded route's arithmetic on
+  calls that take its padded route (head dims ``(D, Dv)`` it has no
+  instantiation for; MLA's (96, 64) and phi-3's (96, 96) are native, and
+  a scale routes nothing); the native pairs at their full head widths
+  (40 x 96/64, 32 x 96), the wrapper, the model-level call and
+  ``mla_forward`` against the reference; the padded route's arithmetic on
   the CPU (pad, the plain version with the unpadded scale, slice) against
   ``chunked_attention_ref`` on the unpadded inputs at MLA's ``D 96 / Dv
   64`` and at the reduced MLA config's shapes;
@@ -25,6 +28,8 @@ JAX package on the CPU.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -175,7 +180,9 @@ def test_kernel_contract():
     the check, as a function, on the shapes of a call. Head dims the
     kernel has no instantiation for and ``Dv != D`` are in the contract,
     as is any scale, ``q_offset`` and ``softcap`` (``kernel_padded`` sends
-    the first three to the padded route: a D of 192 is padded to 256);
+    the first two to the padded route, unless the pair is one the kernel
+    instantiates: a D of 192 is padded to 256, MLA's 96 over 64 and
+    phi-3's 96 are not; a scale is a kernel argument and routes nothing);
     ``extra_qk`` widens the score head dim to ``D + P2``; head dims above
     256 and dtypes other than bfloat16 and float32 are out."""
     q = torch.zeros((1, 8, 4, 32))
@@ -201,11 +208,110 @@ def test_kernel_contract():
     assert "head dims" in tattn.kernel_contract(
         torch.zeros((1, 8, 4, 128)), torch.zeros((1, 8, 2, 264)))
     assert not tattn.kernel_padded(q, v)
-    assert not tattn.kernel_padded(q, v, scale=32 ** -0.5)
-    assert tattn.kernel_padded(q, v, scale=0.1)
+    # the scale is an argument of every launch: it routes nothing
+    assert "scale" not in inspect.signature(tattn.kernel_padded).parameters
     assert tattn.kernel_padded(q, torch.zeros((1, 8, 2, 16)))
-    assert tattn.kernel_padded(torch.zeros((1, 8, 4, 96)),
-                               torch.zeros((1, 8, 2, 96)))
+    # MLA's 96 over 64 and phi-3's 96 are instantiated: no padding
+    assert not tattn.kernel_padded(torch.zeros((1, 8, 4, 96)),
+                                   torch.zeros((1, 8, 2, 96)))
+    assert not tattn.kernel_padded(torch.zeros((1, 8, 4, 96)),
+                                   torch.zeros((1, 8, 2, 64)))
+
+
+@pytest.mark.parametrize("D,Dv,padded,P", [
+    (96, 64, False, 96),      # minicpm3-4b's MLA heads: native
+    (96, 96, False, 96),      # phi-3's heads: native
+    (192, 192, True, 256),    # no instantiation: padded to 256
+    (48, 48, True, 64),
+    (32, 16, True, 32),       # Dv != D off the pairs: padded to 32
+])
+def test_head_dim_pair_routing(D, Dv, padded, P):
+    """What a call at head dims ``(D, Dv)`` takes: ``kernel_contract``
+    admits each (none is above 256); ``kernel_padded`` sends exactly the
+    pairs off ``HEAD_DIM_PAIRS`` to the padded route, at
+    ``padded_head_dim``; ``check_shapes`` admits D = Dv and the pairs and
+    refuses any other ``Dv != D`` (which only the padded route takes),
+    on the CPU route too."""
+    from repro_torch.kernels.flash_attention import (
+        HEAD_DIM_PAIRS, flash_attention_padded, kernel_pair,
+        padded_head_dim)
+    q = torch.zeros((1, 8, 4, D))
+    k = torch.zeros((1, 8, 2, D))
+    v = torch.zeros((1, 8, 2, Dv))
+    assert tattn.kernel_contract(q, v) is None
+    assert tattn.kernel_padded(q, v) == padded
+    assert kernel_pair(D, Dv) == ((D, Dv) in HEAD_DIM_PAIRS) == (not padded)
+    assert padded_head_dim(D, Dv) == P
+    if Dv == D or not padded:
+        check_shapes(q, k, v, "causal", None)
+        assert tuple(flash_kernel(q, k, v).shape) == (1, 8, 4, Dv)
+    else:
+        with pytest.raises(ValueError, match="k, v"):
+            check_shapes(q, k, v, "causal", None)
+    # the padded route takes every pair, native or not, on the CPU
+    assert tuple(flash_attention_padded(q, k, v).shape) == (1, 8, 4, Dv)
+
+
+@pytest.mark.parametrize("H,Dv,mode,window,scale", [
+    (40, 64, "causal", None, None),      # minicpm3-4b: 40 x 96 over 64
+    (40, 64, "window", 7, None),
+    (40, 64, "causal", None, 0.07),      # an explicit scale, native too
+    (32, 96, "causal", None, None),      # phi-3: 32 x 96
+    (32, 96, "full", None, None),
+])
+def test_full_head_width_pairs_match_jax(H, Dv, mode, window, scale):
+    """Kernel 6's native pairs at their full head widths on the CPU, small
+    S: the wrapper (the plain version a CUDA launch is held against) and
+    the model-level ``flash_attention`` against the reference's scan
+    ``models.attention.flash_attention``, in the golden band; no launch."""
+    q, k, v = _qkv(H + Dv, 2, 23, 23, H, H, 96, Dv)
+    kw = dict(mode=mode, window=window)
+    skw = {} if scale is None else dict(scale=scale)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), q_chunk=16, kv_chunk=16,
+                                 **kw, **skw)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = _lib.counts()
+    got = flash_kernel(tq, tk, tv, **kw, **skw)
+    model = tattn.flash_attention(tq, tk, tv, q_chunk=16, kv_chunk=16, **kw,
+                                  **skw)
+    assert _lib.counts() == before
+    assert tuple(got.shape) == (2, 23, H, Dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    np.testing.assert_allclose(model.numpy(), np.asarray(want), **BAND)
+
+
+def test_mla_forward_full_head_width_matches_jax():
+    """``mla_forward`` at minicpm3-4b's full heads (40 x nope 64 + rope 32
+    over value heads of 64: kernel 6's native (96, 64) pair on the card),
+    its latent ranks and d_model cut (256, 64, 32), float32: the output
+    and the cached latents against the reference's on its own weights."""
+    import dataclasses
+    import jax
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    from repro_torch.core.pytree import from_jax_params
+    cfgs = []
+    for mod in (tconfigs, jconfigs):
+        c = mod.get_config("minicpm3_4b")
+        cfgs.append(dataclasses.replace(
+            c, d_model=256, param_dtype="float32", compute_dtype="float32",
+            remat=False, mla=dataclasses.replace(c.mla, q_lora_rank=64,
+                                                 kv_lora_rank=32)))
+    cfg, jcfg = cfgs
+    assert (cfg.n_heads, cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
+            cfg.mla.v_head_dim) == (40, 64, 32, 64)
+    jp = jattn.init_mla(jax.random.PRNGKey(5), jcfg)
+    tp = from_jax_params(jax.tree_util.tree_map(np.array, jp), "cpu")
+    B, S = 2, 19
+    x = np.random.RandomState(6).randn(B, S, 256).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    out, (c_kv, k_rope) = tattn.mla_forward(
+        tp, torch.from_numpy(x), cfg, positions=torch.from_numpy(pos.copy()))
+    jout, (jc, jr) = jattn.mla_forward(jp, jnp.asarray(x), jcfg,
+                                       positions=jnp.asarray(pos))
+    for got, want in ((out, jout), (c_kv, jc), (k_rope, jr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,Dv,mode,window", [
@@ -227,7 +333,7 @@ def test_padded_route_arithmetic(B, S, H, KV, D, Dv, mode, window):
     q, k, v = (torch.from_numpy(a) for a in
                _qkv(D + Dv + S, B, S, S, H, KV, D, Dv))
     P = padded_head_dim(D, Dv)
-    assert P == min(p for p in (16, 32, 64, 128, 256) if p >= max(D, Dv))
+    assert P == min(p for p in (16, 32, 64, 96, 128, 256) if p >= max(D, Dv))
     pad = torch.nn.functional.pad
     got = ref.flash_attention_ref(pad(q, (0, P - D)), pad(k, (0, P - D)),
                                   pad(v, (0, P - Dv)), mode=mode,

@@ -22,7 +22,8 @@ phi-3-vision-4.2b, on the reference's own weights carried across:
   off, one checkpoint a layer, group, tail layer, encoder and decoder
   layer, none in prefill;
 * ``gqa_forward``'s cross-attention arguments and the VLM's merge of
-  image embeddings against the reference's;
+  image embeddings against the reference's; phi-3's attention at its full
+  heads (32 x 96) over a narrow stream, causal, window and full;
 * one ``LMDeltaTask`` round on reduced mamba2 against the reference's.
 """
 import dataclasses
@@ -300,6 +301,42 @@ def test_gqa_cross_attention_matches_jax():
                                   positions=torch.from_numpy(pos),
                                   mode="full", cached_kv=(k, v))
     assert torch.equal(again, out) and kv[0] is k
+
+
+def _full_heads(name, **changes):
+    """``name``'s config with its full attention heads (head count and
+    widths) over a narrow residual stream, float32, both packages."""
+    kw = dict(param_dtype="float32", compute_dtype="float32", remat=False,
+              **changes)
+    return (dataclasses.replace(tconfigs.get_config(name), **kw),
+            dataclasses.replace(jconfigs.get_config(name), **kw))
+
+
+@pytest.mark.parametrize("mode,window,S_", [("causal", None, 24),
+                                            ("window", 9, 21),
+                                            ("full", None, 17)])
+def test_phi3_attention_full_head_width_matches_jax(mode, window, S_):
+    """phi-3's attention at its full heads (32 x 96, the pair kernel 6
+    now instantiates natively; d_model cut to 256): ``gqa_forward`` — the
+    model-level ``flash_attention`` at (96, 96) on the CPU — against the
+    reference's, output and K/V in the golden band."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    cfg, jcfg = _full_heads("phi3_vision_4_2b", d_model=256)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (32, 32, 96)
+    jp = jattn.init_gqa(jax.random.PRNGKey(3), jcfg)
+    p = from_jax_params(jax.tree_util.tree_map(np.array, jp), "cpu")
+    x = np.random.RandomState(S_).randn(2, S_, 256).astype(np.float32)
+    pos = np.tile(np.arange(S_), (2, 1))
+    out, (k, v) = tattn.gqa_forward(p, torch.from_numpy(x), cfg,
+                                    positions=torch.from_numpy(pos),
+                                    mode=mode, window=window)
+    jout, (jk, jv) = jattn.gqa_forward(jp, jnp.asarray(x), jcfg,
+                                       positions=jnp.asarray(pos), mode=mode,
+                                       window=window)
+    assert tuple(v.shape) == (2, S_, 32, 96)
+    for a, b, w in ((out, jout, "out"), (k, jk, "k"), (v, jv, "v")):
+        _close(a.numpy(), b, w)
 
 
 def test_vlm_image_embeds_merge_matches_jax():

@@ -37,6 +37,9 @@ from repro_torch.kernels.quantize import (dequantize_blocks_2d,  # noqa: E402
 SHAPES = [(8, 16, 8), (100, 64, 32), (128, 128, 128), (257, 300, 65),
           (1, 4096, 8)]
 BAND = dict(atol=2e-5, rtol=2e-4)    # tests/test_golden_trajectory.py
+# kernel 6: float32 the reference's Pallas test's; bfloat16 two ulps
+FLASH_TOL = {torch.float32: dict(atol=3e-5, rtol=1e-3),
+             torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2)}
 
 
 def _card():
@@ -625,6 +628,55 @@ def test_flash_attention_bf16_wgmma_matches_plain(B, Sq, Skv, H, KV, D, mode,
         got.float(), ref.flash_attention_ref(q, k, v, mode=mode,
                                              window=window).float(),
         atol=1e-3, rtol=1.6e-2)
+
+
+NATIVE_PAIR_CASES = [
+    # B, Sq, Skv, H, KV, mode, window, q_offset, softcap
+    (2, 77, 77, 4, 4, "causal", None, 0, 0.0),      # Sq off 128, Skv off 64
+    (1, 459, 459, 8, 2, "causal", None, 0, 0.0),    # four q tiles, GQA 4
+    (1, 300, 300, 7, 1, "window", 40, 0, 0.0),      # MQA, G = 7
+    (2, 130, 203, 4, 2, "full", None, 0, 0.0),      # Sq < Skv
+    (1, 203, 130, 4, 4, "full", None, 0, 0.0),      # Sq > Skv
+    (2, 70, 331, 4, 2, "causal", None, 261, 0.0),   # queries late in kv
+    (2, 70, 331, 4, 2, "window", 90, 261, 0.0),
+    (2, 150, 150, 4, 2, "causal", None, 0, 30.0),   # softcap
+    (1, 100, 400, 4, 1, "window", 120, 250, 40.0),  # all three
+    (1, 1024, 1024, 40, 40, "causal", None, 0, 0.0),  # run (r), one prompt
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(96, 64), (96, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,mode,window,q_offset,softcap",
+                         NATIVE_PAIR_CASES)
+def test_flash_attention_native_pairs_match_plain(D, Dv, dtype, B, Sq, Skv, H,
+                                                  KV, mode, window, q_offset,
+                                                  softcap):
+    """Kernel 6 at MLA's (96, 64) and phi-3's (96, 96) head dims, natively
+    (q and k three 32-column panels at a 64-byte swizzle, v and the output
+    Dv wide): causal, window and full, GQA and MQA, ``q_offset``,
+    ``softcap``, Skv off the 64-key tiles and Sq off the 128-row q tiles;
+    against the plain version at ``FLASH_TOL``, one launch a call on the
+    native route (``wgmma`` / ``fma``), none padded."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(Sq * H + Skv + Dv)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, Sq, H, D), (B, Skv, KV, D),
+                             (B, Skv, KV, Dv)))
+    kw = dict(mode=mode, window=window, q_offset=q_offset, softcap=softcap)
+    before = _lib.counts().get("flash_attention", 0)
+    routes = dict(fa.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _lib.counts()["flash_attention"] == before + 1
+    route = fa.kernel_route(dtype)
+    assert dict(fa.ROUTE_LAUNCHES - collections.Counter(routes)) == {route: 1}
+    assert got.dtype == dtype and tuple(got.shape) == (B, Sq, H, Dv)
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+        **FLASH_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -1252,44 +1304,93 @@ def test_lm_delta_frozen_roles_exactly_zero_on_card():
 
 
 # ------------------------------------------- MLA, MoE, optimizers, remat
-FLASH_TOL = {torch.float32: dict(atol=3e-5, rtol=1e-3),
-             torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2)}
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_padded_route_matches_plain(dtype):
-    """Kernel 6's padded route at MLA's heads, (2, 256, 40 x 96/64),
-    causal: q and k zero-padded from 96 to 128, v from 64, the kernel at
-    the unpadded scale, the first 64 columns; against the plain version
-    on the unpadded inputs. The model-level call takes it and counts one
-    padded launch."""
+    """Kernel 6's padded route at a head dim it has no instantiation for,
+    (2, 256, 8 x 192/128), causal: q and k zero-padded from 192 to 256, v
+    from 128, the kernel at the unpadded scale, the first 128 columns;
+    against the plain version on the unpadded inputs. The model-level call
+    takes it and counts one padded launch. An explicit scale at a kernel
+    head-dim pair (MLA's 96 over 64) launches the kernel natively."""
     _card()
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import flash_attention as model_flash
-    g = torch.Generator(device="cuda").manual_seed(96)
-    q = torch.randn((2, 256, 40, 96), generator=g, device="cuda").to(dtype)
-    k = torch.randn((2, 256, 40, 96), generator=g, device="cuda").to(dtype)
-    v = torch.randn((2, 256, 40, 64), generator=g, device="cuda").to(dtype)
-    want = ref.flash_attention_ref(q, k, v, scale=96 ** -0.5)
+    g = torch.Generator(device="cuda").manual_seed(192)
+    q = torch.randn((2, 256, 8, 192), generator=g, device="cuda").to(dtype)
+    k = torch.randn((2, 256, 8, 192), generator=g, device="cuda").to(dtype)
+    v = torch.randn((2, 256, 8, 128), generator=g, device="cuda").to(dtype)
+    want = ref.flash_attention_ref(q, k, v, scale=192 ** -0.5)
     route = fa.kernel_route(dtype) + "_padded"
     before, r0 = _lib.counts(), fa.ROUTE_LAUNCHES[route]
     got = fa.flash_attention_padded(q, k, v)
     via_model = model_flash(q, k, v)
     torch.cuda.synchronize()
-    assert got.shape == v.shape[:3] + (64,) and got.dtype == dtype
+    assert fa.padded_head_dim(192, 128) == 256
+    assert got.shape == v.shape[:3] + (128,) and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     assert torch.equal(via_model, got)
     assert (_lib.counts()["flash_attention"]
             == before.get("flash_attention", 0) + 2)
     assert fa.ROUTE_LAUNCHES[route] == r0 + 2
-    # an explicit scale at a kernel head dim takes the padded route too
-    q64, k64 = q[..., :64].contiguous(), k[..., :64].contiguous()
-    got = model_flash(q64, k64, v, scale=0.1)
+    # an explicit scale at a kernel pair takes the native route
+    native, n0 = fa.kernel_route(dtype), fa.ROUTE_LAUNCHES[fa.kernel_route(
+        dtype)]
+    q96, k96 = q[..., :96].contiguous(), k[..., :96].contiguous()
+    v64 = v[..., :64].contiguous()
+    got = model_flash(q96, k96, v64, scale=0.1)
     torch.testing.assert_close(
-        got.float(), ref.flash_attention_ref(q64, k64, v, scale=0.1).float(),
+        got.float(), ref.flash_attention_ref(q96, k96, v64,
+                                             scale=0.1).float(),
         **FLASH_TOL[dtype])
-    assert fa.ROUTE_LAUNCHES[route] == r0 + 3
+    assert fa.ROUTE_LAUNCHES[native] == n0 + 1
+    assert fa.ROUTE_LAUNCHES[route] == r0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,D,Dv", [("minicpm3-4b", 96, 64),
+                                       ("phi-3-vision-4.2b", 96, 96)])
+def test_native_pair_prefill_takes_no_padded_route(arch, D, Dv):
+    """minicpm3-4b's and phi-3-vision's prefills at full width and 2
+    layers (bf16, their own dtypes; two prompts of 640 tokens, phi-3's 576
+    image rows first): kernel 6
+    launches once a layer on the native ``wgmma`` route, 0 launches padded,
+    each call at ``(D, Dv)`` and held against the plain version on the
+    model's own q, k and v; the logits finite."""
+    _card()
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
+    batch = _family_batch(cfg, 640, 7)
+    del batch["labels"]
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    kernel, seen = attention.flash_kernel, []
+
+    def held(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        torch.testing.assert_close(
+            out.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+            **FLASH_TOL[q.dtype])
+        seen.append((q.shape[-1], v.shape[-1]))
+        return out
+    _lib.reset_launches()
+    fa.ROUTE_LAUNCHES.clear()
+    attention.flash_kernel = held
+    try:
+        with torch.no_grad():
+            logits, _ = models.prefill(params, cfg, gbatch, 644)
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_kernel = kernel
+    assert _lib.counts() == {"flash_attention": cfg.n_layers}
+    assert dict(fa.ROUTE_LAUNCHES) == {"wgmma": cfg.n_layers}
+    assert seen == [(D, Dv)] * cfg.n_layers
+    assert torch.isfinite(logits.float()).all()
 
 
 def _route_spy():
@@ -1750,6 +1851,37 @@ def test_cnn_gradient_on_card_is_float32():
         b = {"x": batch["x"].to(dev, dtype), "y": batch["y"].to(dev)}
         g = value_and_grad(
             lambda p, b: classifier_loss(p, CIFAR_CLASSIFIER, b), p, b)[2]
+        return ravel(g)[0].double().cpu()
+    torch.testing.assert_close(grad("cuda", torch.float32),
+                               grad("cpu", torch.float64), **BAND)
+
+
+@pytest.mark.gpu
+def test_conv_ae_gradient_on_card_is_float32():
+    """The conv AE's loss gradient on the card in the golden band of the
+    CPU's float64 gradient, at the paper appendix's configuration
+    (``ConvAEConfig(channels=(8, 16), kernel=9, stride=8)``, rows of 15,936
+    values: the MNIST classifier's 15,910 weights padded to a multiple of
+    64, as ``benchmarks/tables.py:262-296`` pads them), 2 rows of unit scale
+    drawn from a seed (the scale the normalizer gives the network; so few
+    rows that the mean loss's largest gradients reach 0.05, where the
+    band's rtol binds), the normalizer fitted on them."""
+    _card()
+    from repro_torch.core.autoencoder import (ConvAEConfig, ae_loss,
+                                              fit_normalizer, init_conv_ae)
+    from repro_torch.core.pytree import ravel, tree_map, value_and_grad
+    cfg = ConvAEConfig(channels=(8, 16), kernel=9, stride=8,
+                       latent_channels=1)
+    rows = torch.from_numpy(
+        np.random.RandomState(9).randn(2, 15_936).astype(np.float32))
+    params = fit_normalizer(
+        init_conv_ae(torch.Generator().manual_seed(1), cfg, "cpu"), rows)
+
+    def grad(dev, dtype):
+        p = tree_map(lambda t: t.to(dev, dtype), params)
+        g = value_and_grad(
+            lambda p, x: (ae_loss(p, cfg, x, "conv"), None), p,
+            rows.to(dev, dtype))[2]
         return ravel(g)[0].double().cpu()
     torch.testing.assert_close(grad("cuda", torch.float32),
                                grad("cpu", torch.float64), **BAND)

@@ -11,6 +11,7 @@ edit each.
     python3 tools/kernel_ab.py copy NAME SRC DEST     # SRC with edit NAME
     python3 tools/kernel_ab.py slabs ROOT             # a "slabs" copy
     python3 tools/kernel_ab.py bits ROOT ROOT         # kernel 6, same bits?
+    python3 tools/kernel_ab.py flash ROOT [ROOT ...]  # kernel 6 by run
 
 ``time`` imports ``repro_torch`` from each checkout ROOT in its own process
 (a parent unpacked with ``git archive``, this checkout, a copy with one
@@ -41,7 +42,16 @@ K-slab form of it (each block reduces hbar for its slab only; a second
 kernel adds the slabs in order). ``bits`` runs kernel 6 in each of two
 checkouts (one process each) on the same inputs, at :data:`FLASH_SHAPES`
 and every head dim in both dtypes, with no ``q_offset`` and no
-``softcap``, and prints whether the outputs are ``torch.equal``. Times are device times from
+``softcap``, and prints whether the outputs are ``torch.equal``. ``flash``
+times kernel 6 in each checkout (one process each) at runs (r), (t), (y)
+and (f)'s shapes, MLA's and phi-3's pairs natively where the checkout has
+them and else through its padded route, with each output's largest share of
+``FLASH_BF16_TOL``; the ``flash_*`` copies time designs of the bf16 body
+(no turns between the warpgroups, a 2- or 5-stage ring, 64-key tiles
+where the body takes 96) and, as diagnostics whose outputs are
+wrong, the body without P_lo V, without P V, without the softmax's
+arithmetic or without P_lo's split, which show what each costs. Times are
+device times from
 ``chip_smoke.time_ms`` (calls captured in a CUDA graph). Needs a CUDA card
 (``copy`` does not).
 """
@@ -530,6 +540,7 @@ _MMA_NEXT = ("      load(kt + kMmaStages - 1, (kt + kMmaStages - 1) % "
 _SGEMM_NEXT = ("      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);\n"
                "    cp_async_commit();\n")
 FDA_CU = "src/repro_torch/csrc/fused_decode_agg.cu"
+FLASH_CU = "src/repro_torch/csrc/flash_attention.cu"
 GDA_CU = "src/repro_torch/csrc/grouped_decode_agg.cu"
 # (ii) of the few_rows design question: K slabs, each block reducing hbar
 # for its slab only, float32 partials added in slab order by a second
@@ -1282,6 +1293,35 @@ VARIANTS = {
                            "fused_decode_agg_band_kernel")],
     "expand_unroll_16": [(HEADER, "#pragma unroll 8\n      for (int k = 0;",
                           "#pragma unroll 16\n      for (int k = 0;")],
+    # kernel 6's bf16 body: without the warpgroups' turns, a 2- or 5-stage
+    # ring, 64-key tiles at every head dim; diagnostics (wrong outputs): no
+    # P_lo V, no P V, no softmax arithmetic, P_lo not split off
+    "flash_no_turns": [
+        (FLASH_CU, "    mbar_wait(my_turn, g & 1);\n", ""),
+        (FLASH_CU, "    if (lane == 0) mbar_arrive(next_turn);\n", "")],
+    "flash_kv64": [
+        (FLASH_CU, "BKV = DV <= 64 ? 96 : 64;", "BKV = 64;")],
+    "flash_two_stages": [
+        (FLASH_CU, "NSTAGE = SPLIT ? 3 : 4;", "NSTAGE = 2;")],
+    "flash_five_stages": [
+        (FLASH_CU, "NSTAGE = SPLIT ? 3 : 4;", "NSTAGE = SPLIT ? 3 : 5;")],
+    "flash_no_pv": [
+        (FLASH_CU, "        issue_pv<G>(acc, ph, pl, k_tile(g + it - 1) + "
+                   "v_col);\n        wgmma_commit();\n        pass_turn();\n",
+         "        wgmma_commit();\n        pass_turn();\n")],
+    "flash_no_softmax": [
+        (FLASH_CU, ("    reg_fence(sc);\n    const int k0 = kt * BKV;\n",
+                    "    l0 = l0 * f0 + s0;"),
+         "    reg_fence(sc);\n    f0 = 1.f;\n    f1 = 1.f;\n    (void)kt;\n"
+         "    const float s0 = 0.f, s1 = 0.f;\n")],
+    "flash_no_lo_split": [
+        (FLASH_CU, "      pl[i] = bf16x2_bits(__floats2bfloat162_rn("
+                   "sc[2 * i] - hf.x,\n"
+                   "                                                "
+                   "sc[2 * i + 1] - hf.y));\n",
+         "      pl[i] = ph[i] + 0 * (uint32_t)hf.x;\n")],
+    "flash_single_p": [
+        (FLASH_CU, "    wgmma_pv<G::DO>(acc, al, db);\n", "")],
     "slabs": [(FDA_CU, "}  // namespace\n",
                "// (variant) K slabs" + _SLABS_KERNELS
                + "}  // namespace\n")],
@@ -1339,10 +1379,13 @@ def probe() -> list:
     return res
 
 
+# the head dims whose bf16 kv tile is 64 keys in both checkouts (128, 256;
+# since the pipelined body, D <= 64 takes 96-key tiles, which change the
+# bf16 outputs' rounding), and the float32 kernel at every D
 BITS_SHAPES = FLASH_SHAPES + tuple(
     (2, 200, 331, 4, 2, D, mode, 50 if mode == "window" else None, dt)
     for D in (16, 32, 64, 256) for mode in ("causal", "window", "full")
-    for dt in ("bfloat16", "float32"))
+    for dt in ("bfloat16", "float32") if D == 256 or dt == "float32")
 
 
 def bits_root(root: Path, out: Path) -> None:
@@ -1373,12 +1416,54 @@ def bits(a: Path, b: Path) -> list:
             for s, x, y in zip(BITS_SHAPES, *outs, strict=True)]
 
 
+# kernel 6 at the runs' shapes: (label, B, S, H, KV, D, Dv), bf16 causal
+FLASH_RUNS = (("r", 4, 1024, 40, 40, 96, 64), ("t", 2, 512, 40, 40, 96, 64),
+              ("y", 4, 1024, 32, 32, 96, 96), ("f", 4, 1024, 56, 8, 128, 128))
+
+
+def flash_root(root: Path) -> dict:
+    """Kernel 6 from ``root`` at :data:`FLASH_RUNS`: device ms and the
+    output's largest share of ``FLASH_BF16_TOL`` against the plain
+    version; a pair the checkout has no instantiation for goes through its
+    padded route."""
+    torch = _setup(root)
+    from chip_smoke import FLASH_BF16_TOL, time_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out = {"root": str(root)}
+    for label, B, S, H, KV, D, Dv in FLASH_RUNS:
+        g = torch.Generator(device="cuda").manual_seed(D + Dv + H)
+        q, k, v = (torch.randn(s, generator=g, device="cuda").to(
+            torch.bfloat16) for s in ((B, S, H, D), (B, S, KV, D),
+                                      (B, S, KV, Dv)))
+        native = Dv == D and D in fa.HEAD_DIMS or (
+            getattr(fa, "kernel_pair", None) is not None
+            and fa.kernel_pair(D, Dv))
+        call = fa.flash_attention if native else fa.flash_attention_padded
+        got = call(q, k, v).float()
+        want = ref.flash_attention_ref(q, k, v).float()
+        share = float(((got - want).abs() / (
+            FLASH_BF16_TOL["atol"] + FLASH_BF16_TOL["rtol"] * want.abs()))
+            .max())
+        out[label] = dict(native=native, tol_share=share,
+                          ms=time_ms(lambda: call(q, k, v), 20))
+    return out
+
+
 def main(argv) -> int:
     if len(argv) >= 3 and argv[1] == "time":
         for root in argv[2:]:
             # one process a checkout: each imports its own repro_torch
             subprocess.run([sys.executable, __file__, "_time", root],
                            check=True, env=dict(os.environ))
+        return 0
+    if len(argv) >= 3 and argv[1] == "flash":
+        for root in argv[2:]:
+            subprocess.run([sys.executable, __file__, "_flash", root],
+                           check=True, env=dict(os.environ))
+        return 0
+    if len(argv) == 3 and argv[1] == "_flash":
+        print(json.dumps(flash_root(Path(argv[2]).resolve())), flush=True)
         return 0
     if len(argv) == 3 and argv[1] == "_time":
         print(json.dumps(time_root(Path(argv[2]).resolve())), flush=True)
