@@ -19,6 +19,11 @@ misalign the chunks with the shards: the reference's ``aligned`` option
 (encode each device's local shard) has no counterpart and is not taken.
 The encode and decode are plain matmuls (``fc_encode``/``fc_decode``) in
 the reference too, so they are ``torch.matmul`` (cuBLAS) here.
+
+The round's phases are ``record_function`` ranges (``fl_round.*``), not
+:mod:`repro_torch.trace` spans: ``chip_smoke.py`` splits a traced round by
+the ranges' device-side annotations, which a ``trace`` span does not draw.
+This is the one place the program draws on the device's timeline.
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import codec
 from repro_torch.core.pytree import leaf_paths, leaves, stack
 
@@ -334,7 +335,7 @@ def server_decode_aggregate(encoded: Sequence, norm_weights: List[float],
         return _grouped_server_round(groups_host, list(norm_weights), base,
                                      spec0.size, _device_of(encoded))
     dev = _device_of(encoded)
-    norm_w = torch.tensor(norm_weights, dtype=torch.float32, device=dev)
+    norm_w = trace.to_device(norm_weights, dev, torch.float32)
     group_means: Dict[str, torch.Tensor] = {}
     for gi, (name, slices) in enumerate(structure):
         base_g = None if base is None else gather(slices, base)
@@ -351,12 +352,11 @@ def server_decode_aggregate(encoded: Sequence, norm_weights: List[float],
                     params_batched=pb)
                 break
             s_g = sum(norm_weights[i] for i in idx)    # host float: stable
-            w_g = torch.tensor([norm_weights[i] / s_g for i in idx],
-                               dtype=torch.float32, device=dev)
+            w_g = trace.to_device([norm_weights[i] / s_g for i in idx],
+                                  dev, torch.float32)
             part = codec.decode_and_aggregate(cspec, params, stacked, w_g,
                                               base_g, params_batched=pb)
-            contrib = torch.tensor(s_g, dtype=torch.float32,
-                                   device=dev) * part
+            contrib = trace.to_device(s_g, dev, torch.float32) * part
             mean_g = contrib if mean_g is None else mean_g + contrib
         group_means[name] = mean_g
     return scatter_groups(structure, group_means, spec0.size)
@@ -396,7 +396,7 @@ def _grouped_server_round(groups_host, norm_weights: List[float],
     decoder slots key on the identity of the AE stage's params, in
     first-seen bucket order, so buckets sharing one decoder share one
     slot."""
-    norm_w = torch.tensor(norm_weights, dtype=torch.float32, device=dev)
+    norm_w = trace.to_device(norm_weights, dev, torch.float32)
     plan, payloads, params_all, wlists, sgs = [], [], [], [], []
     dec_slots: Dict[int, int] = {}
     for name, slices, buckets in groups_host:
@@ -408,8 +408,8 @@ def _grouped_server_round(groups_host, norm_weights: List[float],
                 w_b, s_g = norm_w, 1.0       # bit-stable homogeneous path
             else:
                 s_g = sum(norm_weights[i] for i in idx)   # host float
-                w_b = torch.tensor([norm_weights[i] / s_g for i in idx],
-                                   dtype=torch.float32, device=dev)
+                w_b = trace.to_device(
+                    [norm_weights[i] / s_g for i in idx], dev, torch.float32)
             slot = None
             if codec.kernel_terminal_ae(cspec) is not None and not pb:
                 slot = dec_slots.setdefault(
@@ -448,7 +448,7 @@ def _grouped_round(plan, size: int, payloads, params, wlists, sgs,
         group_means[name] = contrib if prev is None else prev + contrib
 
     def _scaled(s_g, x):
-        return torch.tensor(s_g, dtype=torch.float32, device=x.device) * x
+        return trace.to_device(s_g, x.device, torch.float32) * x
 
     jobs: Dict[Tuple[int, int], List[dict]] = {}
     for (name, slices, bplan), pays, prms, ws, sgl in zip(

@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.paper import AEConfig, ClassifierConfig
 from repro_torch.core import autoencoder as ae
 from repro_torch.core.pytree import leaves, ravel, tree_map, value_and_grad
@@ -56,10 +57,13 @@ def local_train(
     for epoch in range(epochs):
         last_metrics = None
         for b in batches(seed * 1000 + epoch, data, batch_size):
-            _, last_metrics, grads = value_and_grad(loss_fn, params, b)
-            params, state = opt.update(params, grads, state)
+            with trace.span("client_train.grad"):
+                _, last_metrics, grads = value_and_grad(loss_fn, params, b)
+            with trace.span("client_train.optimizer"):
+                params, state = opt.update(params, grads, state)
         if last_metrics is not None:
-            history.append({k: float(v) for k, v in last_metrics.items()})
+            history.append({k: float(trace.to_host(v))
+                            for k, v in last_metrics.items()})
         if snapshot_every_epoch:
             snapshots.append(ravel(params)[0])
     return params, snapshots, history
@@ -118,13 +122,15 @@ def local_train_batched(
     last = None
     for epoch in range(epochs):
         for sel in batch_indices(seed * 1000 + epoch, n, batch_size):
-            sel_t = torch.as_tensor(sel, dtype=torch.int64, device=dev)
+            sel_t = trace.to_device(sel, dev, torch.int64)
             batch = {k: v[:, sel_t] for k, v in stacked_data.items()}
-            grads, last = grad_fn(stacked, batch, anchor_arg)
-            stacked, state = opt.update(stacked, grads, state)
+            with trace.span("client_train.grad"):
+                grads, last = grad_fn(stacked, batch, anchor_arg)
+            with trace.span("client_train.optimizer"):
+                stacked, state = opt.update(stacked, grads, state)
     if last is None:
         return stacked, [{} for _ in range(C)]
-    host = {k: v.detach().cpu().tolist() for k, v in last.items()}
+    host = {k: trace.to_host(v.detach()).tolist() for k, v in last.items()}
     return stacked, [{k: float(v[ci]) for k, v in host.items()}
                      for ci in range(C)]
 
@@ -133,7 +139,7 @@ def local_train_batched(
 def evaluate(params: Tree, clf_cfg: ClassifierConfig,
              data: Dict[str, torch.Tensor]) -> Dict[str, float]:
     _, metrics = classifier_loss(params, clf_cfg, data)
-    return {k: float(v) for k, v in metrics.items()}
+    return {k: float(trace.to_host(v)) for k, v in metrics.items()}
 
 
 def run_prepass(

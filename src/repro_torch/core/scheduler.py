@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import codec
 from repro_torch.core.aggregate import (apply_update, distortion_weights,
                                         normalize_weights, staleness_weights)
@@ -95,13 +96,15 @@ def _client_round(run, ci: int, global_params: Tree, round_seed: int
                   ) -> EncodedUpdate:
     """One collaborator's round against ``global_params``: train (via the
     run's task), build the payload, error-feedback compensate, encode."""
-    local, metrics = run.task.local_update(
-        global_params, run.datasets[ci], run.cfg, seed=round_seed,
-        anchor=global_params)
+    with trace.span("client_train"):
+        local, metrics = run.task.local_update(
+            global_params, run.datasets[ci], run.cfg, seed=round_seed,
+            anchor=global_params)
     return _encode_local(run, ci, local, global_params, run.clients[ci],
                          metrics)
 
 
+@trace.spanned("client_encode")
 @torch.no_grad()
 def _encode_local(run, ci: int, local: Tree, global_params: Tree,
                   state: ClientState, metrics: Dict[str, float]
@@ -130,11 +133,13 @@ def _encode_local(run, ci: int, local: Tree, global_params: Tree,
         rc.observe(run, state, comp, flat)
     spec = comp.spec(flat.numel())
     params = comp.codec_params()
-    payload = codec.encode(spec, params, flat)
+    with trace.span("client_encode.codec"):
+        payload = codec.encode(spec, params, flat)
     stats = codec_stats(flat, payload, spec=spec)
     if cfg.error_feedback:
-        decoded = unravel(codec.decode(spec, params, payload))
-        state.residual = ef_residual(payload_tree, decoded)
+        with trace.span("client_encode.ef"):
+            decoded = unravel(codec.decode(spec, params, payload))
+            state.residual = ef_residual(payload_tree, decoded)
     weight = run.task.data_weight(run.datasets[ci])
     return EncodedUpdate(payload=payload, spec=spec, params=params,
                          weight=weight, stats=stats, metrics=metrics)
@@ -155,6 +160,7 @@ def _fused_group(spec: codec.CodecSpec, encoded: Sequence[EncodedUpdate],
                                       params_batched=params_batched)
 
 
+@trace.spanned("server_agg")
 @torch.no_grad()
 def _server_aggregate(run, encoded: Sequence[EncodedUpdate],
                       weights: Sequence[float]) -> Tree:
@@ -176,32 +182,41 @@ def _server_aggregate(run, encoded: Sequence[EncodedUpdate],
     base = g_flat if cfg.payload == "weights" else None
     norm_list = normalize_weights(weights)
     grouped = use_grouped_default(cfg.use_grouped_kernel)
+    with trace.span("server_agg.decode_agg"):
+        mean_flat = _decode_aggregate(encoded, norm_list, base, dev,
+                                      grouped)
+    return apply_update(run.global_params, unravel(mean_flat), cfg.server_lr)
+
+
+def _decode_aggregate(encoded: Sequence[EncodedUpdate],
+                      norm_list: List[float], base, dev: torch.device,
+                      grouped: bool) -> torch.Tensor:
+    """The cohort's weighted mean update, flat (:func:`_server_aggregate`
+    says which route each cohort takes)."""
     spec0 = encoded[0].spec
     if codec.is_partitioned(spec0):
         from repro_torch.core import partition
-        mean_flat = partition.server_decode_aggregate(
+        return partition.server_decode_aggregate(
             encoded, norm_list, base, use_grouped_kernel=grouped)
-    elif all(e.spec == spec0 for e in encoded):
-        norm_w = torch.tensor(norm_list, dtype=torch.float32, device=dev)
-        mean_flat = _fused_group(spec0, encoded, norm_w, base)
-    elif grouped:
+    if all(e.spec == spec0 for e in encoded):
+        norm_w = trace.to_device(norm_list, dev, torch.float32)
+        return _fused_group(spec0, encoded, norm_w, base)
+    if grouped:
         from repro_torch.core import partition
-        mean_flat = partition.grouped_flat_server_aggregate(
+        return partition.grouped_flat_server_aggregate(
             encoded, norm_list, base)
-    else:
-        groups: Dict[codec.CodecSpec, List[int]] = {}
-        for i, e in enumerate(encoded):
-            groups.setdefault(e.spec, []).append(i)
-        mean_flat = None
-        for spec, idx in groups.items():
-            s_g = sum(norm_list[i] for i in idx)    # host float: bit-stable
-            w_g = torch.tensor([norm_list[i] / s_g for i in idx],
-                               dtype=torch.float32, device=dev)
-            part = _fused_group(spec, [encoded[i] for i in idx], w_g, base)
-            contrib = torch.tensor(s_g, dtype=torch.float32,
-                                   device=dev) * part
-            mean_flat = contrib if mean_flat is None else mean_flat + contrib
-    return apply_update(run.global_params, unravel(mean_flat), cfg.server_lr)
+    groups: Dict[codec.CodecSpec, List[int]] = {}
+    for i, e in enumerate(encoded):
+        groups.setdefault(e.spec, []).append(i)
+    mean_flat = None
+    for spec, idx in groups.items():
+        s_g = sum(norm_list[i] for i in idx)    # host float: bit-stable
+        w_g = trace.to_device([norm_list[i] / s_g for i in idx], dev,
+                              torch.float32)
+        part = _fused_group(spec, [encoded[i] for i in idx], w_g, base)
+        contrib = trace.to_device(s_g, dev, torch.float32) * part
+        mean_flat = contrib if mean_flat is None else mean_flat + contrib
+    return mean_flat
 
 
 def _lifecycle_sync(run, r: int, participants
@@ -246,7 +261,8 @@ def _finish_record(run, r: int, metrics, bytes_up, bytes_raw, ratios,
     from repro_torch.core.federated import RoundRecord
     gmetrics = {}
     if run.eval_data is not None:
-        gmetrics = run.task.evaluate(run.global_params, run.eval_data)
+        with trace.span("global_eval"):
+            gmetrics = run.task.evaluate(run.global_params, run.eval_data)
     return RoundRecord(
         round=r, collab_metrics=metrics, global_metrics=gmetrics,
         bytes_up=bytes_up, bytes_up_raw=bytes_raw,
@@ -284,6 +300,7 @@ class SyncFedAvg(RoundScheduler):
     the one-call server path. Downlink is the global model broadcast to
     every participant."""
 
+    @trace.spanned("round", frees=True)
     def run_round(self, r: int):
         run, cfg = self.run, self.run.cfg
         model_bytes = float(tree_bytes(run.global_params))
@@ -336,10 +353,12 @@ class SampledSync(RoundScheduler):
         run, cfg = self.run, self.run.cfg
         if not self.use_vmap or len(cohort) < 2:
             return None
-        return run.task.local_update_batched(
-            run.global_params, [run.datasets[ci] for ci in cohort], cfg,
-            seed=cfg.seed * 997 + r, anchor=run.global_params)
+        with trace.span("client_train"):
+            return run.task.local_update_batched(
+                run.global_params, [run.datasets[ci] for ci in cohort], cfg,
+                seed=cfg.seed * 997 + r, anchor=run.global_params)
 
+    @trace.spanned("round", frees=True)
     def run_round(self, r: int):
         run, cfg = self.run, self.run.cfg
         cohort = self.sampled(r)
@@ -550,6 +569,7 @@ class AsyncBuffered(RoundScheduler):
         lat = self.latency.sample(ci, self._version, len(run.datasets))
         self._push(ci, self._clock + lat)
 
+    @trace.spanned("round", frees=True)
     def run_round(self, r: int):
         run, cfg = self.run, self.run.cfg
         for ci in self._to_redispatch:     # deferred from the previous flush

@@ -22,8 +22,11 @@ the global model updates and exactly those K clients are re-dispatched.
   donated argument is; callers hold only the returned state. Allocated
   memory is flat from the second round on.
 * Host work a round is a fixed number of launches, whatever N and K: no
-  per-client Python loop and no device-to-host read (the step keeps a
-  host copy of ``next_seq`` for the generator's seed).
+  per-client Python loop, and one device-to-host read, the global version
+  that ``index_fill_`` fills the re-dispatched clients' versions with
+  (the step keeps a host copy of ``next_seq`` for the generator's seed).
+  Both reads go through :func:`repro_torch.trace.to_host`, whose
+  ``host_syncs`` counter counts them.
 
 The draws cannot be bit-equal to ``jax.random``'s, so the two draw sites
 are module-level seams, as in the reference: :func:`synthetic_payloads`
@@ -48,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import codec
 from repro_torch.core.arrival import pop_k_device
 from repro_torch.core.pytree import flatten, unflatten
@@ -209,6 +213,7 @@ class _Step:
         # seed without a device-to-host read a round
         self._last: Optional[Tuple[int, int]] = None   # (data_ptr, seq)
 
+    @trace.spanned("ingest_step")
     @torch.no_grad()
     def __call__(self, state: State) -> State:
         cfg, k = self.cfg, self.cfg.buffer_k
@@ -218,38 +223,42 @@ class _Step:
         if self._last is not None and self._last[0] == g_in.data_ptr():
             next_seq = self._last[1]
         else:
-            next_seq = int(state["next_seq"])
+            next_seq = int(trace.to_host(state["next_seq"]))
 
-        times, seqs = state["times"], state["seqs"]
-        popped_t, idx = pop_k_device(times, seqs, k)
-        clock = torch.maximum(state["clock"], popped_t[-1])
-        idx64 = idx.long()
+        with trace.span("ingest.pop"):
+            times, seqs = state["times"], state["seqs"]
+            popped_t, idx = pop_k_device(times, seqs, k)
+            clock = torch.maximum(state["clock"], popped_t[-1])
+            idx64 = idx.long()
+            # staleness-discounted FedBuff weights, normalized on the device
+            stale = (state["version"] - state["versions"][idx64]).float()
+            w = (1.0 + stale) ** (-cfg.staleness_power)
+            w = w / torch.sum(w)
 
-        # staleness-discounted FedBuff weights, normalized on the device
-        stale = (state["version"] - state["versions"][idx64]).float()
-        w = (1.0 + stale) ** (-cfg.staleness_power)
-        w = w / torch.sum(w)
-
-        self.gen.manual_seed(_seed(cfg, next_seq))
-        stacked = synthetic_payloads(cfg.spec, self.params, k, self.gen)
-        if cfg.shard:
-            mean = codec.decode_and_aggregate_sharded(
-                cfg.spec, self.params, stacked, w, group=self.group)
-        else:
-            mean = codec.decode_and_aggregate(cfg.spec, self.params, stacked,
-                                              w)
-        torch.add(g_in, cfg.server_lr * mean, out=out["global_flat"])
+        with trace.span("ingest.payloads"):
+            self.gen.manual_seed(_seed(cfg, next_seq))
+            stacked = synthetic_payloads(cfg.spec, self.params, k, self.gen)
+        with trace.span("ingest.decode_agg"):
+            if cfg.shard:
+                mean = codec.decode_and_aggregate_sharded(
+                    cfg.spec, self.params, stacked, w, group=self.group)
+            else:
+                mean = codec.decode_and_aggregate(cfg.spec, self.params,
+                                                  stacked, w)
+            torch.add(g_in, cfg.server_lr * mean, out=out["global_flat"])
 
         # re-dispatch exactly the drained cohort with the new model
-        lat = _latency(cfg, self.gen, idx)
-        out["times"].copy_(times).index_copy_(0, idx64, clock + lat)
-        out["seqs"].copy_(seqs).index_copy_(
-            0, idx64, state["next_seq"] + self.arange_k)
-        out["versions"].copy_(state["versions"]).index_fill_(
-            0, idx64, state["version"] + 1)
-        out["clock"].copy_(clock)
-        torch.add(state["version"], 1, out=out["version"])
-        torch.add(state["next_seq"], k, out=out["next_seq"])
+        with trace.span("ingest.redispatch"):
+            lat = _latency(cfg, self.gen, idx)
+            out["times"].copy_(times).index_copy_(0, idx64, clock + lat)
+            out["seqs"].copy_(seqs).index_copy_(
+                0, idx64, state["next_seq"] + self.arange_k)
+            # a fill value is a host scalar: the version is read back
+            out["versions"].copy_(state["versions"]).index_fill_(
+                0, idx64, int(trace.to_host(state["version"])) + 1)
+            out["clock"].copy_(clock)
+            torch.add(state["version"], 1, out=out["version"])
+            torch.add(state["next_seq"], k, out=out["next_seq"])
         state.clear()                  # consumed, as a donated argument
         self._last = (out["global_flat"].data_ptr(), next_seq + k)
         return dict(out)

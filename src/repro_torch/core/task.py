@@ -12,6 +12,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.device import DeviceLike
 
 Tree = Any
@@ -152,9 +153,11 @@ def _lm_step(arch_cfg, optimizer: str, lr: float, prox_mu: float,
         return loss, metrics
 
     def step(p, s, batch, anchor, mask):
-        _, metrics, grads = value_and_grad(loss_fn, p, batch, anchor)
-        grads = tree_map(lambda g, m: g * m, grads, mask)
-        p, s = opt.update(p, grads, s)
+        with trace.span("client_train.grad"):
+            _, metrics, grads = value_and_grad(loss_fn, p, batch, anchor)
+        with trace.span("client_train.optimizer"):
+            grads = tree_map(lambda g, m: g * m, grads, mask)
+            p, s = opt.update(p, grads, s)
         return p, s, metrics
 
     return opt, step
@@ -219,7 +222,7 @@ class LMDeltaTask(ClientTask):
                 params, state, last = step(params, state, batch,
                                            anchor_arg, mask)
         metrics = ({} if last is None
-                   else {k: float(v) for k, v in last.items()})
+                   else {k: float(trace.to_host(v)) for k, v in last.items()})
         return params, metrics
 
     @torch.no_grad()
@@ -228,7 +231,7 @@ class LMDeltaTask(ClientTask):
         call launches the flash-attention kernel."""
         from repro_torch.models import model as model_lib
         _, metrics = model_lib.train_loss(params, self.arch_cfg, data)
-        return {k: float(v) for k, v in metrics.items()}
+        return {k: float(trace.to_host(v)) for k, v in metrics.items()}
 
     def make_batches(self, seed: int, data: Dict[str, torch.Tensor],
                      batch_size: int) -> Iterator[Dict[str, torch.Tensor]]:

@@ -14,6 +14,8 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 Data = Dict[str, torch.Tensor]
 
 
@@ -142,7 +144,7 @@ def _take(data: Data, sel: np.ndarray) -> Data:
     """Rows ``sel`` of every field, indexed on the data's own device."""
     out = {}
     for k, v in data.items():
-        out[k] = v[torch.as_tensor(sel, dtype=torch.int64, device=v.device)]
+        out[k] = v[trace.to_device(sel, v.device, torch.int64)]
     return out
 
 

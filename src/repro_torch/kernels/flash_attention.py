@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _lib, ref
 
 MODES = {"causal": 0, "window": 1, "full": 2}
@@ -109,6 +110,7 @@ def padded_head_dim(D: int, Dv: int) -> Optional[int]:
     return next((p for p in HEAD_DIMS if p >= max(D, Dv)), None)
 
 
+@trace.spanned("kernel.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mode: str = "causal", window: Optional[int] = None,
                     scale: Optional[float] = None, q_offset: int = 0,
@@ -116,6 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash(q, k, v, mode, window, scale, q_offset, softcap, "")
 
 
+@trace.spanned("kernel.flash_attention")
 def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, mode: str = "causal",
                            window: Optional[int] = None,

@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _lib, ref
 
 SMEM_MAX = 227 * 1024          # dynamic shared memory a Hopper block can use
@@ -97,6 +98,7 @@ def plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
     return _plan_bands((M,), N, K, sms)
 
 
+@trace.spanned("kernel.fused_decode_agg")
 def fused_decode_agg(h: torch.Tensor, weights: torch.Tensor,
                      w_last: torch.Tensor, b_last: torch.Tensor
                      ) -> torch.Tensor:
@@ -287,7 +289,7 @@ def grouped_plan(hs: Sequence[torch.Tensor],
         [(decoders[d][0].data_ptr(), decoders[d][1].data_ptr())
          if h.shape[0] else (0, 0) for h, d in zip(hs, dec_idx)],
         out.data_ptr(), bm, cols, tpr)
-    table = torch.from_numpy(table).to(dev)
+    table = trace.to_device(table, dev)
     views = [torch.zeros((h.shape[1], N), dtype=torch.float32, device=dev)
              if o < 0 else out[o:o + h.shape[1]]
              for h, o in zip(hs, offsets)]
@@ -306,6 +308,7 @@ def grouped_launch(p: GroupedLaunch) -> List[torch.Tensor]:
     return p.views
 
 
+@trace.spanned("kernel.grouped_fused_decode_agg")
 def grouped_fused_decode_agg_decoders(hs: Sequence[torch.Tensor],
                                       weights: Sequence[torch.Tensor],
                                       decoders: Sequence[Decoder],

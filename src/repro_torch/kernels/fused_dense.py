@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _lib, ref
 
 ACTS = {"relu": 0, "tanh": 1, "sigmoid": 2, "linear": 3}
@@ -104,6 +105,7 @@ def splitk_plan(K: int, N: int, elem_size: int,
     return rows, tpr, max(1, -(-K // rows))
 
 
+@trace.spanned("kernel.fused_dense")
 def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                 act: str = "relu") -> torch.Tensor:
     """act(x @ w + b). x: (M, K), w: (K, N), b: (N,) → (M, N) in x.dtype,

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _lib, ref
 
 VECTOR_BLOCKS = (64, 128, 256, 512, 1024)   # csrc quantize_vector<BLOCK>
@@ -73,6 +74,7 @@ def kernel_route(kind: str, nb: int, block: int, in_ptr: int,
     return _plan("generic", nb)
 
 
+@trace.spanned("kernel.quantize_blocks_2d")
 def quantize_blocks_2d(x: torch.Tensor, *, bits: int = 8, block: int = 256
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (n_blocks, block) f32 → (q int8 (n_blocks, block), scales f32
@@ -97,6 +99,7 @@ def quantize_blocks_2d(x: torch.Tensor, *, bits: int = 8, block: int = 256
     return q, s
 
 
+@trace.spanned("kernel.dequantize_blocks_2d")
 def dequantize_blocks_2d(q: torch.Tensor, scales: torch.Tensor, *,
                          block: int = 256) -> torch.Tensor:
     """q int8 (n_blocks, block), scales f32 (n_blocks,) → f32

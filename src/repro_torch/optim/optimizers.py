@@ -26,6 +26,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.pytree import flatten, leaves, tree_map, unflatten
 
 Tree = Any
@@ -98,8 +99,8 @@ def make_optimizer(name: str, lr: float, *, weight_decay: float = 0.0,
             g = g.float()
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * torch.square(g)
-            step = (m / bc1.to(m.device)) / (
-                torch.sqrt(v / bc2.to(v.device)) + eps)
+            step = (m / trace.to_device(bc1, m.device)) / (
+                torch.sqrt(v / trace.to_device(bc2, v.device)) + eps)
             if wd > 0.0 and p.dim() >= 2:
                 step = step + wd * p.float()
             return (p.float() - lr * step).to(p.dtype), m, v

@@ -1952,3 +1952,52 @@ def test_example_replay_refuses_tf32_on_card(label):
     with pytest.raises(AssertionError, match="gradient|decision") as err:
         cs.ac_replay(label, record, small=True)
     print(f"{label}: {err.value}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["cnn_round", "lm_round", "serve_step"])
+def test_only_trace_transfers_synchronize(path, monkeypatch):
+    """A reduced CNN round (``SampledSync``, vmapped, composed chunked AE,
+    EF), a reduced LM delta round (by-role codec) and two serve steps under
+    ``torch.cuda.set_sync_debug_mode("error")``, with only
+    ``repro_torch.trace.to_host`` / ``to_device`` let through: every wait
+    of the host on the card goes through them, so their ``host_syncs``
+    counter misses none. A serve step after the first makes one, the
+    global version read back."""
+    _card()
+    import test_torch_trace as tt
+    from repro_torch import trace
+    dev = torch.device("cuda")
+    if path == "serve_step":
+        step, state = tt.serve_step(dev)
+        state = step(state)            # the first step reads next_seq back
+        run_it = lambda: step(state)   # noqa: E731
+    else:
+        run = tt.cnn_run(dev) if path == "cnn_round" else tt.lm_run(dev)
+        run.scheduler.run_round(0)     # warm: library, handles, allocator
+        run_it = lambda: run.scheduler.run_round(1)  # noqa: E731
+    torch.cuda.synchronize()
+    calls = collections.Counter()
+
+    def allowed(fn):
+        def call(*a, **k):
+            calls[fn.__name__] += 1
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+    monkeypatch.setattr(trace, "to_host", allowed(trace.to_host))
+    monkeypatch.setattr(trace, "to_device", allowed(trace.to_device))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_it()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"{path}: {dict(calls)}")
+    if path == "serve_step":
+        assert calls == {"to_host": 1}
+    else:
+        assert calls["to_host"] > 0 and calls["to_device"] > 0

@@ -7,11 +7,13 @@ the composed chunked AE) and run (j) (``AsyncBuffered`` over the MNIST MLP
 at ``PAPER_SCALE_SCENARIO``, TopK 1 % → q8) as ``chip_smoke.py`` does,
 plays one warm-up round of each, and then, for one more round:
 
-* splits (i)'s round into its phases on the host clock, each ended by a
-  synchronize — the vmapped local training, the 100 client encodes with
-  their EF decodes, the server's ``_server_aggregate`` and the global
-  evaluation — calling the functions ``SampledSync.run_round`` calls, in
-  its order;
+* runs (i)'s round under ``torch.profiler`` and splits it by the
+  program's own spans and counters (``repro_torch.trace.snapshot()``:
+  each span's calls, total and self host seconds and parents — ``round``,
+  ``client_train`` and its ``.grad`` / ``.optimizer``, ``client_encode``
+  and its ``.codec`` / ``.ef``, ``server_agg``, ``global_eval``, the
+  ``kernel.*`` wrappers, ``host_sync`` — and the ``host_syncs`` and
+  ``cuda_frees`` counters);
 * traces the whole round of (i) and of (j) with ``torch.profiler``: the
   round's wall time, the card's busy time (the union of its kernels'
   intervals) and idle share, and the ten kernels with the most device
@@ -30,7 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,33 +43,19 @@ def _sync():
 
 
 def _phases_sampled(run, r: int) -> dict:
-    """One ``SampledSync`` round, phase by phase (the body of
-    ``SampledSync.run_round``)."""
-    from repro_torch.core.scheduler import _encode_local, _server_aggregate
-    sched = run.scheduler
-    out = {}
+    """Round ``r`` of ``run`` (``run_round`` itself) under
+    ``torch.profiler``, split by ``repro_torch.trace``'s spans and
+    counters over that round alone. Host times include the profiler's
+    cost for every operation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import trace
     _sync()
-    t0 = time.perf_counter()
-    cohort = sched.sampled(r)
-    batched = sched._cohort_locals(cohort, r)
-    _sync()
-    out["local_train_vmapped_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    encoded = [_encode_local(run, ci, local, run.global_params,
-                             run.clients[ci], m)
-               for ci, (local, m) in zip(cohort, batched)]
-    _sync()
-    out["encode_and_ef_decode_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run.global_params = _server_aggregate(run, encoded,
-                                          [e.weight for e in encoded])
-    _sync()
-    out["server_aggregate_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run.task.evaluate(run.global_params, run.eval_data)
-    _sync()
-    out["evaluate_s"] = time.perf_counter() - t0
-    return out
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run.history.append(run.scheduler.run_round(r))
+        torch.cuda.synchronize()
+    return trace.snapshot()
 
 
 def _traced_round(run, r: int) -> dict:
