@@ -22,11 +22,14 @@ the global model updates and exactly those K clients are re-dispatched.
   donated argument is; callers hold only the returned state. Allocated
   memory is flat from the second round on.
 * Host work a round is a fixed number of launches, whatever N and K: no
-  per-client Python loop, and one device-to-host read, the global version
-  that ``index_fill_`` fills the re-dispatched clients' versions with
-  (the step keeps a host copy of ``next_seq`` for the generator's seed).
-  Both reads go through :func:`repro_torch.trace.to_host`, whose
-  ``host_syncs`` counter counts them.
+  per-client Python loop, and no device-to-host read after the first
+  round. The re-dispatched clients' versions are filled from the device's
+  global version (``index_copy_``), and the step keeps a host copy of
+  ``next_seq`` for the generator's seed; only a state the step did not
+  return itself has its ``next_seq`` read back, through
+  :func:`repro_torch.trace.to_host`, whose ``host_syncs`` counter counts
+  it. So the host enqueues a round while the card still runs the one
+  before: every round's work is ordered on the one stream.
 
 The draws cannot be bit-equal to ``jax.random``'s, so the two draw sites
 are module-level seams, as in the reference: :func:`synthetic_payloads`
@@ -182,7 +185,8 @@ def init_state(cfg: ServeConfig, codec_params: Optional[Tree] = None,
 
 class _Step:
     """One ingest round, state → state, over two preallocated generations
-    (module docstring). Host work is a fixed number of launches."""
+    (module docstring). Host work is a fixed number of launches, with no
+    wait on the card once the step has returned a state."""
 
     def __init__(self, cfg: ServeConfig, codec_params: Optional[Tree],
                  dev: torch.device, group=None):
@@ -253,9 +257,9 @@ class _Step:
             out["times"].copy_(times).index_copy_(0, idx64, clock + lat)
             out["seqs"].copy_(seqs).index_copy_(
                 0, idx64, state["next_seq"] + self.arange_k)
-            # a fill value is a host scalar: the version is read back
-            out["versions"].copy_(state["versions"]).index_fill_(
-                0, idx64, int(trace.to_host(state["version"])) + 1)
+            # the new version from the device tensor: nothing read back
+            out["versions"].copy_(state["versions"]).index_copy_(
+                0, idx64, (state["version"] + 1).expand(k))
             out["clock"].copy_(clock)
             torch.add(state["version"], 1, out=out["version"])
             torch.add(state["next_seq"], k, out=out["next_seq"])

@@ -1962,8 +1962,8 @@ def test_only_trace_transfers_synchronize(path, monkeypatch):
     ``torch.cuda.set_sync_debug_mode("error")``, with only
     ``repro_torch.trace.to_host`` / ``to_device`` let through: every wait
     of the host on the card goes through them, so their ``host_syncs``
-    counter misses none. A serve step after the first makes one, the
-    global version read back."""
+    counter misses none. A serve step after the first makes none: any
+    wait of the host in it raises."""
     _card()
     import test_torch_trace as tt
     from repro_torch import trace
@@ -1998,6 +1998,6 @@ def test_only_trace_transfers_synchronize(path, monkeypatch):
     torch.cuda.synchronize()
     print(f"{path}: {dict(calls)}")
     if path == "serve_step":
-        assert calls == {"to_host": 1}
+        assert calls == {}
     else:
         assert calls["to_host"] > 0 and calls["to_device"] > 0

@@ -4,11 +4,13 @@ run on the CPU: every case of ``tests/test_serve.py``, and a parity test.
 * FedBuff bookkeeping invariants round over round (clock monotone, the
   version up by one, one in-flight dispatch a client), payloads with the
   encode's structure (held against the reference's ``jax.eval_shape``),
-  determinism, the double buffer (the input state consumed, round r+1
-  written into the generation round r read from, allocation flat), the
-  report and its bytes (equal to the reference's ``round_bytes``), a
-  caller's flat model; ``shard=True`` needs an initialised
-  ``torch.distributed`` group and raises without one;
+  determinism, the re-dispatched versions filled from the device's global
+  version equal to ``index_fill_`` of it read back, the double buffer
+  (the input state consumed, round r+1 written into the generation round
+  r read from, allocation flat), the report and its bytes (equal to the
+  reference's ``round_bytes``), a caller's flat model; ``shard=True``
+  needs an initialised ``torch.distributed`` group and raises without
+  one;
 * parity: under ``jax.disable_jit()`` (so a patched draw is read every
   round, not baked into one trace) ``monkeypatch`` hands the reference's
   ``synthetic_payloads`` and ``jax.random.uniform`` the same numpy draws
@@ -113,6 +115,32 @@ def test_step_deterministic():
         sa, sb = step_a(sa), step_b(sb)
     for key in sa:
         assert torch.equal(sa[key], sb[key]), key
+
+
+def test_versions_fill_equals_the_read_back_fill():
+    """The re-dispatched clients' versions, filled from the device's
+    global version, ``torch.equal`` round by round to ``index_fill_`` with
+    that version read back as a host scalar, from a state whose global
+    version is not zero and whose clients hold differing versions."""
+    cfg = _cfg(n_clients=48, buffer_k=6)
+    step = make_step(cfg, device=CPU)
+    state = init_state(cfg, device=CPU)
+    state["version"].fill_(37)
+    state["versions"].copy_(torch.randint(
+        30, 38, (cfg.n_clients,), generator=torch.Generator().manual_seed(3),
+        dtype=torch.int32))
+    for r in range(6):
+        versions, version = state["versions"].clone(), int(state["version"])
+        next_seq = int(state["next_seq"])
+        _, idx = serve.pop_k_device(state["times"], state["seqs"],
+                                    cfg.buffer_k)
+        want = versions.index_fill_(0, idx.long(), version + 1)
+        state = step(state)
+        assert state["versions"].dtype == torch.int32
+        assert torch.equal(state["versions"], want), r
+        assert torch.equal(torch.nonzero(state["seqs"] >= next_seq).ravel(),
+                           idx.long().sort()[0])
+        assert int(state["version"]) == 38 + r
 
 
 def test_double_buffer_consumes_input_state():
